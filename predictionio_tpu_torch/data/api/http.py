@@ -1,0 +1,107 @@
+"""Threaded HTTP transport for pure route handlers (port of the threaded
+half of ``predictionio_tpu/data/api/http.py``; the asyncio transport
+arrives later).
+
+Any object with ``handle(method, path, query, body, headers) ->
+(status, payload[, extra_headers])`` can be served. Payloads render as
+strict JSON: a NaN or Infinity in a payload is a server bug, answered
+500.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import signal
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, Tuple
+
+logger = logging.getLogger("predictionio_tpu_torch.http")
+
+
+def dispatch_request(api, method: str, target: str, body: bytes,
+                     headers: Dict[str, str]
+                     ) -> Tuple[int, bytes, str, Dict[str, str]]:
+    """One request through the handler -> (status, body, content type,
+    extra headers)."""
+    parsed = urllib.parse.urlsplit(target)
+    query = dict(urllib.parse.parse_qsl(parsed.query,
+                                        keep_blank_values=True))
+    extra: Dict[str, str] = {}
+    try:
+        response = api.handle(method, parsed.path, query, body, headers)
+        if len(response) == 3:
+            status, payload, extra = response
+        else:
+            status, payload = response
+    except Exception as e:  # a handler without its own guard
+        logger.exception("handler failed: %s %s", method, parsed.path)
+        status, payload = 500, {"message": str(e)}
+    try:
+        data = json.dumps(payload, allow_nan=False).encode("utf-8")
+    except ValueError:
+        status = 500
+        data = json.dumps(
+            {"message": "response contains non-finite numbers"}
+        ).encode("utf-8")
+    return status, data, "application/json; charset=UTF-8", dict(extra)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    api = None  # set by make_server
+    protocol_version = "HTTP/1.1"
+    # without this, Nagle + delayed ACK add ~40 ms to small keep-alive
+    # responses
+    disable_nagle_algorithm = True
+
+    def _dispatch(self, method: str) -> None:
+        length = int(self.headers.get("Content-Length") or 0)
+        body = self.rfile.read(length) if length else b""
+        status, data, ctype, extra = dispatch_request(
+            self.api, method, self.path, body, dict(self.headers.items()))
+        try:
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(data)))
+            for name, value in extra.items():
+                self.send_header(name, str(value))
+            self.end_headers()
+            self.wfile.write(data)
+        except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+
+    def do_GET(self):  # noqa: N802
+        self._dispatch("GET")
+
+    def do_POST(self):  # noqa: N802
+        self._dispatch("POST")
+
+    def log_message(self, fmt, *args):
+        logger.debug(fmt, *args)
+
+
+def make_server(api, host: str = "localhost", port: int = 0
+                ) -> ThreadingHTTPServer:
+    """Build (without starting) a threaded HTTP server around ``api``;
+    port 0 binds an ephemeral port (read ``server.server_address``)."""
+    handler = type("BoundHandler", (_Handler,), {"api": api})
+    # the default listen backlog of 5 resets bursts of concurrent connects
+    server_cls = type("BoundServer", (ThreadingHTTPServer,),
+                      {"request_queue_size": 128})
+    server = server_cls((host, port), handler)
+    server.daemon_threads = True
+    return server
+
+
+def install_sigterm_handler(fn: Callable[[], None]) -> bool:
+    """Route SIGTERM to ``fn`` on a fresh thread. Returns False outside
+    the main thread, where Python refuses to install handlers."""
+    def _handler(_signum, _frame):
+        threading.Thread(target=fn, name="pio-drain", daemon=True).start()
+    try:
+        signal.signal(signal.SIGTERM, _handler)
+        return True
+    except ValueError:
+        return False

@@ -1,0 +1,327 @@
+"""Quantized serving: int8 factor matrices with per-row fp32 scales (port
+of the serving half of ``predictionio_tpu/ops/quant.py``).
+
+Each factor row r_i stores ``q_i = round(r_i / s_i)`` as int8 with
+``s_i = max|r_i| / 127``. Scoring never dequantizes: the int8 dot
+products are exact integers, then ``s32 * (scale_u * scale_v)`` recovers
+fp32 scores elementwise, so every quantized path — the plain one here
+and the fused kernel (``ops/topk_fused.py``) — gives BIT-IDENTICAL
+(values, indices), ties included, and both match the JAX package.
+
+Quantization and the ranking-parity probe are host numpy, as in the
+reference: they run once per model load, never on the query path.
+
+Mode resolution (``ServerConfig.serve_quant``, env ``PIO_SERVE_QUANT``
+wins): "off" serves fp32, "on" always quantizes, "auto" quantizes on the
+card (``cuda``) and only when the ranking-parity probe clears the floor.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.ops import topk_fused
+from predictionio_tpu_torch.ops.topk import NEG_INF, stable_topk
+
+#: symmetric int8 range: round(row / scale) lands in [-127, 127]
+QMAX = 127.0
+
+_F32 = 4
+
+
+# ---------------------------------------------------------------------------
+# quantization (host, once per model load)
+# ---------------------------------------------------------------------------
+
+def quantize_rows(M: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(q, scales)`` with ``q[i] = clip(round(M[i] / scales[i]), -127,
+    127)`` and ``scales[i] = max|M[i]| / 127`` (1.0 for an all-zero row)."""
+    M = np.asarray(M, dtype=np.float32)
+    amax = np.abs(M).max(axis=1)
+    scales = np.where(amax > 0, amax / QMAX, 1.0).astype(np.float32)
+    q = np.clip(np.rint(M / scales[:, None]), -QMAX, QMAX).astype(np.int8)
+    return q, scales
+
+
+def dequantize_rows(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """The fp32 matrix a (q, scales) pair represents."""
+    return q.astype(np.float32) * np.asarray(scales, np.float32)[:, None]
+
+
+@dataclasses.dataclass
+class QuantizedFactors:
+    """One model's factor matrices quantized, host numpy. ``recall`` /
+    ``exact1`` hold the latest ranking-parity probe."""
+    u_q: np.ndarray          # (n_users, rank) int8
+    u_scale: np.ndarray      # (n_users,) fp32
+    v_q: np.ndarray          # (n_items, rank) int8
+    v_scale: np.ndarray      # (n_items,) fp32
+    recall: Optional[float] = None
+    exact1: Optional[float] = None
+
+    @classmethod
+    def from_factors(cls, user_factors, item_factors) -> "QuantizedFactors":
+        u_q, u_scale = quantize_rows(user_factors)
+        v_q, v_scale = quantize_rows(item_factors)
+        return cls(u_q=u_q, u_scale=u_scale, v_q=v_q, v_scale=v_scale)
+
+    @property
+    def n_users(self) -> int:
+        return int(self.u_q.shape[0])
+
+    @property
+    def n_items(self) -> int:
+        return int(self.v_q.shape[0])
+
+    @property
+    def rank(self) -> int:
+        return int(self.u_q.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# ranking-parity probe (the deploy-time gate value)
+# ---------------------------------------------------------------------------
+
+def ranking_parity(user_factors, item_factors, qf: QuantizedFactors,
+                   k: int = 10, sample: int = 256) -> Dict[str, Any]:
+    """recall@k and exact-match@1 of the quantized ranking against the
+    fp32 ranking on a deterministic evenly spaced user sample, ties by
+    lowest item index. Host numpy, deploy time only."""
+    U = np.asarray(user_factors, np.float32)
+    V = np.asarray(item_factors, np.float32)
+    n_users, n_items = U.shape[0], V.shape[0]
+    k = min(int(k), n_items)
+    take = min(int(sample), n_users)
+    ixs = np.unique(np.linspace(0, n_users - 1, take).astype(np.int64))
+    sf = U[ixs] @ V.T
+    s32 = qf.u_q[ixs].astype(np.int32) @ qf.v_q.astype(np.int32).T
+    sq = s32.astype(np.float32) * (qf.u_scale[ixs][:, None]
+                                   * qf.v_scale[None, :])
+    top_f = np.argsort(-sf, axis=1, kind="stable")[:, :k]
+    top_q = np.argsort(-sq, axis=1, kind="stable")[:, :k]
+    inter = np.asarray([np.intersect1d(a, b).size
+                        for a, b in zip(top_f, top_q)])
+    return {
+        "k": k,
+        "sampledUsers": int(ixs.size),
+        "recall": float(np.mean(inter / k)),
+        "exact1": float(np.mean(top_f[:, 0] == top_q[:, 0])),
+    }
+
+
+def recall_floor() -> float:
+    """recall@k below which "auto" refuses to quantize
+    (``PIO_SERVE_QUANT_RECALL_MIN``, default 0.99)."""
+    try:
+        return float(os.environ.get("PIO_SERVE_QUANT_RECALL_MIN", "0.99"))
+    except ValueError:
+        return 0.99
+
+
+def accept_parity(parity: Dict[str, Any],
+                  mode: Optional[str] = None) -> bool:
+    """"on" always serves quantized; "auto" needs recall@k >= the floor."""
+    if configured_mode(mode) == "on":
+        return True
+    return float(parity.get("recall", 0.0)) >= recall_floor()
+
+
+# ---------------------------------------------------------------------------
+# mode resolution: ServerConfig.serve_quant + PIO_SERVE_QUANT
+# ---------------------------------------------------------------------------
+
+_scope = threading.local()
+
+
+def _normalize_mode(mode: str) -> str:
+    m = (mode or "auto").lower()
+    if m in ("0", "off"):
+        return "off"
+    if m in ("1", "on"):
+        return "on"
+    if m == "auto":
+        return "auto"
+    raise ValueError(f"serve-quant mode must be auto/on/off, got {mode!r}")
+
+
+def configured_mode(mode: Optional[str] = None) -> str:
+    """Effective mode: ``PIO_SERVE_QUANT`` wins over the config value."""
+    env = os.environ.get("PIO_SERVE_QUANT", "")
+    if env:
+        return _normalize_mode(env)
+    if mode is not None:
+        return _normalize_mode(mode)
+    return _normalize_mode(getattr(_scope, "mode", "auto"))
+
+
+@contextlib.contextmanager
+def deploy_scope(mode: str, device: device_mod.DeviceLike = None):
+    """Install the deploy's serve-quant mode and device for the calling
+    thread (``QueryAPI`` wraps ``prepare_serving`` in it). Validates the
+    mode eagerly so a bad config fails the deploy, not a query."""
+    _normalize_mode(mode)
+    prev = (getattr(_scope, "mode", None), getattr(_scope, "device", None))
+    _scope.mode, _scope.device = mode, device
+    try:
+        yield
+    finally:
+        _scope.mode, _scope.device = prev
+
+
+def scoped_device() -> torch.device:
+    """The device of the enclosing :func:`deploy_scope` (resolved by the
+    device policy when the scope names none)."""
+    return device_mod.resolve(getattr(_scope, "device", None))
+
+
+def serving_enabled(mode: Optional[str] = None) -> bool:
+    """Should prepare_serving quantize? "auto" is true on the card (the
+    probe's verdict is :func:`accept_parity`'s half of the decision)."""
+    m = configured_mode(mode)
+    if m == "off":
+        return False
+    if m == "on":
+        return True
+    return scoped_device().type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the plain int8 serving path (PIO_SERVE_FUSED=off, and the inline query)
+# ---------------------------------------------------------------------------
+
+def _masked_scores(Q, su, vt_q, v_scale, n_items: int) -> torch.Tensor:
+    scores = topk_fused.int8_scores(Q, su, vt_q, v_scale)
+    gid = torch.arange(scores.shape[-1], device=scores.device)
+    return torch.where(gid < n_items, scores,
+                       torch.tensor(NEG_INF, dtype=torch.float32,
+                                    device=scores.device))
+
+
+def topk_for_users_quant(u_q: torch.Tensor, u_scale: torch.Tensor,
+                         vt_q: torch.Tensor, v_scale: torch.Tensor,
+                         user_ixs: torch.Tensor, *, k: int, n_items: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched quantized serve: B int8 row gathers, the exact int8 dot,
+    the elementwise rescale, padding columns masked, stable top-k.
+    ``user_ixs`` must be in bounds."""
+    ix = user_ixs.to(torch.int64)
+    scores = _masked_scores(u_q.index_select(0, ix),
+                            u_scale.index_select(0, ix), vt_q, v_scale,
+                            n_items)
+    return stable_topk(scores, k)
+
+
+def topk_for_user_quant(u_q: torch.Tensor, u_scale: torch.Tensor,
+                        vt_q: torch.Tensor, v_scale: torch.Tensor,
+                        user_ix: int, *, k: int, n_items: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inline single-query quantized serve; bit-identical to a row of the
+    batched path."""
+    ix = int(user_ix)
+    scores = _masked_scores(u_q[ix:ix + 1], u_scale[ix:ix + 1], vt_q,
+                            v_scale, n_items)
+    vals, idx = stable_topk(scores, k)
+    return vals[0], idx[0]
+
+
+# ---------------------------------------------------------------------------
+# the device layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantizedServing:
+    """One model's quantized factors on the serving device. The item
+    matrix lives TRANSPOSED, ``(rank, n_pad)`` with n_pad rounded up to
+    the fused kernel's tile and 0 scales on the pad columns, so one
+    layout serves both the fused and the plain path. ``fused`` is
+    resolved once at build (``PIO_SERVE_FUSED``)."""
+    u_q: torch.Tensor        # (n_users, r) int8
+    u_scale: torch.Tensor    # (n_users,) fp32
+    vt_q: torch.Tensor       # (r, n_pad) int8
+    v_scale: torch.Tensor    # (n_pad,) fp32, 0 on pad columns
+    n_users: int
+    n_items: int
+    rank: int
+    tile: int
+    fused: bool
+    device: torch.device
+    recall: Optional[float] = None
+    exact1: Optional[float] = None
+
+    @classmethod
+    def build(cls, qf: QuantizedFactors,
+              device: device_mod.DeviceLike = None) -> "QuantizedServing":
+        dev = device_mod.resolve(device)
+        tile = topk_fused.serve_tile()
+        n_items = qf.n_items
+        n_pad = -(-max(n_items, 1) // tile) * tile
+        vt = np.zeros((qf.rank, n_pad), dtype=np.int8)
+        vt[:, :n_items] = qf.v_q.T
+        sv = np.zeros((n_pad,), dtype=np.float32)
+        sv[:n_items] = qf.v_scale
+        return cls(
+            u_q=torch.from_numpy(np.ascontiguousarray(qf.u_q)).to(dev),
+            u_scale=torch.from_numpy(qf.u_scale).to(dev),
+            vt_q=torch.from_numpy(vt).to(dev),
+            v_scale=torch.from_numpy(sv).to(dev),
+            n_users=qf.n_users, n_items=n_items, rank=qf.rank,
+            tile=tile, fused=topk_fused.fused_choice(), device=dev,
+            recall=qf.recall, exact1=qf.exact1)
+
+    def _checked(self, user_ixs) -> np.ndarray:
+        """Host-side bounds check: an out-of-range row would read past
+        the factor matrix on the card."""
+        ixs = np.asarray(user_ixs, dtype=np.int32).reshape(-1)
+        if ixs.size and (ixs.min() < 0 or ixs.max() >= self.n_users):
+            raise IndexError(
+                f"user index out of [0, {self.n_users}): "
+                f"{ixs.min()}..{ixs.max()}")
+        return ixs
+
+    def topk(self, user_ixs, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched top-k for host ``user_ixs``: the fused path (the kernel
+        on the card) or the plain int8 path."""
+        ixs = torch.from_numpy(self._checked(user_ixs)).to(self.device)
+        if self.fused:
+            return topk_fused.topk_for_users_quant_fused(
+                self.u_q, self.u_scale, self.vt_q, self.v_scale, ixs,
+                k=int(k), n_items=self.n_items, tile=self.tile)
+        return topk_for_users_quant(
+            self.u_q, self.u_scale, self.vt_q, self.v_scale, ixs,
+            k=int(k), n_items=self.n_items)
+
+    def topk_one(self, user_ix, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._checked(user_ix)
+        return topk_for_user_quant(
+            self.u_q, self.u_scale, self.vt_q, self.v_scale, int(user_ix),
+            k=int(k), n_items=self.n_items)
+
+    def int8_bytes(self) -> int:
+        """Logical footprint (int8 matrices + fp32 scales), pad excluded."""
+        rows = self.n_users + self.n_items
+        return rows * self.rank + rows * _F32
+
+    def fp32_bytes(self) -> int:
+        return (self.n_users + self.n_items) * self.rank * _F32
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "dtype": "int8",
+            "fused": bool(self.fused),
+            # the CPU runs the kernel's plain version, as the JAX
+            # package's interpret mode does off the TPU
+            "interpret": bool(self.fused and self.device.type == "cpu"),
+            "tile": int(self.tile),
+            "int8Bytes": self.int8_bytes(),
+            "fp32Bytes": self.fp32_bytes(),
+            "recall": self.recall,
+            "exact1": self.exact1,
+        }

@@ -1,0 +1,71 @@
+"""Deterministic top-K scoring from factor matrices (port of
+``predictionio_tpu/ops/topk.py``).
+
+Order is descending score with equal scores broken by the LOWEST index,
+on every device. ``torch.sort(-scores, stable=True)`` over the index
+order realizes exactly the reference's two-key ``lax.sort`` over
+(negated score, index): a stable sort keeps equal keys in index order.
+The fp32 products stay ``torch.matmul`` at full precision (TF32 is off,
+:mod:`predictionio_tpu_torch.device`), as the reference leaves them to
+XLA at ``Precision.HIGHEST``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+#: the reference's masked-score sentinel, bit for bit
+NEG_INF = -3.4e38
+
+
+def stable_topk(scores: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis: descending score, ties by lowest index.
+    Returns (values, int32 indices)."""
+    neg, idx = torch.sort(-scores, dim=-1, stable=True)
+    # -(-x) is a bitwise round trip for floats (two sign flips)
+    return -neg[..., :k], idx[..., :k].to(torch.int32)
+
+
+def topk_for_user(user_factors: torch.Tensor, item_factors: torch.Tensor,
+                  user_ix: int, k: int = 10
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-query serve: row gather + matvec + stable top-k.
+    ``user_ix`` must be in bounds (callers resolve it against the user
+    vocabulary first)."""
+    return stable_topk(item_factors @ user_factors[int(user_ix)], k)
+
+
+def topk_for_users(user_factors: torch.Tensor, item_factors: torch.Tensor,
+                   user_ixs: torch.Tensor, k: int = 10
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched serve: B row gathers + one (b, r) x (r, n_items) matmul +
+    stable top-k. Callers pad ``user_ixs`` to a serving bucket with an
+    in-bounds index and drop the padding rows."""
+    Q = user_factors.index_select(0, user_ixs.to(torch.int64))
+    return stable_topk(Q @ item_factors.T, k)
+
+
+def host_topk(scores, k: int):
+    """numpy argpartition top-K on the host (copied from the reference,
+    which is host numpy too). k <= 0 returns empty. Ties break by lowest
+    index: entries strictly above the k-th value keep the partitioned
+    path, the boundary ties are re-resolved from the full array."""
+    k = min(k, scores.shape[-1])
+    if k <= 0:
+        return scores[:0], np.zeros((0,), dtype=np.int64)
+    sel = np.argpartition(-scores, k - 1)[:k]
+    kth = scores[sel].min()
+    if np.isnan(kth):
+        # a poisoned model: let the NaNs reach the serving layer's
+        # non-finite gate instead of masking them with a tidy answer
+        sel = sel[np.argsort(-scores[sel], kind="stable")]
+        return scores[sel], sel
+    strict = sel[scores[sel] > kth]
+    strict = strict[np.lexsort((strict, -scores[strict]))]
+    ties = np.flatnonzero(scores == kth)[:k - strict.size]
+    idx = np.concatenate([strict, ties])
+    return scores[idx], idx

@@ -1,0 +1,400 @@
+"""The engine (deploy) server, single engine (port of
+``predictionio_tpu/workflow/create_server.py``).
+
+The server loads the latest COMPLETED EngineInstance's engine and model
+blob, lays the model out on the deploy's device (``ServerConfig.device``,
+else the device policy: the card) and answers:
+
+  GET  /             -> status (engine instance, serving stats)
+  GET  /readyz       -> readiness
+  POST /queries.json -> supplement -> predict -> serve, micro-batched
+  POST /stop         -> shut the server down
+
+Multi-tenancy, fold-in, partitions, plugins, feedback, AOT, SLOs and the
+metrics history of the JAX server arrive in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime as _dt
+import json
+import logging
+import math
+import threading
+import time
+from typing import Any, Dict, Optional, Tuple
+
+from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.data.storage import Storage, get_storage
+from predictionio_tpu_torch.ops import quant as serve_quant
+from predictionio_tpu_torch.serving import (
+    MicroBatcher, ServerSaturated, batch_capable, protocol,
+)
+from predictionio_tpu_torch.workflow import json_extractor, model_io
+from predictionio_tpu_torch.workflow.workflow_utils import get_engine
+
+logger = logging.getLogger("predictionio_tpu_torch.server")
+
+#: (status, payload) or (status, payload, extra_headers)
+Response = Tuple[int, Any]
+
+
+def _utcnow() -> _dt.datetime:
+    return _dt.datetime.now(tz=_dt.timezone.utc)
+
+
+def _format_time(t: _dt.datetime) -> str:
+    if t.tzinfo is None:
+        t = t.replace(tzinfo=_dt.timezone.utc)
+    return (t.astimezone(_dt.timezone.utc).isoformat(timespec="milliseconds")
+            .replace("+00:00", "Z"))
+
+
+def _has_non_finite(obj) -> bool:
+    if isinstance(obj, float):
+        return not math.isfinite(obj)
+    if isinstance(obj, dict):
+        return any(_has_non_finite(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return any(_has_non_finite(v) for v in obj)
+    return False
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    """CreateServer args (CreateServer.scala:77-103), the micro-batching
+    knobs, and the serving layout choices the port has so far."""
+    engine_instance_id: Optional[str] = None
+    engine_id: str = "default"
+    engine_version: str = "NOT_USED"
+    engine_variant: str = "default"
+    engine_dir: Optional[str] = None
+    #: "cuda" or "cpu"; None = PIO_TORCH_DEVICE, else cuda (device.py)
+    device: Optional[str] = None
+    #: "auto" batches when an algorithm has a real predict_batch; "on"
+    #: always; "off" answers one query per request inline
+    batching: str = "auto"
+    batch_max_size: int = 64
+    batch_max_delay_ms: float = 2.0
+    #: queue depth beyond which /queries.json answers 503 + Retry-After
+    batch_max_queue: int = 256
+    #: how long drain() waits for admitted batches to finish
+    drain_grace_s: float = 30.0
+    #: quantized serving (ops/quant.py): "on" int8, "off" fp32, "auto"
+    #: int8 on the card when the ranking-parity probe passes;
+    #: PIO_SERVE_QUANT overrides
+    serve_quant: str = "auto"
+
+
+def resolve_engine_instance(storage: Storage, config: ServerConfig):
+    """Latest COMPLETED instance unless one is pinned."""
+    instances = storage.get_meta_data_engine_instances()
+    if config.engine_instance_id:
+        instance = instances.get(config.engine_instance_id)
+        if instance is None:
+            raise ValueError(
+                f"EngineInstance {config.engine_instance_id} not found")
+        if instance.status != "COMPLETED":
+            raise ValueError(
+                f"EngineInstance {instance.id} is {instance.status}, not "
+                "COMPLETED; cannot deploy")
+        return instance
+    instance = instances.get_latest_completed(
+        config.engine_id, config.engine_version, config.engine_variant)
+    if instance is None:
+        raise ValueError(
+            "No valid engine instance found for engine "
+            f"{config.engine_id} {config.engine_version} "
+            f"{config.engine_variant}. Try running `pio train` first.")
+    return instance
+
+
+def engine_params_from_instance(engine: Engine, instance) -> EngineParams:
+    """Rebuild EngineParams from the ledger row's JSON snapshots."""
+    def subtree(raw):
+        obj = json.loads(raw or "{}")
+        return obj if (not obj or "params" in obj) else {"params": obj}
+
+    variant = {
+        "datasource": subtree(instance.data_source_params),
+        "preparator": subtree(instance.preparator_params),
+        "serving": subtree(instance.serving_params),
+    }
+    algos = json.loads(instance.algorithms_params or "[]")
+    if algos:
+        variant["algorithms"] = algos
+    return engine.engine_params_from_json(variant)
+
+
+class QueryAPI:
+    """Pure route handler for the engine server; the HTTP transport
+    (data/api/http.py) calls :meth:`handle`."""
+
+    def __init__(self, config: Optional[ServerConfig] = None,
+                 storage: Optional[Storage] = None,
+                 engine: Optional[Engine] = None):
+        self.config = config or ServerConfig()
+        self.storage = storage or get_storage()
+        self.device = device_mod.resolve(self.config.device)
+        self._engine_override = engine
+        self._lock = threading.Lock()
+        self._stop_requested = threading.Event()
+        self._draining = threading.Event()
+        self._batcher: Optional[MicroBatcher] = None
+        self._quant_state: Optional[Dict[str, Any]] = None
+        self.request_count = 0
+        self.avg_serving_sec = 0.0
+        self.last_serving_sec = 0.0
+        self.start_time = _utcnow()
+        self.generation = 0
+        #: wall-clock from load start to servable (blob read, quantize,
+        #: device layout)
+        self.time_to_ready_s: Optional[float] = None
+        self._load_single()
+
+    # ------------------------------------------------------------- loading
+    def _load_single(self) -> None:
+        t_load = time.perf_counter()
+        instance = resolve_engine_instance(self.storage, self.config)
+        engine = self._engine_override or get_engine(
+            instance.engine_factory, base_dir=self.config.engine_dir)
+        engine_params = engine_params_from_instance(engine, instance)
+        blob = self.storage.get_model_data_models().get(instance.id)
+        if blob is None:
+            raise ValueError(f"No model data for EngineInstance {instance.id}")
+        models = model_io.deserialize_models(blob.models)
+        _, _, algorithms, serving = engine._instantiate(engine_params)
+        with serve_quant.deploy_scope(self.config.serve_quant,
+                                      device=self.device):
+            models = [a.prepare_serving(m)
+                      for a, m in zip(algorithms, models)]
+            quant_requested = serve_quant.serving_enabled()
+        quant_state = next(
+            ({"enabled": True, **m.quant.summary()} for m in models
+             if getattr(m, "quant", None) is not None), None)
+        if quant_state is None and quant_requested:
+            quant_state = {"enabled": False, "fellBack": True}
+        batcher = self._make_batcher(algorithms, models, serving)
+        with self._lock:
+            self.engine_instance = instance
+            self.engine = engine
+            self.engine_params = engine_params
+            self.algorithms = algorithms
+            self.models = models
+            self.serving = serving
+            self._quant_state = quant_state
+            old_batcher, self._batcher = self._batcher, batcher
+        if old_batcher is not None:
+            old_batcher.close()
+        self.time_to_ready_s = time.perf_counter() - t_load
+        self.generation += 1
+        logger.info("Engine instance %s deployed on %s (%d algorithm(s), "
+                    "batching %s) in %.2fs", instance.id, self.device,
+                    len(algorithms), "on" if batcher is not None else "off",
+                    self.time_to_ready_s)
+
+    def _make_batcher(self, algorithms, models, serving
+                      ) -> Optional[MicroBatcher]:
+        """The request micro-batcher for this load, or None. The flush
+        closes over THIS load's algorithms, models and serving."""
+        mode = (self.config.batching or "auto").lower()
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"ServerConfig.batching must be auto/on/off, got {mode!r}")
+        if mode == "off":
+            return None
+        if mode == "auto" and not any(batch_capable(a) for a in algorithms):
+            return None
+
+        def flush(queries):
+            supplemented = [serving.supplement(q) for q in queries]
+            per_algo = [protocol.predict_batch(a, m, supplemented)
+                        for a, m in zip(algorithms, models)]
+            return [serving.serve(q, [col[j] for col in per_algo])
+                    for j, q in enumerate(queries)]
+
+        return MicroBatcher(
+            flush,
+            max_batch_size=self.config.batch_max_size,
+            max_delay_ms=self.config.batch_max_delay_ms,
+            max_queue=self.config.batch_max_queue)
+
+    # ----------------------------------------------------------- lifecycle
+    @property
+    def stop_requested(self) -> bool:
+        return self._stop_requested.is_set()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def drain(self, grace_s: Optional[float] = None) -> None:
+        """Graceful shutdown: stop admitting queries, let the batcher
+        finish every admitted batch, then request stop."""
+        if self._draining.is_set():
+            return
+        self._draining.set()
+        with self._lock:
+            batcher = self._batcher
+        if batcher is not None:
+            batcher.close(timeout=(grace_s if grace_s is not None
+                                   else self.config.drain_grace_s))
+        self._stop_requested.set()
+
+    def close(self) -> None:
+        """Retire the batcher (server shutdown)."""
+        with self._lock:
+            batcher, self._batcher = self._batcher, None
+        if batcher is not None:
+            batcher.close()
+
+    # ------------------------------------------------------------ dispatch
+    def handle(self, method: str, path: str,
+               query: Optional[Dict[str, str]] = None,
+               body: bytes = b"",
+               headers: Optional[Dict[str, str]] = None) -> Response:
+        method = method.upper()
+        path = (path or "/").rstrip("/") or "/"
+        try:
+            if path == "/" and method == "GET":
+                return 200, self._status()
+            if path == "/healthz" and method == "GET":
+                return 200, {"status": "ok"}
+            if path == "/readyz" and method == "GET":
+                return self._readyz()
+            if path == "/queries.json" and method == "POST":
+                return self._queries(body)
+            if path == "/stop" and method == "POST":
+                self._stop_requested.set()
+                return 200, {"message": "Shutting down."}
+            return 404, {"message": "Not Found"}
+        except Exception as e:
+            logger.exception("engine server request failed: %s %s",
+                             method, path)
+            return 500, {"message": str(e)}
+
+    def _status(self) -> Dict[str, Any]:
+        i = self.engine_instance
+        out = {
+            "status": "alive",
+            "engineInstance": {
+                "id": i.id,
+                "engineFactory": i.engine_factory,
+                "startTime": _format_time(i.start_time),
+                "batch": i.batch,
+            },
+            "algorithms": [type(a).__name__ for a in self.algorithms],
+            "requestCount": self.request_count,
+            "avgServingSec": self.avg_serving_sec,
+            "lastServingSec": self.last_serving_sec,
+            "draining": self._draining.is_set(),
+            "serverStartTime": _format_time(self.start_time),
+            "generation": self.generation,
+            "device": device_mod.describe(self.device),
+        }
+        batcher = self._batcher
+        out["batching"] = ({"enabled": True, **batcher.stats()}
+                           if batcher is not None else {"enabled": False})
+        if self._quant_state is not None:
+            out["quant"] = self._quant_state
+        return out
+
+    def _readyz(self) -> Response:
+        """Ready: a model is deployed and the admission queue has room.
+        503 while draining."""
+        if self._draining.is_set():
+            return 503, {"status": "draining",
+                         "generation": self.generation}
+        with self._lock:
+            instance = getattr(self, "engine_instance", None)
+            batcher = self._batcher
+        checks: Dict[str, Any] = {"modelLoaded": instance is not None}
+        ready = checks["modelLoaded"]
+        if batcher is not None:
+            depth = batcher.depth()
+            checks["queueDepth"] = depth
+            ready &= depth < self.config.batch_max_queue
+        return (200 if ready else 503), {
+            "status": "ready" if ready else "unready",
+            "generation": self.generation, **checks}
+
+    def _queries(self, body: bytes) -> Response:
+        t0 = time.perf_counter()
+        if self._draining.is_set():
+            return 503, {"message": "server is draining"}, \
+                {"Retry-After": "1"}
+        with self._lock:
+            algorithms, models, serving, batcher = (
+                self.algorithms, self.models, self.serving, self._batcher)
+            instance = self.engine_instance
+        try:
+            query = json_extractor.extract_query(
+                getattr(algorithms[0], "query_class", None), body)
+        except (ValueError, UnicodeDecodeError) as e:
+            return 400, {"message": str(e)}
+        if batcher is not None:
+            try:
+                prediction = batcher.submit(query)
+            except ServerSaturated as e:
+                return 503, {"message": (
+                    "serving queue is saturated (admission control); "
+                    "retry later")}, {"Retry-After": str(e.retry_after_s)}
+            except RuntimeError:
+                # lost the race with drain()/close()
+                return 503, {"message": "server is draining"}, \
+                    {"Retry-After": "1"}
+        else:
+            supplemented = serving.supplement(query)
+            predictions = [a.predict(m, supplemented)
+                           for a, m in zip(algorithms, models)]
+            prediction = serving.serve(query, predictions)
+        result = json_extractor.to_json_obj(prediction)
+        if _has_non_finite(result):
+            logger.error("prediction for instance %s contains non-finite "
+                         "scores; refusing to serve it", instance.id)
+            return 500, {"message":
+                         "prediction contains non-finite scores (the "
+                         "deployed model is numerically invalid); retrain "
+                         "and redeploy"}
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.last_serving_sec = dt
+            self.avg_serving_sec = (
+                (self.avg_serving_sec * self.request_count) + dt
+            ) / (self.request_count + 1)
+            self.request_count += 1
+        return 200, result
+
+
+def serve(api: QueryAPI, host: str = "localhost", port: int = 8000,
+          bind_retries: int = 3) -> None:
+    """Run until /stop or SIGTERM. SIGTERM drains: new queries get 503,
+    the batcher finishes every admitted batch, then the server exits."""
+    from predictionio_tpu_torch.data.api.http import (
+        install_sigterm_handler, make_server,
+    )
+    server = None
+    for attempt in range(bind_retries):
+        try:
+            server = make_server(api, host, port)
+            break
+        except OSError:
+            if attempt == bind_retries - 1:
+                raise
+            logger.warning("Bind failed; retrying in 1s...")
+            time.sleep(1)
+    install_sigterm_handler(api.drain)
+    worker = threading.Thread(target=server.serve_forever, daemon=True)
+    worker.start()
+    logger.info("Engine server online at http://%s:%s", host, port)
+    try:
+        while not api.stop_requested:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    server.shutdown()
+    server.server_close()
+    worker.join()
+    api.close()
