@@ -1,10 +1,12 @@
-"""Base DASE component classes (port of the serving half of
+"""Base DASE component classes (port of
 ``predictionio_tpu/controller/base.py``).
 
 An engine is DataSource, Preparator, Algorithm(s) and Serving, each
-instantiated from its typed Params. Deploy needs only Params, the
-Algorithm's serving hooks and Serving; the training hooks arrive with
-the training slice.
+instantiated from its typed Params. ``pio train`` reads through the
+DataSource, prepares through the Preparator and trains each Algorithm;
+``pio deploy`` uses the Algorithm's serving hooks and Serving. The
+evaluation hooks (``read_eval``, ``batch_predict``) wait for the
+evaluation slice.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import abc
 import dataclasses
 from typing import Generic, List, Optional, Sequence, TypeVar
 
+TD = TypeVar("TD")   # training data
 PD = TypeVar("PD")   # prepared data
 Q = TypeVar("Q")     # query
 P = TypeVar("P")     # predicted result
@@ -27,6 +30,14 @@ class Params:
 @dataclasses.dataclass(frozen=True)
 class EmptyParams(Params):
     pass
+
+
+class SanityCheck(abc.ABC):
+    """Data classes that can validate themselves after read/prepare."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise if the data is unusable (empty, malformed)."""
 
 
 def create_doer(cls, params: Optional[Params]):
@@ -45,6 +56,20 @@ def create_doer(cls, params: Optional[Params]):
     except AttributeError:
         pass
     return obj
+
+
+class DataSource(Generic[TD], abc.ABC):
+    """Reads training data from the event store (BaseDataSource.scala)."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx) -> TD: ...
+
+
+class Preparator(Generic[TD, PD], abc.ABC):
+    """Turns training data into prepared data (BasePreparator.scala)."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx, training_data: TD) -> PD: ...
 
 
 class Algorithm(Generic[PD, M, Q, P], abc.ABC):

@@ -1,18 +1,19 @@
-"""Engine: chains DASE classes (port of the deploy half of
+"""Engine: chains DASE classes; train orchestration (port of
 ``predictionio_tpu/controller/engine.py``: EngineParams, engine.json
-extraction, instantiation). Training and evaluation orchestration arrive
-with the training slice; until then an engine may leave its DataSource
-and Preparator classes None, and their engine.json params are skipped.
+extraction, instantiation and ``Engine.train``). Evaluation waits for the
+evaluation slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 from predictionio_tpu_torch.controller.base import (
-    Algorithm, EmptyParams, Params, Serving, create_doer,
+    Algorithm, DataSource, EmptyParams, Params, Preparator, SanityCheck,
+    Serving, create_doer,
 )
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +49,7 @@ def _params_from_json(params_cls: Optional[Type], obj: Dict[str, Any]) -> Params
             f"invalid params for {params_cls.__name__}: {e}") from None
 
 
-def _component_params(cls: Optional[Type], section) -> Params:
-    if cls is None:   # component not ported yet: its params wait with it
-        return EmptyParams()
+def _component_params(cls: Type, section) -> Params:
     return _params_from_json(getattr(cls, "params_class", None),
                              (section or {}).get("params", {}))
 
@@ -58,8 +57,8 @@ def _component_params(cls: Optional[Type], section) -> Params:
 class Engine:
     """An engine = DataSource + Preparator + Algorithm(s) + Serving."""
 
-    def __init__(self, data_source_class: Optional[Type],
-                 preparator_class: Optional[Type],
+    def __init__(self, data_source_class: Type[DataSource],
+                 preparator_class: Type[Preparator],
                  algorithm_class_map: Dict[str, Type[Algorithm]],
                  serving_class: Type[Serving]):
         self.data_source_class = data_source_class
@@ -68,13 +67,10 @@ class Engine:
         self.serving_class = serving_class
 
     def _instantiate(self, engine_params: EngineParams):
-        def doer(cls, params):
-            return None if cls is None else create_doer(cls, params)
-
-        data_source = doer(self.data_source_class,
-                           engine_params.data_source_params)
-        preparator = doer(self.preparator_class,
-                          engine_params.preparator_params)
+        data_source = create_doer(self.data_source_class,
+                                  engine_params.data_source_params)
+        preparator = create_doer(self.preparator_class,
+                                 engine_params.preparator_params)
         algorithms = []
         for name, aparams in engine_params.algorithm_params_list:
             if name not in self.algorithm_class_map:
@@ -85,6 +81,30 @@ class Engine:
                                           aparams))
         serving = create_doer(self.serving_class, engine_params.serving_params)
         return data_source, preparator, algorithms, serving
+
+    def train(self, ctx, engine_params: EngineParams) -> List[Any]:
+        """Read, prepare and train every algorithm (Engine.scala:625-712),
+        each step a phase of ``ctx`` and sanity-checked."""
+        data_source, preparator, algorithms, _ = self._instantiate(
+            engine_params)
+        if not algorithms:
+            raise ValueError("engine_params.algorithm_params_list is empty")
+        with ctx.phase("read"):
+            td = data_source.read_training(ctx)
+        self._sanity_check(td)
+        with ctx.phase("prepare"):
+            pd = preparator.prepare(ctx, td)
+        self._sanity_check(pd)
+        with ctx.phase("train"):
+            models = [a.train(ctx, pd) for a in algorithms]
+        for m in models:
+            self._sanity_check(m)
+        return models
+
+    @staticmethod
+    def _sanity_check(obj) -> None:
+        if isinstance(obj, SanityCheck):
+            obj.sanity_check()
 
     def engine_params_from_json(self, variant_json: Dict[str, Any]
                                 ) -> EngineParams:

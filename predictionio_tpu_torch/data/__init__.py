@@ -1,3 +1,3 @@
-"""Data layer of the port: the ID vocabularies and the metadata/model
-storage the deploy path reads. The event store arrives with the training
-slice."""
+"""Data layer of the port: events, the ID vocabularies, the columnar
+training read, the synthetic rating generator and storage (memory, SQLite,
+local files)."""

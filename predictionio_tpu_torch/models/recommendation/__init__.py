@@ -1,4 +1,4 @@
-"""Recommendation template — explicit ALS, serving half."""
+"""Recommendation template — explicit ALS: train and serve."""
 
 from predictionio_tpu_torch.models.recommendation.engine import (
     ItemScore, PredictedResult, Query, RecommendationEngine,

@@ -1,5 +1,12 @@
-"""ALSAlgorithm, serving half (port of
+"""ALSAlgorithm: explicit ALS train and serve (port of
 ``predictionio_tpu/models/recommendation/als_algorithm.py``).
+
+Training lays the ratings out on the context's device (the card unless
+the caller asks for the CPU) and runs ``ops.als.train_explicit``, whose
+half-steps each end in kernel A. The layout is cached on the
+TrainingData object, so a second train of the same data (another rank,
+a resume) skips it; the reference's process-wide fingerprinted layout
+cache, device staging and streamed read wait for a later slice.
 
 A deployed model serves from the port's device: quantized (int8 factors
 with per-row scales, top-k through the fused kernel) when the deploy's
@@ -7,7 +14,7 @@ serve-quant mode says so, else fp32 factors with a stable top-k. Unlike
 the JAX package, a failed quantization or kernel fails the deploy; it
 never falls back to fp32 behind the operator's back. The "auto" mode's
 ranking-parity refusal stays: it is the documented gate, and it logs
-why. Training arrives with the training slice.
+why.
 """
 
 from __future__ import annotations
@@ -19,14 +26,17 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch.controller import Algorithm, Params
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.models.recommendation.engine import (
     ItemScore, PredictedResult, Query,
 )
+from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import quant as quant_mod
 from predictionio_tpu_torch.ops import topk
 from predictionio_tpu_torch.serving.protocol import bucket_for
+from predictionio_tpu_torch.workflow.checkpoint import FactorCheckpointer
 
 logger = logging.getLogger("predictionio_tpu_torch.recommendation")
 
@@ -48,7 +58,8 @@ class ALSAlgorithmParams(Params):
 class ALSModel:
     """Factor matrices + vocabularies, the same fields as the JAX
     package's ALSModel so its blobs load field for field
-    (workflow/model_io.py). ``quant`` is serve-time state: the
+    (workflow/model_io.py). A trained model holds torch tensors on the
+    train device; a loaded one numpy. ``quant`` is serve-time state: the
     QuantizedServing layout when the deploy quantized; the factors then
     stay host numpy. ``sharding`` is never set by the port (sharded
     serving is a later slice); it exists because the blobs carry it."""
@@ -70,6 +81,29 @@ def _to_host(vals: torch.Tensor, idx: torch.Tensor
     return vals.cpu().numpy(), idx.cpu().numpy()
 
 
+def host_f32(x) -> np.ndarray:
+    """An array-like (numpy, a torch tensor on any device, a JAX array)
+    as contiguous host float32."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def _ensure_layout(td, device: torch.device) -> als.ALSData:
+    """The sorted COO layout of one TrainingData on ``device``, cached on
+    the TrainingData object (the layout is rank-independent)."""
+    key = ("als_layout", str(device))
+    cached = getattr(td, "_pio_layout_cache", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    data = als.prepare_ratings(
+        td.user_idx, td.item_idx, td.rating,
+        n_users=len(td.user_vocab), n_items=len(td.item_vocab),
+        on_device=True, device=device)
+    td._pio_layout_cache = (key, data)
+    return data
+
+
 class ALSAlgorithm(Algorithm):
     params_class = ALSAlgorithmParams
     query_class = Query
@@ -79,19 +113,43 @@ class ALSAlgorithm(Algorithm):
         if isinstance(params.seed, dict):
             raise ValueError("seed must be an integer or null")
 
-    def train(self, ctx, prepared):
-        raise NotImplementedError(
-            "ALS training is not ported yet (the training slice); train "
-            "with the JAX package's `pio train` — its model blob deploys "
-            "here through workflow.model_io")
+    def train(self, ctx, prepared) -> ALSModel:
+        """Explicit ALS on the context's device (``ctx.device``; the card
+        unless the caller asked for the CPU), with the layout as its own
+        ``layout`` phase. ``checkpointInterval`` snapshots factors into
+        ``ctx.checkpoint_dir`` so an interrupted train resumes."""
+        td = prepared.ratings
+        if td.n == 0:
+            raise ValueError(
+                "No ratings found. Please check if DataSource generates "
+                "TrainingData and Preparator generates PreparedData "
+                "correctly.")
+        # MLlib uses System.nanoTime when no seed is given
+        seed = self.ap.seed if self.ap.seed is not None else (
+            np.random.SeedSequence().entropy % (2 ** 31))
+        dev = device_mod.resolve(getattr(ctx, "device", None))
+        with ctx.phase("layout"):
+            data = _ensure_layout(td, dev)
+        checkpointer = None
+        ckpt_dir = getattr(ctx, "checkpoint_dir", None)
+        if self.ap.checkpointInterval and ckpt_dir:
+            checkpointer = FactorCheckpointer(ckpt_dir)
+        U, V = als.train_explicit(
+            data, rank=self.ap.rank, iterations=self.ap.numIterations,
+            lambda_=self.ap.lambda_, seed=int(seed),
+            checkpoint_every=self.ap.checkpointInterval,
+            checkpointer=checkpointer, device=dev)
+        return ALSModel(
+            rank=self.ap.rank, user_factors=U, item_factors=V,
+            user_vocab=td.user_vocab, item_vocab=td.item_vocab)
 
     def prepare_serving(self, model: ALSModel) -> ALSModel:
         """Quantize and lay the factors out on the deploy's device when
         serve-quant resolves on (``quant.deploy_scope``); otherwise put
         the fp32 factors on the device."""
         dev = quant_mod.scoped_device()
-        U = np.asarray(model.user_factors, dtype=np.float32)
-        V = np.asarray(model.item_factors, dtype=np.float32)
+        U = host_f32(model.user_factors)
+        V = host_f32(model.item_factors)
         qf = None
         if quant_mod.serving_enabled():
             qf = quant_mod.QuantizedFactors.from_factors(U, V)
@@ -111,8 +169,8 @@ class ALSAlgorithm(Algorithm):
                 quant=quant_mod.QuantizedServing.build(qf, device=dev))
         return ALSModel(
             rank=model.rank,
-            user_factors=torch.from_numpy(U).to(dev),
-            item_factors=torch.from_numpy(V).to(dev),
+            user_factors=torch.tensor(U, device=dev),
+            item_factors=torch.tensor(V, device=dev),
             user_vocab=model.user_vocab, item_vocab=model.item_vocab)
 
     @staticmethod

@@ -28,16 +28,21 @@ class PredictedResult:
 
 
 def RecommendationEngine():
-    """Engine factory (Engine.scala:41-48) with the serving classes; the
-    DataSource and Preparator arrive with the training slice."""
+    """Engine factory (Engine.scala:41-48)."""
     from predictionio_tpu_torch.controller import Engine, FirstServing
     from predictionio_tpu_torch.models.recommendation.als_algorithm import (
         ALSAlgorithm,
     )
+    from predictionio_tpu_torch.models.recommendation.data_source import (
+        DataSource,
+    )
+    from predictionio_tpu_torch.models.recommendation.preparator import (
+        Preparator,
+    )
 
     return Engine(
-        data_source_class=None,
-        preparator_class=None,
+        data_source_class=DataSource,
+        preparator_class=Preparator,
         algorithm_class_map={"als": ALSAlgorithm},
         serving_class=FirstServing,
     )

@@ -58,22 +58,31 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu``; returns the seconds it took. Raises
-    on failure, with the compiler's output."""
+def build(*names: str) -> Dict[str, float]:
+    """Compile ``csrc/<name>.cu`` for each name, all nvcc processes
+    started together; returns the seconds each took. Raises on a failure,
+    with the compiler's output."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"lib{name}.{os.getpid()}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    took = time.perf_counter() - t0
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}")
-    os.replace(tmp, library_path(name))
+    procs = {}
+    for name in names:
+        tmp = out / f"lib{name}.{os.getpid()}.so"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    took = {}
+    failed = []
+    for name, (cmd, tmp, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return took
 
 

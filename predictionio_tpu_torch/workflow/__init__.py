@@ -1,3 +1,3 @@
-"""Workflow runtime of the port: model blobs, JSON codec and the engine
-(deploy) server. The train and eval workflows arrive with the training
-slice."""
+"""Workflow runtime of the port: the train workflow (context, run_train,
+iteration checkpoints), model blobs, JSON codec and the engine (deploy)
+server. The evaluation workflow waits for the evaluation slice."""

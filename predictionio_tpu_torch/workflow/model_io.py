@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.data.bimap import BiMap
-from predictionio_tpu_torch.models.recommendation.als_algorithm import ALSModel
+from predictionio_tpu_torch.models.recommendation.als_algorithm import (
+    ALSModel, host_f32,
+)
 
 #: (module, name) a blob may name -> the port's class or function
 _PORT_CLASSES: Dict[Tuple[str, str], Any] = {}
@@ -76,10 +78,44 @@ def to_host(obj: Any) -> Any:
                        lambda x: x.detach().cpu().numpy())
 
 
-def serialize_models(models: List[Any]) -> bytes:
+class NonFiniteModelError(ValueError):
+    """A trained model array holds NaN/Inf: ``run_train`` refuses to mark
+    such an instance COMPLETED, so deploy never serves it."""
+
+
+def non_finite_report(obj: Any, limit: int = 8) -> List[str]:
+    """Every float array of a host-side model tree that holds a
+    non-finite value; empty when clean."""
+    bad: List[str] = []
+
+    def check(x):
+        if len(bad) < limit:
+            n_nan = int(np.isnan(x).sum())
+            n_inf = int(np.isinf(x).sum())
+            if n_nan or n_inf:
+                bad.append(f"array shape={x.shape} dtype={x.dtype}: "
+                           f"{n_nan} NaN, {n_inf} Inf")
+        return x
+
+    _map_arrays(obj, lambda x: isinstance(x, np.ndarray)
+                and np.issubdtype(x.dtype, np.floating), check)
+    return bad
+
+
+def serialize_models(models: List[Any], check_finite: bool = False) -> bytes:
     """Pickle the models with every tensor as numpy; the JAX package's
-    :func:`deserialize_models` reads the same layout."""
-    return pickle.dumps(to_host(models), protocol=pickle.HIGHEST_PROTOCOL)
+    :func:`deserialize_models` reads the same layout. ``check_finite``
+    refuses a model with NaN/Inf (``NonFiniteModelError``)."""
+    host = to_host(models)
+    if check_finite:
+        bad = non_finite_report(host)
+        if bad:
+            raise NonFiniteModelError(
+                "trained model contains non-finite values — refusing to "
+                "persist it as COMPLETED (deploy would serve garbage "
+                "scores): " + "; ".join(bad) + ". Set PIO_FINITE_CHECK=0 "
+                "to persist it anyway.")
+    return pickle.dumps(host, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def deserialize_models(blob: bytes) -> List[Any]:
@@ -88,14 +124,15 @@ def deserialize_models(blob: bytes) -> List[Any]:
     return _Unpickler(io.BytesIO(blob)).load()
 
 
-def als_model_from_numpy(rank: int, user_factors: np.ndarray,
-                         item_factors: np.ndarray,
+def als_model_from_numpy(rank: int, user_factors, item_factors,
                          user_vocab: Mapping[str, int],
                          item_vocab: Mapping[str, int]) -> ALSModel:
-    """A port ALSModel from plain arrays and ``{id: row}`` vocabularies
-    (the weights-across path that needs no blob at all)."""
-    U = np.ascontiguousarray(user_factors, dtype=np.float32)
-    V = np.ascontiguousarray(item_factors, dtype=np.float32)
+    """A port ALSModel from factor arrays and ``{id: row}``
+    vocabularies: the weights-across path that needs no blob. The factors
+    may be numpy, torch tensors or the JAX package's trained arrays, or
+    come from an iteration snapshot (:func:`factors_from_snapshot`)."""
+    U = host_f32(user_factors)
+    V = host_f32(item_factors)
     if U.shape != (len(user_vocab), rank) or V.shape != (len(item_vocab),
                                                           rank):
         raise ValueError(
@@ -105,3 +142,21 @@ def als_model_from_numpy(rank: int, user_factors: np.ndarray,
     return ALSModel(rank=int(rank), user_factors=U, item_factors=V,
                     user_vocab=BiMap(dict(user_vocab)),
                     item_vocab=BiMap(dict(item_vocab)))
+
+
+def snapshot_arrays(user_factors, item_factors) -> Dict[str, np.ndarray]:
+    """The ``{"U", "V"}`` arrays an iteration snapshot holds
+    (``FactorCheckpointer.save`` of either package), from trained factors
+    of either package."""
+    return {"U": host_f32(user_factors), "V": host_f32(item_factors)}
+
+
+def factors_from_snapshot(arrays: Mapping[str, Any]
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """(U, V) host float32 from a snapshot's arrays, as
+    ``FactorCheckpointer.latest()`` of either package returns them."""
+    missing = {"U", "V"} - set(arrays)
+    if missing:
+        raise ValueError(f"snapshot lacks {sorted(missing)}; an ALS "
+                         "snapshot holds 'U' and 'V'")
+    return host_f32(arrays["U"]), host_f32(arrays["V"])
