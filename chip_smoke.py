@@ -10,13 +10,20 @@ Phases (any failure raises and the script exits non-zero):
 2. build   — both kernels from ``predictionio_tpu_torch/csrc`` with nvcc,
              one process per source, started together, with ptxas's
              report.
-3. kernel B — the fused score->top-k kernel against its plain PyTorch
-             version on the card, exact equality of values and indices,
-             at the serving shapes (ML-20M: 138,493 users x 26,744 items,
-             rank 10, tile 512, b in 1/4/16/64, k in 1/10/100 and one k
-             above the tile) and with cloned items tied across tiles;
-             then CUDA-event times of the kernel, its plain version and a
-             library yardstick.
+3. kernel B — its two launches against their plain PyTorch versions on
+             the card, exact equality of values and indices: B1 (per-tile
+             candidates) and B2 (the warp merge of the tiles' lists), at
+             the serving shapes (ML-20M: 138,493 users x 26,744 items,
+             rank 10, tile 512, b in 1/4/16/64, k in 1/10/100, 600 and
+             the whole catalog), at tiles 128 and 100, with cloned
+             items tied across tiles, and on catalogs of 1,254 to 7,940
+             tiles (B2's wide form); the merged answer against the plain
+             int8 path; then, per bucket, CUDA-event times of each call,
+             each device body under torch.profiler, the plain versions
+             and the library yardsticks, beside each kernel's bound; B2
+             against the sort it replaced for k from 100 to the whole
+             catalog, and the device time of a 16-row flush at k = 10
+             and with one whole-catalog request in it.
 4. kernel A — the batched Gauss-Jordan solve against its plain version,
              exact equality, at the ALS shapes (n = 138,493 and 26,744 at
              rank 10), at n = 700 for ranks 1, 16 and 32, on the
@@ -35,8 +42,9 @@ Phases (any failure raises and the script exits non-zero):
              quantizes it on the card and ``serve()`` answers POST
              /queries.json on 127.0.0.1 (sequential and concurrent
              requests). Every answer must equal the plain int8 path on
-             the same factors, and kernel B's launch count must cover
-             every flush.
+             the same factors, B1 and B2 must each launch once per
+             flush, and the profiled requests' device trace must hold no
+             sort kernel.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -124,34 +132,43 @@ def _time_ms(fn, reps: int = 200, warm: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def _device_profile(fn):
-    """Run ``fn`` under torch.profiler; returns ({kernel name: (device
-    us, count)}, wall s). The dict is empty when the profiler records no
-    device time."""
+def _device_profile(fn, attempts: int = 3):
+    """Run ``fn`` under torch.profiler; returns ({name: (self device us,
+    count)}, wall s) over the kernels and copies. The CPU-side ``aten::``
+    rows, which repeat the time of the kernels they launch in this
+    thread, are left out. A session that records no device time at all
+    (the profiler drops a whole session now and then) is run again, up
+    to ``attempts`` times; the dict is empty when every one was empty."""
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    per = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            per[e.key] = (float(us), int(e.count))
+    for attempt in range(attempts):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us and not e.key.startswith("aten::"):
+                per[e.key] = (float(us), int(e.count))
+        if per:
+            break
+        print(f"profile: session {attempt + 1} recorded no device time",
+              flush=True)
     return per, wall
 
 
 def _topk_fused_bound_ms(b: int, r: int, n_pad: int, tile: int,
                          k_local: int) -> tuple:
-    """Least time for the candidates function at this shape: each input
-    read once and each output written once, against the integer dot,
-    the rescale and one compare per score (what selecting a tile's top
-    k needs, whatever algorithm the kernel uses) at their peak rates."""
+    """Least time for the candidates function (B1) at this shape: each
+    input read once and each output written once, against the integer
+    dot, the rescale and one compare per score (what selecting a tile's
+    top k needs, whatever algorithm the kernel uses) at their peak
+    rates."""
     n_tiles = n_pad // tile
     bytes_moved = (b * 4 + b * r + b * 4           # ixs, gathered rows, su
                    + r * n_pad + n_pad * 4         # vt tile slices, sv
@@ -164,47 +181,97 @@ def _topk_fused_bound_ms(b: int, r: int, n_pad: int, tile: int,
                                        else "operations")
 
 
+def _merge_bound_ms(b: int, width: int, k: int) -> tuple:
+    """Least time for the merge (B2): the (b, width) candidates read once
+    and the (b, k) answer written once; its compares (one per answer
+    entry and list) are far below the fp32 peak's time for these bytes."""
+    return (b * width * 8 + b * k * 8) / HBM_BYTES_S * 1e3, "bytes"
+
+
+def _same(a_vals, a_idx, b_vals, b_idx) -> bool:
+    return (a_vals.shape == b_vals.shape
+            and torch.equal(a_vals.view(torch.int32), b_vals.view(torch.int32))
+            and torch.equal(a_idx, b_idx))
+
+
+def _body_ms(per: dict, name: str):
+    """Device time per launch of the kernel whose name holds ``name``."""
+    body = [us / n for key, (us, n) in per.items() if name in key]
+    return body[0] / 1e3 if body else None
+
+
+def _device_ms(fn, n: int) -> float:
+    """Device time (kernels and copies) per call of ``fn``, over ``n``
+    calls under torch.profiler."""
+    per, _wall = _device_profile(lambda: [fn() for _ in range(n)])
+    if not per:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(us for us, _n in per.values()) / n / 1e3
+
+
+def _sort_kernels(per: dict) -> list:
+    return [key for key in per if "sort" in key.lower()]
+
+
+def _require_kernels(per: dict, where: str) -> None:
+    """The trace must show B1 and B2, or it cannot show that no sort ran."""
+    missing = [name for name in ("score_mask_topk", "merge_tile_lists")
+               if not any(name in key for key in per)]
+    if missing:
+        raise AssertionError(f"{where}: the profiler recorded no "
+                             f"{' / '.join(missing)} kernel")
+    if _sort_kernels(per):
+        raise AssertionError(f"{where} ran a sort on the card: "
+                             f"{_sort_kernels(per)}")
+
+
 def phase_kernel(qs, U, V, seed: int):
-    """topk_fused kernel == plain version, exactly; then its times."""
+    """Kernel B1 (candidates) and B2 (merge) == their plain versions,
+    exactly; the fused answer == the plain int8 path; then their times."""
     dev = qs.device
     rng = np.random.default_rng(seed + 1)
     checks = 0
-    worst = 0.0
+    worst = worst_merge = 0.0
+
+    def check(u_q, u_scale, vt, sv, ixs, k, tile, where, n_items=N_ITEMS):
+        nonlocal checks, worst, worst_merge
+        k_local = min(k, tile)
+        kv, ki = topk_fused.score_mask_topk_candidates(
+            u_q, u_scale, vt, sv, ixs, k_local=k_local, n_items=n_items,
+            tile=tile)
+        pv, pi = topk_fused.score_mask_topk_candidates_plain(
+            u_q.index_select(0, ixs.long()),
+            u_scale.index_select(0, ixs.long()), vt, sv, k_local=k_local,
+            n_items=n_items, tile=tile)
+        torch.cuda.synchronize()
+        if not _same(kv, ki, pv, pi):
+            bad = (kv.view(torch.int32) != pv.view(torch.int32)) | (ki != pi)
+            raise AssertionError(
+                f"B1 != plain at {where}: {int(bad.sum())} candidates "
+                f"differ, first at {bad.nonzero()[:3].tolist()}")
+        worst = max(worst, float((kv - pv).abs().max()))
+        fv, fi = topk_fused.merge_candidates(kv, ki, k, k_local=k_local)
+        mv, mi = topk_fused.merge_candidates_plain(kv, ki, k)
+        torch.cuda.synchronize()
+        if not _same(fv, fi, mv, mi):
+            raise AssertionError(f"B2 != plain merge at {where}")
+        worst_merge = max(worst_merge, float((fv - mv).abs().max()))
+        # the merged answer against the plain int8 path (no tiles)
+        xv, xi = quant.topk_for_users_quant(
+            u_q, u_scale, vt, sv, ixs, k=k, n_items=n_items)
+        if not _same(fv, fi, xv, xi):
+            raise AssertionError(f"fused answer != plain int8 path at "
+                                 f"{where}")
+        checks += 1
+
     for b in BUCKETS:
         ixs = torch.from_numpy(
             rng.integers(0, N_USERS, size=b).astype(np.int32)).to(dev)
-        gathered = (qs.u_q.index_select(0, ixs.long()),
-                    qs.u_scale.index_select(0, ixs.long()))
-        for k in (1, 10, 100, TILE + 88):
-            k_local = min(k, TILE)
-            kv, ki = topk_fused.score_mask_topk_candidates(
-                qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs,
-                k_local=k_local, n_items=N_ITEMS, tile=TILE)
-            pv, pi = topk_fused.score_mask_topk_candidates_plain(
-                *gathered, qs.vt_q, qs.v_scale, k_local=k_local,
-                n_items=N_ITEMS, tile=TILE)
-            torch.cuda.synchronize()
-            if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
-                    and torch.equal(ki, pi)):
-                bad = (kv.view(torch.int32) != pv.view(torch.int32)) | \
-                    (ki != pi)
-                raise AssertionError(
-                    f"topk_fused kernel != plain at b={b} k={k}: "
-                    f"{int(bad.sum())} candidates differ, first at "
-                    f"{bad.nonzero()[:3].tolist()}")
-            worst = max(worst, float((kv - pv).abs().max()))
-            # the merged answer against the plain int8 path (no tiles)
-            fv, fi = topk_fused.merge_candidates(kv, ki, k)
-            xv, xi = quant.topk_for_users_quant(
-                qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs, k=k,
-                n_items=N_ITEMS)
-            if not (torch.equal(fv.view(torch.int32), xv.view(torch.int32))
-                    and torch.equal(fi, xi)):
-                raise AssertionError(
-                    f"fused answer != plain int8 path at b={b} k={k}")
-            checks += 1
+        for k in (1, 10, 100, TILE + 88, N_ITEMS):
+            check(qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs, k, TILE,
+                  f"b={b} k={k} tile={TILE}")
     # other tiles (PIO_SERVE_FUSED_TILE): 128, and 100, whose last lanes
-    # hold no column
+    # hold no column and which takes B1's byte-load path
     for tile in (128, 100):
         n_pad = -(-N_ITEMS // tile) * tile
         vt = torch.zeros((RANK, n_pad), dtype=torch.int8, device=dev)
@@ -213,19 +280,41 @@ def phase_kernel(qs, U, V, seed: int):
         sv[:N_ITEMS] = qs.v_scale[:N_ITEMS]
         ixs = torch.from_numpy(
             rng.integers(0, N_USERS, size=16).astype(np.int32)).to(dev)
-        for k_local in (10, tile):
-            kv, ki = topk_fused.score_mask_topk_candidates(
-                qs.u_q, qs.u_scale, vt, sv, ixs, k_local=k_local,
-                n_items=N_ITEMS, tile=tile)
-            pv, pi = topk_fused.score_mask_topk_candidates_plain(
-                qs.u_q.index_select(0, ixs.long()),
-                qs.u_scale.index_select(0, ixs.long()), vt, sv,
-                k_local=k_local, n_items=N_ITEMS, tile=tile)
-            if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
-                    and torch.equal(ki, pi)):
-                raise AssertionError(f"topk_fused kernel != plain at tile "
-                                     f"{tile} k_local={k_local}")
-            checks += 1
+        for k in (10, N_ITEMS):          # k_local 10, and k_local = tile
+            check(qs.u_q, qs.u_scale, vt, sv, ixs, k, tile,
+                  f"b=16 k={k} tile={tile}")
+    # catalogs of more than 1,024 tiles (B2's wide form): the item columns
+    # repeated, so every item ties with its copies in other tiles and
+    # lanes; 7,940 tiles hold their heads in the global workspace
+    wide = []
+    for copies, tile in ((6, 128), (38, 512), (38, 128)):
+        n_wide = copies * N_ITEMS
+        n_pad = -(-n_wide // tile) * tile
+        vt = torch.zeros((RANK, n_pad), dtype=torch.int8, device=dev)
+        vt[:, :n_wide] = qs.vt_q[:, :N_ITEMS].repeat(1, copies)
+        sv = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+        sv[:n_wide] = qs.v_scale[:N_ITEMS].repeat(copies)
+        ixs = torch.from_numpy(
+            rng.integers(0, N_USERS, size=16).astype(np.int32)).to(dev)
+        for k in (10, TILE + 88):
+            check(qs.u_q, qs.u_scale, vt, sv, ixs, k, tile,
+                  f"b=16 k={k} tile={tile} n_items={n_wide}", n_items=n_wide)
+        kv, ki = topk_fused.score_mask_topk_candidates(
+            qs.u_q, qs.u_scale, vt, sv, ixs, k_local=10, n_items=n_wide,
+            tile=tile)
+        per, _wall = _device_profile(lambda: [
+            topk_fused.merge_candidates(kv, ki, 10, k_local=10)
+            for _ in range(10)])
+        wide.append({"b": 16, "k": 10, "n_items": n_wide, "tile": tile,
+                     "n_tiles": n_pad // tile,
+                     "merge_body_ms": _body_ms(per, "merge_tile_lists"),
+                     "merge_plain_ms": _time_ms(
+                         lambda: topk_fused.merge_candidates_plain(
+                             kv, ki, 10), reps=20, warm=2)})
+        print(f"kernel: B2 wide, {n_pad // tile} tiles of {tile} "
+              f"({n_wide} items), b=16 k=10: device body "
+              f"{wide[-1]['merge_body_ms']} ms, plain "
+              f"{wide[-1]['merge_plain_ms']:.4f} ms", flush=True)
     # the clones of item 5 (tiles 0, 1, 26, 52) tie: index order
     ixs = torch.arange(64, dtype=torch.int32, device=dev)
     _v, fi = topk_fused.topk_for_users_quant_fused(
@@ -236,8 +325,10 @@ def phase_kernel(qs, U, V, seed: int):
                for c in _clones()]
         if pos != list(range(pos[0], pos[0] + 4)):
             raise AssertionError(f"cross-tile tie out of order: {pos}")
-    print(f"kernel: topk_fused == plain at {checks} (b, k) shapes and the "
-          f"cross-tile tie; max |diff| {worst}", flush=True)
+    print(f"kernel: B1 == plain candidates, B2 == plain merge and the "
+          f"fused answer == plain int8 path at {checks} (b, k, tile) "
+          f"shapes, and the cross-tile tie; max |diff| B1 {worst}, B2 "
+          f"{worst_merge}", flush=True)
 
     # times at every serving bucket, k = 10 (PIO_AOT_KS default)
     Ud = torch.from_numpy(quant.dequantize_rows(*quant.quantize_rows(U))
@@ -246,43 +337,127 @@ def phase_kernel(qs, U, V, seed: int):
                           ).to(dev)
     rows = []
     n_pad = qs.vt_q.shape[1]
+    args = (qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale)
     for b in BUCKETS:
         ixs = torch.from_numpy(
             rng.integers(0, N_USERS, size=b).astype(np.int32)).to(dev)
         ixl = ixs.long()
+        kv, ki = topk_fused.score_mask_topk_candidates(
+            *args, ixs, k_local=10, n_items=N_ITEMS, tile=TILE)
         ms = _time_ms(lambda: topk_fused.score_mask_topk_candidates(
-            qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs, k_local=10,
-            n_items=N_ITEMS, tile=TILE))
+            *args, ixs, k_local=10, n_items=N_ITEMS, tile=TILE))
         plain_ms = _time_ms(
             lambda: topk_fused.score_mask_topk_candidates_plain(
                 qs.u_q.index_select(0, ixl), qs.u_scale.index_select(0, ixl),
                 qs.vt_q, qs.v_scale, k_local=10, n_items=N_ITEMS,
                 tile=TILE), reps=50, warm=5)
+        merge_ms = _time_ms(lambda: topk_fused.merge_candidates(
+            kv, ki, 10, k_local=10))
+        merge_plain_ms = _time_ms(
+            lambda: topk_fused.merge_candidates_plain(kv, ki, 10))
+        merge_library_ms = _time_ms(lambda: torch.topk(kv, 10))
         wrapper_ms = _time_ms(lambda: topk_fused.topk_for_users_quant_fused(
-            qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs, k=10,
-            n_items=N_ITEMS, tile=TILE))
+            *args, ixs, k=10, n_items=N_ITEMS, tile=TILE))
         library_ms = _time_ms(
             lambda: torch.topk(Ud.index_select(0, ixl) @ Vd.T, 10))
         bound_ms, bound_by = _topk_fused_bound_ms(b, RANK, n_pad, TILE, 10)
-        # the kernel body alone, without the wrapper's host time
+        merge_bound_ms, merge_bound_by = _merge_bound_ms(
+            b, kv.shape[1], 10)
+        # the kernels' bodies alone, without the wrapper's host time
         per, _wall = _device_profile(lambda: [
+            topk_fused.topk_for_users_quant_fused(
+                *args, ixs, k=10, n_items=N_ITEMS, tile=TILE)
+            for _ in range(50)])
+        _require_kernels(per, "the fused path")
+        body_ms = _body_ms(per, "score_mask_topk")
+        merge_body_ms = _body_ms(per, "merge_tile_lists")
+        # B1 with one selection round: the loads and dot products alone
+        per1, _wall = _device_profile(lambda: [
             topk_fused.score_mask_topk_candidates(
-                qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale, ixs, k_local=10,
-                n_items=N_ITEMS, tile=TILE) for _ in range(50)])
-        body = [us / n for key, (us, n) in per.items()
-                if "score_mask_topk" in key]
-        body_ms = body[0] / 1e3 if body else None
-        rows.append({"b": b, "k": 10, "ms": ms, "plain_ms": plain_ms,
-                     "wrapper_ms": wrapper_ms, "library_ms": library_ms,
-                     "body_ms": body_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
-        body_s = (f"{body_ms:.4f} ms" if body_ms is not None
-                  else "not measured")
-        print(f"kernel: topk_fused b={b} k=10 call {ms:.4f} ms (device "
-              f"body {body_s}), call + merge {wrapper_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, fp32 matmul+topk {library_ms:.4f} ms, "
-              f"bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
-    return rows, worst
+                *args, ixs, k_local=1, n_items=N_ITEMS, tile=TILE)
+            for _ in range(50)])
+        body_k1_ms = _body_ms(per1, "score_mask_topk")
+        rows.append({"b": b, "k": 10, "ms": ms, "body_ms": body_ms,
+                     "body_k_local_1_ms": body_k1_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "merge_ms": merge_ms, "merge_body_ms": merge_body_ms,
+                     "merge_plain_ms": merge_plain_ms,
+                     "merge_library_ms": merge_library_ms,
+                     "merge_bound_ms": merge_bound_ms,
+                     "merge_bound_by": merge_bound_by,
+                     "wrapper_ms": wrapper_ms})
+
+        def fmt(x):
+            return f"{x:.4f} ms" if x is not None else "not measured"
+
+        print(f"kernel: B1 b={b} k=10 call {ms:.4f} ms (device body "
+              f"{fmt(body_ms)}; {fmt(body_k1_ms)} at k_local 1), plain {plain_ms:.4f} ms, fp32 "
+              f"matmul+topk {library_ms:.4f} ms, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}); B2 call "
+              f"{merge_ms:.4f} ms (device body {fmt(merge_body_ms)}), "
+              f"plain {merge_plain_ms:.4f} ms, torch.topk of the "
+              f"candidates {merge_library_ms:.4f} ms, bound "
+              f"{merge_bound_ms * 1e3:.3f} us ({merge_bound_by}); B1 + B2 "
+              f"{wrapper_ms:.4f} ms", flush=True)
+    # B2 against the sort it replaced, over k (k_local = min(k, tile)):
+    # one serial round per answer entry, so B2 loses past some k
+    large = []
+    for b in (1, 64):
+        ixs = torch.from_numpy(
+            rng.integers(0, N_USERS, size=b).astype(np.int32)).to(dev)
+        for k in (100, 300, TILE + 88, 1000, 3000, N_ITEMS):
+            k_local = min(k, TILE)
+            kv, ki = topk_fused.score_mask_topk_candidates(
+                *args, ixs, k_local=k_local, n_items=N_ITEMS, tile=TILE)
+            merge_ms = _time_ms(lambda: topk_fused.merge_candidates(
+                kv, ki, k, k_local=k_local), reps=10, warm=2)
+            # B2's body and the sort path's device time, in one session
+            per, _wall = _device_profile(lambda: [
+                (topk_fused.merge_candidates(kv, ki, k, k_local=k_local),
+                 topk_fused.merge_candidates_plain(kv, ki, k))
+                for _ in range(3)])
+            body = _body_ms(per, "merge_tile_lists")
+            plain_body = sum(us for key, (us, _n) in per.items()
+                             if "merge_tile_lists" not in key) / 3 / 1e3
+            plain = _time_ms(lambda: topk_fused.merge_candidates_plain(
+                kv, ki, k), reps=10, warm=2)
+            bound, _by = _merge_bound_ms(b, kv.shape[1], k)
+            large.append({"b": b, "k": k, "k_local": k_local,
+                          "merge_ms": merge_ms, "merge_body_ms": body,
+                          "merge_plain_ms": plain,
+                          "merge_plain_device_ms": plain_body,
+                          "merge_bound_ms": bound})
+            print(f"kernel: B2 b={b} k={k} (k_local {k_local}) call "
+                  f"{merge_ms:.4f} ms (device body "
+                  f"{body if body is None else f'{body:.4f}'} ms), plain "
+                  f"{plain:.4f} ms (device {plain_body:.4f} ms), bound "
+                  f"{bound * 1e3:.3f} us (bytes)", flush=True)
+    # a flush of 16 rows runs at the largest num asked: the device time of
+    # B1 + B2 (and of B1 + the sort it replaced) when every request asks
+    # k = 10, and when one of them asks for the whole catalog
+    ixs = torch.from_numpy(
+        rng.integers(0, N_USERS, size=16).astype(np.int32)).to(dev)
+
+    def old_path(k):
+        k_local = min(k, TILE)
+        return topk_fused.merge_candidates_plain(
+            *topk_fused.score_mask_topk_candidates(
+                *args, ixs, k_local=k_local, n_items=N_ITEMS, tile=TILE), k)
+
+    mixed = {}
+    for k in (10, N_ITEMS):
+        mixed[f"k{k}_device_ms"] = _device_ms(
+            lambda: topk_fused.topk_for_users_quant_fused(
+                *args, ixs, k=k, n_items=N_ITEMS, tile=TILE), 3)
+        mixed[f"k{k}_sort_path_device_ms"] = _device_ms(
+            lambda: old_path(k), 3)
+    print(f"kernel: a flush of 16 rows, device ms per flush: B1 + B2 "
+          f"{mixed['k10_device_ms']:.4f} at k=10, "
+          f"{mixed[f'k{N_ITEMS}_device_ms']:.4f} with one k={N_ITEMS} "
+          f"request; B1 + sort {mixed['k10_sort_path_device_ms']:.4f} / "
+          f"{mixed[f'k{N_ITEMS}_sort_path_device_ms']:.4f}", flush=True)
+    return rows, large, wide, mixed, worst, worst_merge
 
 
 def _solve_systems(n: int, r: int, seed: int, inner=None):
@@ -551,16 +726,18 @@ def phase_path(store, iid: str, users, seed: int):
                     lambda q: _post(port, q[0], q[1]), burst)):
                 answers.setdefault((u, n), []).append((status, payload))
                 burst_lat.append(dt_s)
-        stats = api.handle("GET", "/")[1]
+        unprofiled = api.handle("GET", "/")[1]["batching"]["batches"]
         # where a sequential request's time goes: device time under the
         # profiler (which slows the host, so no latency is read here)
         per, wall = _device_profile(lambda: sequential(profiled, []))
+        stats = api.handle("GET", "/")[1]
     finally:
         urllib.request.urlopen(urllib.request.Request(
             f"http://127.0.0.1:{port}/stop", data=b"", method="POST"),
             timeout=30).close()
         server.join(timeout=60)
     launches = topk_fused.launches       # the serving path ends here
+    merge_launches = topk_fused.merge_launches
     if solve.launches:
         raise AssertionError("the serving path launched solve_gj")
     if server.is_alive():
@@ -569,9 +746,11 @@ def phase_path(store, iid: str, users, seed: int):
     flushes = stats["batching"]["batches"]
     if stats["quant"] is None or not stats["quant"].get("fused"):
         raise AssertionError(f"deploy did not take the fused path: {stats}")
-    if launches < flushes or launches == 0:
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
         raise AssertionError(
-            f"topk_fused launched {launches} times for {flushes} flushes")
+            f"B1 launched {launches} times and B2 {merge_launches} times "
+            f"for {flushes} flushes (want one each per flush)")
+    _require_kernels(per, "the serving path")
 
     # every answer against the plain int8 path on the same factors
     model = api.models[0]
@@ -601,10 +780,10 @@ def phase_path(store, iid: str, users, seed: int):
     b = stats["batching"]
     print(f"path: {len(seq) + len(burst) + len(profiled)} requests "
           f"({len(seq)} sequential, {len(burst)} from 16 client threads, "
-          f"{len(profiled)} profiled) in {flushes} flushes before the "
-          f"profiled ones {b['batchSizeHist']}, topk_fused launched "
-          f"{launches} times; all answers equal the plain int8 path",
-          flush=True)
+          f"{len(profiled)} profiled) in {flushes} flushes "
+          f"({unprofiled} before the profiled ones) {b['batchSizeHist']}, "
+          f"B1 launched {launches} times and B2 {merge_launches} times; "
+          f"all answers equal the plain int8 path", flush=True)
     print(f"path: time to ready {ready_s:.3f} s (load + quantize + layout "
           f"{api.time_to_ready_s:.3f} s)", flush=True)
     print("path: latency sequential p50 %.3f ms p99 %.3f ms; concurrent "
@@ -612,18 +791,23 @@ def phase_path(store, iid: str, users, seed: int):
           "%.3f ms" % (*pct(seq_lat), *pct(burst_lat), b["avgFlushMs"],
                        b["avgQueueWaitMs"]), flush=True)
     busy_us = sum(us for us, _n in per.values())
-    if per:
-        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
-        print(f"path: profiled {len(profiled)} sequential requests: wall "
-              f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.3f} ms "
-              f"(idle share {1 - busy_us / 1e3 / (wall * 1e3):.4f}); top "
-              "device entries " + "; ".join(
-                  f"{k[:60]} {us:.1f} us x{n}" for k, (us, n) in top),
-              flush=True)
-    else:
-        print("path: device time under the profiler: not measured (no "
-              "device events recorded)", flush=True)
-    return launches
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    split = {"requests": len(profiled), "wall_ms": wall * 1e3,
+             "device_busy_us": busy_us,
+             "idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+             "B1_us": sum(us for k, (us, _n) in per.items()
+                          if "score_mask_topk" in k),
+             "B2_us": sum(us for k, (us, _n) in per.items()
+                          if "merge_tile_lists" in k),
+             "top": [[k[:60], us, n] for k, (us, n) in top]}
+    print(f"path: profiled {len(profiled)} sequential requests: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"(idle share {split['idle_share']:.4f}), B1 "
+          f"{split['B1_us']:.1f} us, B2 {split['B2_us']:.1f} us, no "
+          "sort kernel; top device entries " + "; ".join(
+              f"{k[:60]} {us:.1f} us x{n}" for k, (us, n) in top),
+          flush=True)
+    return launches, merge_launches, split
 
 
 def main(argv=None) -> int:
@@ -645,9 +829,13 @@ def main(argv=None) -> int:
     for name, took in secs.items():
         print(f"build: {name} {took:.2f} s (nvcc, both started together)",
               flush=True)
+        kernel = "?"
         for line in _kernels.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name} ptxas: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"build: {name} ptxas: {kernel}: "
+                      f"{line.split(':', 1)[-1].strip()}", flush=True)
 
     U, V = _model(args.seed)
     qf = quant.QuantizedFactors.from_factors(U, V)
@@ -655,13 +843,15 @@ def main(argv=None) -> int:
     if qs.tile != TILE or qs.vt_q.shape[1] != 53 * TILE:
         raise AssertionError(f"unexpected layout: tile {qs.tile}, n_pad "
                              f"{qs.vt_q.shape[1]}")
-    rows, worst = phase_kernel(qs, U, V, args.seed)
+    rows, large_k, wide, mixed, worst, worst_merge = phase_kernel(
+        qs, U, V, args.seed)
     del qs, qf, U, V
     rows_a, worst_a = phase_solve(args.seed, dev)
     work = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     try:
         store, iid, users, train = phase_train(work, args.seed, dev)
-        launches = phase_path(store, iid, users, args.seed)
+        launches, merge_launches, split = phase_path(store, iid, users,
+                                                     args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -679,9 +869,24 @@ def main(argv=None) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "body_ms": main_row["body_ms"],
+        "merge_source": "predictionio_tpu_torch/csrc/topk_fused.cu",
+        "merge_replaces": "predictionio_tpu/ops/topk_pallas.py:180",
+        "merge_launches": merge_launches,
+        "merge_max_abs_err": worst_merge,
+        "merge_ms": main_row["merge_ms"],
+        "merge_body_ms": main_row["merge_body_ms"],
+        "merge_plain_ms": main_row["merge_plain_ms"],
+        "merge_bound_ms": main_row["merge_bound_ms"],
+        "merge_bound_by": main_row["merge_bound_by"],
+        "merge_library_ms": main_row["merge_library_ms"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
+        "merge_large_k": large_k,
+        "merge_wide": wide,
+        "mixed_flush": mixed,
+        "serving_device_split": split,
         "card": smi,
     }, {
         "name": "solve_gj",

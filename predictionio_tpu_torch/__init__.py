@@ -8,7 +8,8 @@ on the CUDA card unless the caller asks for the CPU (:mod:`.device`).
 
 Slice 1 serves: ``QueryAPI`` loads an ALS model blob, quantizes it to
 int8 and answers ``POST /queries.json`` through the micro-batcher and
-the hand-written score->top-k kernel (``csrc/topk_fused.cu``). Slice 2
+the two hand-written launches of ``csrc/topk_fused.cu`` (per-tile
+score->top-k candidates, then a warp merge of them). Slice 2
 trains: ``pio train`` (``tools/cli.py``) reads the event store or the
 synthetic generator, lays the ratings out on the card and runs explicit
 ALS, each half-step ending in the hand-written batched solve

@@ -6,16 +6,18 @@ each query row the kernel computes the exact int8 x int8 -> int32 dot
 products, rescales them to fp32, masks the layout padding and reduces
 the tile to its top ``min(k, tile)`` (score, global index) candidates by
 repeated (max, lowest index at the max); the full score row never
-reaches device memory. A stable sort then merges the ``n_tiles * k_local``
-candidates into the answer. Any global top-k element is in its own
-tile's top-k_local, so the result is BIT-IDENTICAL (values, indices,
-ties) to ``ops.quant.topk_for_users_quant`` and to the JAX kernel.
+reaches device memory. A merge of the ``n_tiles`` candidate lists then
+gives the answer in the reference's two-key (-score, index) order. Any
+global top-k element is in its own tile's top-k_local, so the result is
+BIT-IDENTICAL (values, indices, ties) to ``ops.quant.topk_for_users_quant``
+and to the JAX kernel.
 
-On a CUDA tensor :func:`score_mask_topk_candidates` launches the kernel
-written by hand for Hopper (``csrc/topk_fused.cu``) or raises; on a CPU
-tensor it runs :func:`score_mask_topk_candidates_plain`, the same
-algorithm in torch, which plays the role the Pallas interpret mode plays
-in the JAX package.
+On a CUDA tensor :func:`score_mask_topk_candidates` launches kernel B1
+and :func:`merge_candidates` kernel B2, both written by hand for Hopper
+(``csrc/topk_fused.cu``), or raise; on a CPU tensor they run
+:func:`score_mask_topk_candidates_plain` and :func:`merge_candidates_plain`,
+the same functions in torch, which play the role the Pallas interpret
+mode plays in the JAX package.
 
 ``PIO_SERVE_FUSED``: "auto" (default) and "on" take this fused path,
 "off" the plain int8 path of ``ops/quant.py``. ``PIO_SERVE_FUSED_TILE``
@@ -27,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,19 +41,19 @@ _DEF_TILE = 512
 _NEG_INF = -3.4e38
 _IMAX = 2 ** 31 - 1
 
-#: shared memory a launch gets without opting in to more
-_SMEM_LIMIT = 48 * 1024
-
-#: kernel launches since the last reset (the main path's proof that it
-#: went through the kernel); bumped only where the kernel is launched
+#: launches of kernel B1 (candidates) and of kernel B2 (the merge) since
+#: the last reset (the main path's proof that it went through the
+#: kernels); each is bumped only where its kernel is launched
 launches = 0
+merge_launches = 0
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, merge_launches
     with _count_lock:
         launches = 0
+        merge_launches = 0
 
 
 def serve_tile() -> int:
@@ -123,25 +125,40 @@ def score_mask_topk_candidates_plain(
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 
 
-def _library() -> ctypes.CDLL:
-    lib = _kernels.load("topk_fused")
-    fn = lib.pio_topk_fused_candidates
-    if fn.argtypes is None:
-        fn.argtypes = [_c, _c, _c, _c, _c, _c, _c,
-                       _i, _i, _i, _i, _i, _i, _c]
-        fn.restype = _i
-        lib.pio_topk_fused_smem_bytes.argtypes = [_i, _i]
-        lib.pio_topk_fused_smem_bytes.restype = _i
-        lib.pio_topk_fused_max_tile.argtypes = []
+class _Library(NamedTuple):
+    candidates: Any          # pio_topk_fused_candidates (B1)
+    merge: Any               # pio_topk_merge (B2)
+    max_tile: int            # widest tile B1 takes
+    shared_lists: int        # lists a row may have before B2 needs a workspace
+
+
+_lib: Optional[_Library] = None
+
+
+def _library() -> _Library:
+    """The built library's entry points and limits, looked up once."""
+    global _lib
+    if _lib is None:
+        lib = _kernels.load("topk_fused")
+        cand = lib.pio_topk_fused_candidates
+        cand.argtypes = [_c, _c, _c, _c, _c, _c, _c,
+                         _i, _i, _i, _i, _i, _i, _c]
+        cand.restype = _i
+        merge = lib.pio_topk_merge
+        merge.argtypes = [_c, _c, _c, _c, _c, _i, _i, _i, _i, _c]
+        merge.restype = _i
         lib.pio_topk_fused_max_tile.restype = _i
-    return lib
+        lib.pio_topk_merge_shared_lists.restype = _i
+        _lib = _Library(cand, merge, lib.pio_topk_fused_max_tile(),
+                        lib.pio_topk_merge_shared_lists())
+    return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -168,43 +185,72 @@ def _launch(u_q, u_scale, vt_q, v_scale, user_ixs, *, k_local: int,
     if u_q.shape[1] != r or v_scale.shape[0] != n_pad \
             or u_scale.shape[0] != u_q.shape[0]:
         raise ValueError("u_q / u_scale / vt_q / v_scale shapes disagree")
-    if n_pad % tile:
+    if tile < 1 or n_pad % tile:
         raise ValueError(f"n_pad {n_pad} is not a multiple of tile {tile}")
+    lib = _library()
+    if tile > lib.max_tile:
+        raise ValueError(f"tile {tile} exceeds the kernel's {lib.max_tile} "
+                         "columns")
     if not 1 <= k_local <= tile:
         raise ValueError(f"k_local {k_local} outside [1, tile={tile}]")
-    lib = _library()
-    if tile > lib.pio_topk_fused_max_tile():
-        raise ValueError(f"tile {tile} exceeds the kernel's "
-                         f"{lib.pio_topk_fused_max_tile()} columns")
-    smem = lib.pio_topk_fused_smem_bytes(r, tile)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"rank {r} x tile {tile} needs {smem} B of shared memory; the "
-            f"kernel allocates at most {_SMEM_LIMIT}")
     width = (n_pad // tile) * k_local
     vals = torch.empty((b, width), dtype=torch.float32, device=dev)
     idx = torch.empty((b, width), dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.pio_topk_fused_candidates(
+    err = lib.candidates(
         u_q.data_ptr(), u_scale.data_ptr(), vt_q.data_ptr(),
         v_scale.data_ptr(), user_ixs.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), b, r, n_pad, tile, k_local, n_items, stream)
+        idx.data_ptr(), b, r, n_pad, tile, k_local, n_items,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"topk_fused kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"topk_fused candidates kernel launch failed: "
+                           f"CUDA error {err}")
     with _count_lock:
         launches += 1
     return vals, idx
+
+
+def _launch_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
+                  k_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global merge_launches
+    dev = vals.device
+    _check(vals, "vals", torch.float32, 2, dev)
+    _check(idx, "idx", torch.int32, 2, dev)
+    b, width = vals.shape
+    if idx.shape != vals.shape:
+        raise ValueError("vals and idx shapes disagree")
+    if k < 1 or k_local < 1 or width % k_local:
+        raise ValueError(f"k {k} / k_local {k_local} do not fit "
+                         f"{width} candidates")
+    lib = _library()
+    n_tiles = width // k_local
+    k_out = min(k, width)
+    out_v = torch.empty((b, k_out), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k_out), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_v, out_i
+    # the lists' heads, when a row has too many for shared memory
+    work = (torch.empty((b, n_tiles, 2), dtype=torch.int32, device=dev)
+            if n_tiles > lib.shared_lists else None)
+    err = lib.merge(vals.data_ptr(), idx.data_ptr(), out_v.data_ptr(),
+                    out_i.data_ptr(), None if work is None else work.data_ptr(),
+                    b, n_tiles, k_local, k_out,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"topk_fused merge kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        merge_launches += 1
+    return out_v, out_i
 
 
 def score_mask_topk_candidates(
         u_q: torch.Tensor, u_scale: torch.Tensor, vt_q: torch.Tensor,
         v_scale: torch.Tensor, user_ixs: torch.Tensor, *, k_local: int,
         n_items: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile candidates for the rows ``user_ixs`` (in bounds): the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """Per-tile candidates for the rows ``user_ixs`` (in bounds): kernel
+    B1 on a CUDA tensor, the plain version on a CPU tensor."""
     if vt_q.device.type == "cuda":
         return _launch(u_q, u_scale, vt_q, v_scale, user_ixs,
                        k_local=k_local, n_items=n_items, tile=tile)
@@ -216,8 +262,8 @@ def score_mask_topk_candidates(
         v_scale, k_local=k_local, n_items=n_items, tile=tile)
 
 
-def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def merge_candidates_plain(vals: torch.Tensor, idx: torch.Tensor, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's two-key (-score, index) merge. Candidates lie in
     tile-major order and, within equal values, in ascending index, so a
     stable sort on -score alone reproduces the two-key order."""
@@ -225,14 +271,29 @@ def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int
     return -neg[:, :k], idx.gather(1, order[:, :k])
 
 
+def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int, *,
+                     k_local: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``min(k, width)`` candidates of each row in (value
+    descending, index ascending) order, from ``n_tiles`` lists of
+    ``k_local`` each as :func:`score_mask_topk_candidates` lays them out:
+    kernel B2 on a CUDA tensor, :func:`merge_candidates_plain` on a CPU
+    tensor."""
+    if vals.device.type == "cuda":
+        return _launch_merge(vals, idx, int(k), int(k_local))
+    if vals.device.type != "cpu":
+        raise ValueError(f"unsupported device {vals.device}")
+    return merge_candidates_plain(vals, idx, int(k))
+
+
 def topk_for_users_quant_fused(
         u_q: torch.Tensor, u_scale: torch.Tensor, vt_q: torch.Tensor,
         v_scale: torch.Tensor, user_ixs: torch.Tensor, *, k: int,
         n_items: int, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused quantized batched serve: per-tile candidates, then the
-    merge. Bit-identical to ``ops.quant.topk_for_users_quant``."""
+    merge (two kernel launches on the card). Bit-identical to
+    ``ops.quant.topk_for_users_quant``."""
     k_local = min(int(k), int(tile))
     vals, idx = score_mask_topk_candidates(
         u_q, u_scale, vt_q, v_scale, user_ixs, k_local=k_local,
         n_items=n_items, tile=tile)
-    return merge_candidates(vals, idx, int(k))
+    return merge_candidates(vals, idx, int(k), k_local=k_local)
