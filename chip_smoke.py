@@ -45,6 +45,24 @@ Phases (any failure raises and the script exits non-zero):
              the same factors, B1 and B2 must each launch once per
              flush, and the profiled requests' device trace must hold no
              sort kernel.
+7. eval    — ``pio eval`` through the port's CLI, in process: 1,000,000
+             synthetic ratings (6,900 users x 26,744 items, the
+             ML-20M catalog) written through ``store.write`` into the
+             SQLite store, then the reference's grid (ranks 5/10/20 x
+             1/5/10 iterations, kFold 5) under RecommendationEvaluation
+             from a one-file generator module in an engine directory.
+             The EvaluationInstance row must be EVALCOMPLETED, best.json
+             must load back, the FastEval counts must be 1/1/9/9/1,
+             kernel A must launch exactly 480 times and equal its plain
+             version bit for bit on one captured half-step at each of
+             ranks 5, 10 and 20, every variant's Precision@K must be
+             finite in [0, 1] with PositiveCount > 0, and the rank-20,
+             10-iteration variant run again must give bit-identical
+             scores. Then the wall split (fill, read_eval, layouts,
+             train and batch_predict per variant, metrics), one fold's
+             rank-20 train + batch_predict under torch.profiler, and
+             ``topk_scores_batch`` at the full ML-20M shape against
+             ``torch.topk`` on the same chunks.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -54,7 +72,10 @@ script prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime as dt
 import json
+import math
 import os
 import shutil
 import socket
@@ -71,18 +92,56 @@ import numpy as np
 import torch
 
 import predictionio_tpu_torch
+from predictionio_tpu_torch.controller.evaluation import MetricEvaluator
 from predictionio_tpu_torch.data import storage as storage_mod
+from predictionio_tpu_torch.data import store as store_mod
 from predictionio_tpu_torch.data import synthetic
-from predictionio_tpu_torch.ops import _kernels, als, quant, solve, topk_fused
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.models.recommendation import evaluation
+from predictionio_tpu_torch.models.recommendation.als_algorithm import (
+    ALSAlgorithm, ALSAlgorithmParams,
+)
+from predictionio_tpu_torch.models.recommendation.data_source import (
+    DataSource,
+)
+from predictionio_tpu_torch.models.recommendation.engine import (
+    RecommendationEngine,
+)
+from predictionio_tpu_torch.ops import (
+    _kernels, als, quant, solve, topk, topk_fused,
+)
 from predictionio_tpu_torch.tools import cli
-from predictionio_tpu_torch.workflow import create_server, model_io
+from predictionio_tpu_torch.workflow import (
+    core_workflow, create_server, model_io,
+)
+from predictionio_tpu_torch.workflow.context import WorkflowContext
 
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 10     # ML-20M shape, rank 10
 N_RATINGS = 20_000_263                          # ML-20M's rating count
 TILE = 512
 BUCKETS = (1, 4, 16, 64)
+# the eval phase: ML-20M's catalog, users and ratings cut (PERF.md §4)
+EVAL_USERS, EVAL_RATINGS = 6_900, 1_000_000
+EVAL_APP, EVAL_K_FOLD, EVAL_QUERY_NUM = "SmokeEval", 5, 10
+EVAL_RANKS, EVAL_ITERS = (5, 10, 20), (1, 5, 10)
+GRID_MODULE = f'''"""The reference's Recommendation grid, pointed at one app."""
+from predictionio_tpu_torch.controller import EngineParamsGenerator
+from predictionio_tpu_torch.models.recommendation.evaluation import (
+    engine_params_list,
+)
+
+
+class SmokeGrid(EngineParamsGenerator):
+    def __init__(self):
+        self.engine_params_list = engine_params_list(
+            app_name={EVAL_APP!r}, k_fold={EVAL_K_FOLD},
+            query_num={EVAL_QUERY_NUM})
+'''
 ENGINE_JSON = os.path.join(os.path.dirname(predictionio_tpu_torch.__file__),
                            "models", "recommendation", "engine.json")
+
+_EPOCH = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
 HBM_BYTES_S = 3.35e12
@@ -564,8 +623,7 @@ def phase_train(work: str, seed: int, dev: torch.device):
     with open(ENGINE_JSON) as f:
         params = json.load(f)["algorithms"][0]["params"]
     iters, rank = params["numIterations"], params["rank"]
-    env = {"PIO_FS_BASEDIR": os.path.join(work, "store")}
-    os.environ.update(env)
+    env = _store_env(work)
     argv = ["train", "--engine-dir", engine_dir, "--synthetic",
             str(N_RATINGS), "--synthetic-seed", str(seed)]
 
@@ -810,6 +868,314 @@ def phase_path(store, iid: str, users, seed: int):
     return launches, merge_launches, split
 
 
+def _store_env(work: str) -> dict:
+    """The zero-configuration store (SQLite and model files under
+    ``PIO_FS_BASEDIR``) that the CLI's verbs in this run share."""
+    env = {"PIO_FS_BASEDIR": os.path.join(work, "store")}
+    os.environ.update(env)
+    return env
+
+
+@contextlib.contextmanager
+def _wrapped(*targets):
+    """Replace ``obj.name`` by ``make(original)`` for each (obj, name,
+    make) while the block runs."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _m in targets]
+    try:
+        for obj, name, make in targets:
+            setattr(obj, name, make(getattr(obj, name)))
+        yield
+    finally:
+        for obj, name, original in saved:
+            setattr(obj, name, original)
+
+
+def _fill_eval_store(storage, seed: int) -> int:
+    """EVAL_RATINGS synthetic rate events (zipf users and items, half-star
+    ratings, from ``seed``) written through ``store.write`` in batches."""
+    app_id = storage.get_meta_data_apps().insert(
+        storage_mod.App(0, EVAL_APP))
+    storage.get_events().init(app_id)
+    src = synthetic.chunk_source(EVAL_RATINGS, seed=seed, n_users=EVAL_USERS,
+                                 n_items=N_ITEMS, chunk=50_000)
+    for chunk in src.chunks():
+        users = (chunk["entity_code"] - 3).tolist()
+        items = (chunk["target_code"] - 3 - EVAL_USERS).tolist()
+        store_mod.write([Event(
+            event="rate", entity_type="user", entity_id=f"u{u}",
+            target_entity_type="item", target_entity_id=f"i{i}",
+            properties=DataMap({"rating": r}),
+            event_time=_EPOCH + dt.timedelta(milliseconds=ms))
+            for u, i, r, ms in zip(users, items, chunk["rating"].tolist(),
+                                   chunk["time_ms"].tolist())],
+            app_id, storage=storage)
+    return src.n_events
+
+
+def _solve_row(name: str, A, b, reg) -> dict:
+    """Kernel A's call, body, plain and library times and bound on one
+    captured eval half-step."""
+    n, r = b.shape
+    Ar = solve.with_reg(A, reg)
+    per, _wall = _device_profile(lambda: [
+        solve.solve_factors(A, b, reg) for _ in range(50)])
+    body = [us / cnt for key, (us, cnt) in per.items() if "gj_" in key]
+    bound_ms, bound_by = _solve_bound_ms(n, r)
+    return {"shape": name, "n": n, "r": r,
+            "ms": _time_ms(lambda: solve.solve_factors(A, b, reg)),
+            "body_ms": body[0] / 1e3 if body else None,
+            "plain_ms": _time_ms(lambda: solve.solve_gj_plain(A, b, reg),
+                                 reps=50, warm=5),
+            "library_ms": _time_ms(
+                lambda: torch.linalg.solve(Ar, b[..., None]), reps=50,
+                warm=5),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _scorer_at_full_shape(seed: int, dev: torch.device) -> dict:
+    """``topk_scores_batch`` at ML-20M's 138,493 x 26,744, rank 10, k = 10
+    (Gaussian factors from ``seed``) against ``torch.topk`` on the same
+    chunks: values bit for bit, indices wherever a row's top k + 1 holds
+    no tie."""
+    rng = np.random.default_rng(seed + 3)
+    U = torch.from_numpy(rng.standard_normal((N_USERS, RANK),
+                                             dtype=np.float32)).to(dev)
+    V = torch.from_numpy(rng.standard_normal((N_ITEMS, RANK),
+                                             dtype=np.float32)).to(dev)
+    rows = topk.CHUNK_BYTES // (4 * N_ITEMS)
+
+    def library(k):
+        parts = [torch.topk(U[lo:lo + rows] @ V.T, k)
+                 for lo in range(0, N_USERS, rows)]
+        return (torch.cat([p.values for p in parts]),
+                torch.cat([p.indices for p in parts]))
+
+    vals, idx = topk.topk_scores_batch(U, V, k=10)
+    lv, li = library(11)
+    torch.cuda.synchronize()
+    if not torch.equal(vals.view(torch.int32),
+                       lv[:, :10].contiguous().view(torch.int32)):
+        raise AssertionError("topk_scores_batch values != torch.topk's")
+    tied = (lv[:, 1:] == lv[:, :-1]).any(dim=1)
+    if not bool((idx.long() == li[:, :10])[~tied].all()):
+        raise AssertionError("topk_scores_batch indices != torch.topk's on "
+                             "rows with no tie")
+    # the fp32 product's operations and one compare per score; the
+    # factors read once and the (b, k) answer written once
+    t_ops = (2 * N_USERS * N_ITEMS * RANK + N_USERS * N_ITEMS) / FP32_OPS_S
+    t_bytes = ((N_USERS + N_ITEMS) * RANK * 4 + N_USERS * 10 * 8) \
+        / HBM_BYTES_S
+    out = {"b": N_USERS, "n_items": N_ITEMS, "r": RANK, "k": 10,
+           "chunk_rows": rows, "tied_rows": int(tied.sum()),
+           "ms": _time_ms(lambda: topk.topk_scores_batch(U, V, k=10),
+                          reps=5, warm=1),
+           "torch_topk_ms": _time_ms(lambda: library(10), reps=5, warm=1),
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    print(f"eval: topk_scores_batch at {N_USERS} x {N_ITEMS}, rank {RANK}, "
+          f"k=10, {rows} rows a chunk: {out['ms']:.2f} ms (torch.topk on "
+          f"the same chunks {out['torch_topk_ms']:.2f} ms, bound "
+          f"{out['bound_ms']:.3f} ms, {out['bound_by']}); values equal "
+          f"torch.topk's bit for bit, indices on the "
+          f"{N_USERS - out['tied_rows']} rows with no tie", flush=True)
+    return out
+
+
+def phase_eval(work: str, seed: int, dev: torch.device):
+    """``pio eval`` of the reference's grid through the port's CLI on the
+    card; returns kernel A's eval launches, its rows at ranks 5, 10 and
+    20, and the phase's numbers."""
+    env = _store_env(work)
+    storage = storage_mod.get_storage()
+    t_phase = t0 = time.perf_counter()
+    n_events = _fill_eval_store(storage, seed)
+    fill_s = time.perf_counter() - t0
+    engine_dir = os.path.join(work, "eval_engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "smoke_grid.py"), "w") as f:
+        f.write(GRID_MODULE)
+    best = os.path.join(work, "best.json")
+
+    workflows, captured = [], {}
+    seconds = {}
+
+    def note(key, t_start):
+        torch.cuda.synchronize()
+        seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t_start
+
+    class Recorded(core_workflow.FastEvalEngineWorkflow):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            workflows.append(self)
+
+    def timed(key_of):
+        def make(fn):
+            def run(self, *a, **kw):
+                t_start = time.perf_counter()
+                out = fn(self, *a, **kw)
+                note(key_of(self), t_start)
+                return out
+            return run
+        return make
+
+    def capture(fn):
+        def run(A, b, reg):
+            x = fn(A, b, reg)
+            r = A.shape[-1]
+            if r not in captured:     # the first half-step at each rank
+                captured[r] = tuple(t.clone() for t in (A, b, reg, x))
+            return x
+        return run
+
+    def variant(algo):
+        return algo.ap.rank, algo.ap.numIterations
+
+    argv = ["eval", "predictionio_tpu_torch.models.recommendation."
+            "evaluation:RecommendationEvaluation", "smoke_grid:SmokeGrid",
+            "--engine-dir", engine_dir, "--output-best-engine-params", best]
+    with _wrapped(
+            (core_workflow, "FastEvalEngineWorkflow", lambda _c: Recorded),
+            (als, "solve_factors", capture),
+            (DataSource, "read_eval", timed(lambda _s: "read_eval")),
+            (ALSAlgorithm, "prepare_layout", timed(lambda _s: "layouts")),
+            (ALSAlgorithm, "train",
+             timed(lambda a: ("train",) + variant(a))),
+            (ALSAlgorithm, "batch_predict",
+             timed(lambda a: ("batch_predict",) + variant(a))),
+            (MetricEvaluator, "evaluate_base", timed(lambda _s: "metrics"))):
+        solve.reset_launches()           # the eval path starts here
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = solve.launches        # the eval path ends here
+    if rc != 0:
+        raise AssertionError(f"pio eval exited {rc}")
+    n_grid = len(EVAL_RANKS) * len(EVAL_ITERS)
+    want_launches = 2 * sum(EVAL_ITERS) * len(EVAL_RANKS) * EVAL_K_FOLD
+    if launches != want_launches:
+        raise AssertionError(f"solve_gj launched {launches} times in the "
+                             f"eval (want {want_launches})")
+    (wf,) = workflows
+    want_counts = {"read_eval": 1, "prepare": 1, "train": n_grid,
+                   "serve": n_grid, "layout_prefixes": 1}
+    if wf.counts != want_counts:
+        raise AssertionError(f"FastEval counts {wf.counts}, want "
+                             f"{want_counts}")
+    (row,) = storage_mod.Storage(env=env) \
+        .get_meta_data_evaluation_instances().get_all()
+    if row.status != "EVALCOMPLETED":
+        raise AssertionError(f"eval left its row {row.status}")
+    result = json.loads(row.evaluator_results_json)
+    if "Precision@K" not in result["metricHeader"]:
+        raise AssertionError(f"unexpected metric {result['metricHeader']}")
+    with open(best) as f:
+        best_params = RecommendationEngine().engine_params_from_json(
+            json.load(f))
+    scores = result["engineParamsScores"]
+    for s in scores:
+        if not (math.isfinite(s["score"]) and 0.0 <= s["score"] <= 1.0):
+            raise AssertionError(f"Precision@K {s['score']} not in [0, 1]")
+        if not s["otherScores"][0] > 0:
+            raise AssertionError("PositiveCount is not positive")
+    # kernel A against its plain version on the captured half-steps
+    solve_rows = []
+    for r in EVAL_RANKS:
+        A, b, reg, x = captured[r]
+        p = solve.solve_gj_plain(A, b, reg)
+        same = (x == p) | (torch.isnan(x) & torch.isnan(p))
+        if not bool(same.all()):
+            raise AssertionError(f"solve_gj != plain on the eval's rank-{r} "
+                                 f"half-step: {int((~same).sum())} differ")
+        solve_rows.append({**_solve_row(f"eval r{r}", A, b, reg),
+                           "max_abs_err": float((x - p).abs().max())})
+    # the rank-20, 10-iteration variant again, from a fresh workflow
+    grid = evaluation.engine_params_list(EVAL_APP, EVAL_K_FOLD,
+                                         EVAL_QUERY_NUM)
+    ix = [(ep.algorithm_params_list[0][1].rank,
+           ep.algorithm_params_list[0][1].numIterations)
+          for ep in grid].index((20, 10))
+    again = core_workflow.run_evaluation(
+        WorkflowContext(), evaluation.RecommendationEvaluation(), [grid[ix]])
+    first = scores[ix]
+    rerun = again.engine_params_scores[0]
+    if [first["score"], *first["otherScores"]] != \
+            [rerun.score, *rerun.other_scores]:
+        raise AssertionError("a second eval of rank 20 x 10 iterations "
+                             "gave other scores")
+
+    # one fold's rank-20 train + batch_predict under the profiler
+    pd0 = next(iter(wf.preparator_cache.values()))[0]
+    qa0 = next(iter(wf.data_source_cache.values()))[0][2]
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=20, numIterations=10,
+                                           lambda_=0.01, seed=3))
+    ctx = WorkflowContext()
+    queries = list(enumerate(q for q, _a in qa0))
+    per, pwall = _device_profile(lambda: algo.batch_predict(
+        algo.train(ctx, pd0), queries))
+    busy_ms = sum(us for us, _n in per.values()) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
+    scorer = _scorer_at_full_shape(seed, dev)
+
+    split = {"phase_s": time.perf_counter() - t_phase,
+             "store_fill_s": fill_s, "eval_wall_s": wall,
+             "read_eval_s": seconds["read_eval"],
+             "layouts_s": seconds["layouts"],
+             "train_s_by_rank": {r: sum(v for k, v in seconds.items()
+                                        if k[0] == "train" and k[1] == r)
+                                 for r in EVAL_RANKS},
+             "train_s": {f"r{k[1]}_i{k[2]}": v for k, v in seconds.items()
+                         if k[0] == "train"},
+             "batch_predict_s": {f"r{k[1]}_i{k[2]}": v
+                                 for k, v in seconds.items()
+                                 if k[0] == "batch_predict"},
+             "metrics_s": seconds["metrics"]}
+    out = {"ratings": n_events, "users": EVAL_USERS, "items": N_ITEMS,
+           "k_fold": EVAL_K_FOLD, "variants": n_grid,
+           "solve_gj_launches": launches, "counts": wf.counts,
+           "best": {"rank": best_params.algorithm_params_list[0][1].rank,
+                    "numIterations": best_params.algorithm_params_list[0][
+                        1].numIterations, "score": result["bestScore"][
+                            "score"]},
+           "scores": [[s["engineParams"]["algorithmParamsList"][0][
+               "params"]["rank"], s["engineParams"]["algorithmParamsList"][
+                   0]["params"]["numIterations"], s["score"],
+               s["otherScores"]] for s in scores],
+           "split": split, "profiled_fold_r20": {
+               "wall_ms": pwall * 1e3, "device_busy_ms": busy_ms,
+               "idle_share": 1 - busy_ms / (pwall * 1e3) if per else None,
+               "top": [[k[:60], us, n] for k, (us, n) in top]},
+           "scorer_ml20m": scorer, "bit_identical_rerun": True}
+    print(f"eval: the phase took {split['phase_s']:.1f} s with its checks; "
+          f"{n_events} ratings ({EVAL_USERS} users x {N_ITEMS} "
+          f"items) written in {fill_s:.1f} s; pio eval of {n_grid} "
+          f"variants x {EVAL_K_FOLD} folds in {wall:.1f} s: read_eval "
+          f"{seconds['read_eval']:.2f} s, layouts {seconds['layouts']:.3f} "
+          "s, train by rank " + ", ".join(
+              f"r{r} {v:.3f} s" for r, v in
+              split["train_s_by_rank"].items())
+          + f", batch_predict {sum(split['batch_predict_s'].values()):.2f} "
+          f"s, metrics {seconds['metrics']:.2f} s; counts {wf.counts}; "
+          f"solve_gj launched {launches} times, == plain on ranks "
+          f"{list(EVAL_RANKS)}; best {out['best']}; the rank-20 x 10 rerun "
+          "is bit-identical", flush=True)
+    for row_a in solve_rows:
+        print(f"eval: solve_gj n={row_a['n']} r={row_a['r']}: call "
+              f"{row_a['ms']:.4f} ms (device body {row_a['body_ms']} ms), "
+              f"plain {row_a['plain_ms']:.4f} ms, torch.linalg.solve "
+              f"{row_a['library_ms']:.4f} ms, bound "
+              f"{row_a['bound_ms']:.5f} ms ({row_a['bound_by']})",
+              flush=True)
+    idle = out["profiled_fold_r20"]["idle_share"]
+    print(f"eval: one fold's rank-20 train + batch_predict profiled: wall "
+          f"{pwall * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}; top device "
+          "entries " + "; ".join(f"{k[:60]} {us / 1e3:.2f} ms x{n}"
+                                 for k, (us, n) in top), flush=True)
+    print("eval: " + json.dumps(out), flush=True)
+    return launches, solve_rows, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -852,6 +1218,8 @@ def main(argv=None) -> int:
         store, iid, users, train = phase_train(work, args.seed, dev)
         launches, merge_launches, split = phase_path(store, iid, users,
                                                      args.seed)
+        eval_launches, eval_solve_rows, eval_out = phase_eval(
+            work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -902,6 +1270,9 @@ def main(argv=None) -> int:
         "library_ms": row_a["library_ms"],
         "shape": {"n": row_a["n"], "r": row_a["r"]},
         "by_shape": rows_a,
+        "eval_launches": eval_launches,
+        "eval_by_rank": eval_solve_rows,
+        "eval": eval_out,
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,24 @@
-"""The DASE SDK of the port: the classes train and deploy use."""
+"""The DASE SDK of the port: the classes train, deploy and eval use."""
 
 from predictionio_tpu_torch.controller.base import (
-    Algorithm, DataSource, EmptyParams, Params, Preparator, SanityCheck,
-    Serving,
+    Algorithm, DataSource, EmptyActualResult, EmptyEvaluationInfo,
+    EmptyParams, Params, Preparator, SanityCheck, Serving,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.controller.identity import FirstServing
+from predictionio_tpu_torch.controller.metric import (
+    AverageMetric, Metric, OptionAverageMetric, OptionStdevMetric,
+    StdevMetric, SumMetric, ZeroMetric,
+)
+from predictionio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator, Evaluation, MetricEvaluator, MetricScores,
+)
 
 __all__ = [
-    "Algorithm", "DataSource", "EmptyParams", "Params", "Preparator",
-    "SanityCheck", "Serving", "Engine", "EngineParams", "FirstServing",
+    "Algorithm", "DataSource", "EmptyActualResult", "EmptyEvaluationInfo",
+    "EmptyParams", "Params", "Preparator", "SanityCheck", "Serving",
+    "Engine", "EngineParams", "FirstServing",
+    "AverageMetric", "Metric", "OptionAverageMetric", "OptionStdevMetric",
+    "StdevMetric", "SumMetric", "ZeroMetric",
+    "EngineParamsGenerator", "Evaluation", "MetricEvaluator", "MetricScores",
 ]

@@ -4,21 +4,24 @@
 An engine is DataSource, Preparator, Algorithm(s) and Serving, each
 instantiated from its typed Params. ``pio train`` reads through the
 DataSource, prepares through the Preparator and trains each Algorithm;
-``pio deploy`` uses the Algorithm's serving hooks and Serving. The
-evaluation hooks (``read_eval``, ``batch_predict``) wait for the
-evaluation slice.
+``pio deploy`` uses the Algorithm's serving hooks and Serving; ``pio
+eval`` reads k-fold sets through ``read_eval``, pre-builds each fold's
+layout (``prepare_layout``) and scores each fold's queries with
+``batch_predict``.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Generic, List, Optional, Sequence, TypeVar
+from typing import Generic, Iterable, List, Optional, Sequence, Tuple, TypeVar
 
 TD = TypeVar("TD")   # training data
 PD = TypeVar("PD")   # prepared data
 Q = TypeVar("Q")     # query
 P = TypeVar("P")     # predicted result
+A = TypeVar("A")     # actual result
+EI = TypeVar("EI")   # evaluation info
 M = TypeVar("M")     # model
 
 
@@ -29,6 +32,16 @@ class Params:
 
 @dataclasses.dataclass(frozen=True)
 class EmptyParams(Params):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class EmptyEvaluationInfo:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class EmptyActualResult:
     pass
 
 
@@ -58,11 +71,18 @@ def create_doer(cls, params: Optional[Params]):
     return obj
 
 
-class DataSource(Generic[TD], abc.ABC):
-    """Reads training data from the event store (BaseDataSource.scala)."""
+class DataSource(Generic[TD, EI, Q, A], abc.ABC):
+    """Reads training and evaluation data (BaseDataSource.scala:34-55)."""
 
     @abc.abstractmethod
     def read_training(self, ctx) -> TD: ...
+
+    def read_eval(self, ctx) -> List[Tuple[TD, EI, List[Tuple[Q, A]]]]:
+        """k-fold (TD, EI, [(Q, A)]) sets; engines that only train leave
+        it unimplemented (PDataSource.scala:46-56)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; evaluation "
+            "is unavailable for this engine")
 
 
 class Preparator(Generic[TD, PD], abc.ABC):
@@ -80,6 +100,23 @@ class Algorithm(Generic[PD, M, Q, P], abc.ABC):
 
     @abc.abstractmethod
     def predict(self, model: M, query: Q) -> P: ...
+
+    def batch_predict(self, model: M,
+                      queries: Iterable[Tuple[int, Q]]) -> List[Tuple[int, P]]:
+        """The evaluation's predict over indexed queries. Default maps
+        predict (P2LAlgorithm.scala:69-71); override with a batched one."""
+        return [(qx, self.predict(model, q)) for qx, q in queries]
+
+    def prepare_layout(self, ctx, prepared_data: PD) -> None:
+        """Build (and cache) the data-dependent layout that the
+        hyperparameter variants of one fold share, before any of them
+        trains (``workflow/fast_eval.py``). Default: nothing to build."""
+        return None
+
+    def bind_serving(self, ctx) -> None:
+        """Called with the active context before predict/batch_predict is
+        used, for algorithms that read the event store at predict time.
+        Default: nothing to bind."""
 
     def predict_batch(self, model: M, queries: Sequence[Q]) -> List[P]:
         """Serving-path batched predict over one micro-batch, positional.

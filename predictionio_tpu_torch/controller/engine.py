@@ -1,7 +1,6 @@
-"""Engine: chains DASE classes; train orchestration (port of
+"""Engine: chains DASE classes; train and eval orchestration (port of
 ``predictionio_tpu/controller/engine.py``: EngineParams, engine.json
-extraction, instantiation and ``Engine.train``). Evaluation waits for the
-evaluation slice.
+extraction, instantiation, ``Engine.train`` and ``Engine.eval``).
 """
 
 from __future__ import annotations
@@ -13,8 +12,6 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm, DataSource, EmptyParams, Params, Preparator, SanityCheck,
     Serving, create_doer,
 )
-
-
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
@@ -105,6 +102,34 @@ class Engine:
     def _sanity_check(obj) -> None:
         if isinstance(obj, SanityCheck):
             obj.sanity_check()
+
+    def eval(self, ctx, engine_params: EngineParams
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """[(EI, [(Q, P, A)])], one entry per fold, with no memoization
+        (Engine.scala:730-820; ``workflow/fast_eval.py`` is the memoized
+        path). Per fold: prepare, train every algorithm, batch-predict
+        every algorithm over the supplemented queries, and combine each
+        query's predictions with ``serving.serve``, which is fed the
+        ORIGINAL query (Engine.scala:805)."""
+        data_source, preparator, algorithms, serving = (
+            self._instantiate(engine_params))
+        eval_sets = data_source.read_eval(ctx)
+        out = []
+        for a in algorithms:
+            a.bind_serving(ctx)
+        for td, ei, qa_list in eval_sets:
+            self._sanity_check(td)
+            pd = preparator.prepare(ctx, td)
+            self._sanity_check(pd)
+            models = [a.train(ctx, pd) for a in algorithms]
+            indexed_q = [(qx, serving.supplement(q))
+                         for qx, (q, _a) in enumerate(qa_list)]
+            per_algo = [dict(algo.batch_predict(model, indexed_q))
+                        for algo, model in zip(algorithms, models)]
+            qpa = [(q, serving.serve(q, [pred[qx] for pred in per_algo]), a)
+                   for qx, (q, a) in enumerate(qa_list)]
+            out.append((ei, qpa))
+        return out
 
     def engine_params_from_json(self, variant_json: Dict[str, Any]
                                 ) -> EngineParams:

@@ -23,12 +23,13 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from predictionio_tpu_torch.data.storage.base import (
-    App, Apps, EngineInstance, EngineInstances, Events, Model, Models,
-    NONE_FILTER,
+    App, Apps, EngineInstance, EngineInstances, EvaluationInstance,
+    EvaluationInstances, Events, Model, Models, NONE_FILTER,
 )
 
 __all__ = [
-    "App", "Apps", "EngineInstance", "EngineInstances", "Events", "Model",
+    "App", "Apps", "EngineInstance", "EngineInstances",
+    "EvaluationInstance", "EvaluationInstances", "Events", "Model",
     "Models", "NONE_FILTER", "StorageClientConfig", "Storage",
     "get_storage",
 ]
@@ -146,6 +147,9 @@ class Storage:
 
     def get_meta_data_engine_instances(self) -> EngineInstances:
         return self._get_data_object(MetaData, "EngineInstances")
+
+    def get_meta_data_evaluation_instances(self) -> EvaluationInstances:
+        return self._get_data_object(MetaData, "EvaluationInstances")
 
     def get_events(self) -> Events:
         return self._get_data_object(EventData, "Events")

@@ -4,9 +4,10 @@ engine-instance ledger and model blobs.
 
 An ``App`` names the event stream a DataSource reads; ``Events`` stores
 and queries it; an ``EngineInstance`` row names a train run and its
-params; a ``Model`` row holds that run's serialized model blob. Access
-keys, channels, evaluation instances and property aggregation wait for
-the slices that use them.
+params; a ``Model`` row holds that run's serialized model blob; an
+``EvaluationInstance`` row names a ``pio eval`` run and holds its
+results. Access keys, channels and property aggregation wait for the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -48,6 +49,25 @@ class EngineInstance:
 
 
 @dataclass(frozen=True)
+class EvaluationInstance:
+    """An eval-run ledger row (EvaluationInstances.scala:42-56)."""
+    id: str = ""
+    status: str = ""
+    start_time: _dt.datetime = field(
+        default_factory=lambda: _dt.datetime.now(_dt.timezone.utc))
+    end_time: _dt.datetime = field(
+        default_factory=lambda: _dt.datetime.now(_dt.timezone.utc))
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    runtime_conf: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
+@dataclass(frozen=True)
 class Model:
     """A serialized model blob keyed by EngineInstance id."""
     id: str
@@ -78,6 +98,28 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
+
+
+class EvaluationInstances(abc.ABC):
+    """EvaluationInstances DAO (EvaluationInstances.scala:58-90)."""
+
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> None: ...
 
     @abc.abstractmethod
     def delete(self, instance_id: str) -> None: ...

@@ -1,6 +1,7 @@
-"""In-memory storage backend (port of the events, apps, engine-instance
-and model DAOs of ``predictionio_tpu/data/storage/memory.py``; the
-fold-in cursor methods wait for the fold-in slice)."""
+"""In-memory storage backend (port of the events, apps, engine-instance,
+evaluation-instance and model DAOs of
+``predictionio_tpu/data/storage/memory.py``; the fold-in cursor methods
+wait for the fold-in slice)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    App, EngineInstance, Model, event_matches,
+    App, EngineInstance, EvaluationInstance, Model, event_matches,
 )
 
 _ChannelKey = Tuple[int, Optional[int]]
@@ -122,6 +123,38 @@ class MemoryEngineInstances(base.EngineInstances):
         return rows[0] if rows else None
 
     def update(self, i: EngineInstance) -> None:
+        with self._lock:
+            self._by_id[i.id] = i
+
+    def delete(self, instance_id: str) -> None:
+        with self._lock:
+            self._by_id.pop(instance_id, None)
+
+
+class MemoryEvaluationInstances(base.EvaluationInstances):
+    def __init__(self, client=None, config=None, namespace: str = ""):
+        self._by_id: Dict[str, EvaluationInstance] = {}
+        self._lock = threading.RLock()
+
+    def insert(self, i: EvaluationInstance) -> str:
+        instance_id = i.id or uuid.uuid4().hex
+        with self._lock:
+            self._by_id[instance_id] = dataclasses.replace(i, id=instance_id)
+        return instance_id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        return self._by_id.get(instance_id)
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return list(self._by_id.values())
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        rows = [i for i in self._by_id.values()
+                if i.status == "EVALCOMPLETED"]
+        rows.sort(key=lambda i: i.start_time, reverse=True)
+        return rows
+
+    def update(self, i: EvaluationInstance) -> None:
         with self._lock:
             self._by_id[i.id] = i
 

@@ -1,7 +1,7 @@
 """SQLite storage backend — the file-backed default (port of
 ``predictionio_tpu/data/storage/sqlite.py``: events, apps, engine
-instances and model blobs; the fold-in cursor and tail reads wait for the
-fold-in slice).
+instances, evaluation instances and model blobs; the fold-in cursor and
+tail reads wait for the fold-in slice).
 
 The schema is the reference's, table for table, so a store that the JAX
 package's ``pio app new``/``pio import``/``pio train`` filled reads here,
@@ -30,7 +30,7 @@ import numpy as np
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    App, EngineInstance, Model, NONE_FILTER,
+    App, EngineInstance, EvaluationInstance, Model, NONE_FILTER,
 )
 
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
@@ -400,6 +400,69 @@ class SqliteEngineInstances(_Sqlite, base.EngineInstances):
 
     def delete(self, instance_id: str) -> None:
         self._exec("DELETE FROM engine_instances WHERE id=?", (instance_id,))
+
+
+def _evi_to_row(i: EvaluationInstance):
+    return (
+        i.id, i.status, _dt_to_iso(i.start_time), _dt_to_iso(i.end_time),
+        i.evaluation_class, i.engine_params_generator_class, i.batch,
+        json.dumps(i.env), json.dumps(i.runtime_conf),
+        i.evaluator_results, i.evaluator_results_html,
+        i.evaluator_results_json,
+    )
+
+
+def _row_to_evi(r) -> EvaluationInstance:
+    return EvaluationInstance(
+        id=r[0], status=r[1], start_time=_iso_to_dt(r[2]),
+        end_time=_iso_to_dt(r[3]), evaluation_class=r[4],
+        engine_params_generator_class=r[5], batch=r[6], env=json.loads(r[7]),
+        runtime_conf=json.loads(r[8]), evaluator_results=r[9],
+        evaluator_results_html=r[10], evaluator_results_json=r[11],
+    )
+
+
+class SqliteEvaluationInstances(_Sqlite, base.EvaluationInstances):
+    def _create_tables(self):
+        self._exec(
+            """CREATE TABLE IF NOT EXISTS evaluation_instances (
+                 id TEXT PRIMARY KEY, status TEXT, start_time TEXT,
+                 end_time TEXT, evaluation_class TEXT,
+                 engine_params_generator_class TEXT, batch TEXT, env TEXT,
+                 runtime_conf TEXT, evaluator_results TEXT,
+                 evaluator_results_html TEXT, evaluator_results_json TEXT)""")
+
+    def insert(self, i: EvaluationInstance) -> str:
+        instance_id = i.id or uuid.uuid4().hex
+        i = dataclasses.replace(i, id=instance_id)
+        self._exec(
+            "INSERT OR REPLACE INTO evaluation_instances VALUES "
+            "(?,?,?,?,?,?,?,?,?,?,?,?)", _evi_to_row(i))
+        return instance_id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        rows = self._query("SELECT * FROM evaluation_instances WHERE id=?",
+                           (instance_id,))
+        return _row_to_evi(rows[0]) if rows else None
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return [_row_to_evi(r)
+                for r in self._query("SELECT * FROM evaluation_instances")]
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        rows = self._query(
+            "SELECT * FROM evaluation_instances WHERE status='EVALCOMPLETED' "
+            "ORDER BY start_time DESC")
+        return [_row_to_evi(r) for r in rows]
+
+    def update(self, i: EvaluationInstance) -> None:
+        self._exec(
+            "INSERT OR REPLACE INTO evaluation_instances VALUES "
+            "(?,?,?,?,?,?,?,?,?,?,?,?)", _evi_to_row(i))
+
+    def delete(self, instance_id: str) -> None:
+        self._exec("DELETE FROM evaluation_instances WHERE id=?",
+                   (instance_id,))
 
 
 class SqliteModels(_Sqlite, base.Models):

@@ -5,8 +5,13 @@ Training lays the ratings out on the context's device (the card unless
 the caller asks for the CPU) and runs ``ops.als.train_explicit``, whose
 half-steps each end in kernel A. The layout is cached on the
 TrainingData object, so a second train of the same data (another rank,
-a resume) skips it; the reference's process-wide fingerprinted layout
-cache, device staging and streamed read wait for a later slice.
+a resume, the next variant of an eval grid after ``prepare_layout``)
+skips it; the reference's process-wide fingerprinted layout cache,
+device staging and streamed read wait for a later slice.
+
+Evaluation scores with ``batch_predict``: the known users' rows are
+gathered on the factors' device and ranked by one fp32
+``topk.topk_scores_batch``.
 
 A deployed model serves from the port's device: quantized (int8 factors
 with per-row scales, top-k through the fused kernel) when the deploy's
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +84,12 @@ class ALSModel:
 def _to_host(vals: torch.Tensor, idx: torch.Tensor
              ) -> Tuple[np.ndarray, np.ndarray]:
     return vals.cpu().numpy(), idx.cpu().numpy()
+
+
+def _tensor(x) -> torch.Tensor:
+    """A trained model's factors as they are (a tensor on its device); a
+    loaded model's numpy factors copied into a CPU tensor."""
+    return x if isinstance(x, torch.Tensor) else torch.tensor(x)
 
 
 def host_f32(x) -> np.ndarray:
@@ -142,6 +153,18 @@ class ALSAlgorithm(Algorithm):
         return ALSModel(
             rank=self.ap.rank, user_factors=U, item_factors=V,
             user_vocab=td.user_vocab, item_vocab=td.item_vocab)
+
+    def prepare_layout(self, ctx, prepared) -> None:
+        """The eval grid's hoist (``workflow/fast_eval.py``): build this
+        fold's layout before any variant trains. The layout is
+        rank-independent, so every variant's train then hits the
+        TrainingData-object cache."""
+        td = prepared.ratings
+        if td.n == 0:
+            return
+        dev = device_mod.resolve(getattr(ctx, "device", None))
+        with ctx.phase("layout"):
+            _ensure_layout(td, dev)
 
     def prepare_serving(self, model: ALSModel) -> ALSModel:
         """Quantize and lay the factors out on the deploy's device when
@@ -228,4 +251,35 @@ class ALSAlgorithm(Algorithm):
         for r, (qx, q, _ix) in enumerate(valid):
             n = min(q.num, k)
             out[qx] = self._results(model, vals[r, :n], idx[r, :n])
+        return out
+
+    def batch_predict(self, model: ALSModel,
+                      queries: Iterable[Tuple[int, Query]]
+                      ) -> List[Tuple[int, PredictedResult]]:
+        """The eval path: the known users' rows gathered on the factors'
+        device and one fp32 ``topk_scores_batch`` at the largest num
+        asked (ALSAlgorithm.scala:113-148 did a cartesian join); each
+        query keeps its own num. Unknown users and num <= 0 get empty
+        results."""
+        queries = list(queries)
+        known = [(qx, q, model.user_vocab.get(q.user)) for qx, q in queries]
+        out: List[Tuple[int, PredictedResult]] = [
+            (qx, PredictedResult(())) for qx, _q, ix in known if ix is None]
+        valid = [(qx, q, ix) for qx, q, ix in known if ix is not None]
+        if not valid:
+            return out
+        k = min(max(q.num for _qx, q, _ix in valid), len(model.item_vocab))
+        if k <= 0:      # every query asked for num <= 0
+            out.extend((qx, PredictedResult(())) for qx, _q, _ix in valid)
+            return out
+        U = _tensor(model.user_factors)
+        V = _tensor(model.item_factors).to(U.device)
+        ixs = torch.tensor([ix for _qx, _q, ix in valid], dtype=torch.int64,
+                           device=U.device)
+        vals, idx = _to_host(*topk.topk_scores_batch(
+            U.index_select(0, ixs), V, k=k))
+        for row, (qx, q, _ix) in enumerate(valid):
+            n = max(min(q.num, k), 0)   # a negative num is empty
+            out.append((qx, self._results(model, vals[row, :n],
+                                          idx[row, :n])))
         return out

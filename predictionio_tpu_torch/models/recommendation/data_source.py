@@ -1,23 +1,29 @@
-"""DataSource: rate/buy events -> columnar ratings (port of the training
-read of ``predictionio_tpu/models/recommendation/data_source.py``;
-``read_eval`` waits for the evaluation slice).
+"""DataSource: rate/buy events -> columnar ratings + k-fold eval splits
+(port of ``predictionio_tpu/models/recommendation/data_source.py``).
 
 Parity: recommendation-engine/src/main/scala/DataSource.scala (getRatings
-:46-74, readTraining :76-80). The RDD map/filter chains become one
-columnar pass (store.find_columnar) producing vocab-encoded numpy arrays.
+:46-74, readTraining :76-80, readEval :82-107). The RDD map/filter chains
+become one columnar pass (store.find_columnar) producing vocab-encoded
+numpy arrays; the eval split is vectorized numpy with the reference's
+folds, query order and rating order.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from predictionio_tpu_torch.controller import DataSource as BaseDataSource
-from predictionio_tpu_torch.controller import Params, SanityCheck
+from predictionio_tpu_torch.controller import (
+    EmptyEvaluationInfo, Params, SanityCheck,
+)
 from predictionio_tpu_torch.data import store, synthetic
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.models.recommendation.engine import (
+    ActualResult, Query, Rating,
+)
 
 #: buy events carry no rating property; the template maps them to 4.0
 #: (DataSource.scala:57-59)
@@ -25,9 +31,22 @@ BUY_RATING = 4.0
 
 
 @dataclass(frozen=True)
+class DataSourceEvalParams(Params):
+    kFold: int
+    queryNum: int
+
+
+@dataclass(frozen=True)
 class DataSourceParams(Params):
     appName: str
     evalParams: Optional[dict] = None  # {"kFold": int, "queryNum": int}
+
+    def eval_params(self) -> Optional[DataSourceEvalParams]:
+        if self.evalParams is None:
+            return None
+        if isinstance(self.evalParams, DataSourceEvalParams):
+            return self.evalParams
+        return DataSourceEvalParams(**self.evalParams)
 
 
 @dataclass
@@ -79,8 +98,11 @@ class DataSource(BaseDataSource):
         (``PIO_SYNTHETIC_EVENTS``) replaces the event-store read with the
         seeded generator. ``read_io``/``read_encode`` land in the
         context's phase table."""
+        return self._get_ratings(ctx, synthetic_ok=True)
+
+    def _get_ratings(self, ctx, synthetic_ok: bool) -> TrainingData:
         timings: Dict[str, float] = {}
-        syn = synthetic.env_config()
+        syn = synthetic.env_config() if synthetic_ok else None
         if syn is not None:
             td = synthetic.training_data(
                 syn.n_events, seed=syn.seed, n_users=syn.n_users,
@@ -97,3 +119,54 @@ class DataSource(BaseDataSource):
         for k, v in timings.items():
             ctx.note_phase(k, v)
         return td
+
+    def read_eval(self, ctx):
+        """k-fold split by rating index % k (readEval,
+        DataSource.scala:82-107). Per fold, the ratings of the other folds
+        train, and the fold's own ratings, grouped by user in order of
+        the user's first appearance, become (Query(user, queryNum),
+        ActualResult(the user's ratings in read order)). Always reads the
+        event store, as the reference does."""
+        ep = self.dsp.eval_params()
+        if ep is None:
+            raise ValueError("Must specify evalParams")
+        td = self._get_ratings(ctx, synthetic_ok=False)
+        k = ep.kFold
+        fold_of = np.arange(td.n) % k
+        users = np.asarray(td.user_vocab.decode_array(
+            np.arange(len(td.user_vocab))), dtype=object)
+        items = np.asarray(td.item_vocab.decode_array(
+            np.arange(len(td.item_vocab))), dtype=object)
+        folds = []
+        for fold in range(k):
+            test = fold_of == fold
+            train = TrainingData(
+                user_idx=td.user_idx[~test], item_idx=td.item_idx[~test],
+                rating=td.rating[~test], user_vocab=td.user_vocab,
+                item_vocab=td.item_vocab)
+            folds.append((train, EmptyEvaluationInfo(), _queries(
+                td.user_idx[test], td.item_idx[test], td.rating[test],
+                users, items, ep.queryNum)))
+        return folds
+
+
+def _queries(u: np.ndarray, i: np.ndarray, r: np.ndarray,
+             users: np.ndarray, items: np.ndarray, num: int
+             ) -> List[Tuple[Query, ActualResult]]:
+    """Test ratings grouped by user: one (Query, ActualResult) per user in
+    order of first appearance, each user's ratings in read order."""
+    if u.size == 0:
+        return []
+    _uniq, first, inv = np.unique(u, return_index=True, return_inverse=True)
+    group_of = np.empty_like(first)
+    group_of[np.argsort(first, kind="stable")] = np.arange(first.size)
+    key = group_of[inv.reshape(-1)]
+    order = np.argsort(key, kind="stable")
+    ratings = [Rating(a, b, c) for a, b, c in zip(
+        users[u[order]].tolist(), items[i[order]].tolist(),
+        r[order].tolist())]
+    ends = np.cumsum(np.bincount(key, minlength=first.size)).tolist()
+    starts = [0] + ends[:-1]
+    group_users = users[u[np.sort(first)]].tolist()
+    return [(Query(user=name, num=num), ActualResult(tuple(ratings[a:b])))
+            for name, a, b in zip(group_users, starts, ends)]

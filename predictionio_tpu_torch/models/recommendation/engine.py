@@ -1,4 +1,4 @@
-"""Query/result types + engine factory (port of
+"""Query/result/actual types + engine factory (port of
 ``predictionio_tpu/models/recommendation/engine.py``). Field names are
 camelCase so the serving JSON stays byte-compatible:
 ``{"user": ..., "num": ...}`` -> ``{"itemScores": [...]}``.
@@ -25,6 +25,18 @@ class ItemScore:
 @dataclass(frozen=True)
 class PredictedResult:
     itemScores: Tuple[ItemScore, ...] = ()
+
+
+@dataclass(frozen=True)
+class Rating:
+    user: str
+    item: str
+    rating: float
+
+
+@dataclass(frozen=True)
+class ActualResult:
+    ratings: Tuple[Rating, ...] = ()
 
 
 def RecommendationEngine():

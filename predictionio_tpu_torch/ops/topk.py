@@ -8,6 +8,12 @@ order realizes exactly the reference's two-key ``lax.sort`` over
 The fp32 products stay ``torch.matmul`` at full precision (TF32 is off,
 :mod:`predictionio_tpu_torch.device`), as the reference leaves them to
 XLA at ``Precision.HIGHEST``.
+
+:func:`topk_scores_batch`, the evaluation's scorer, takes its rows in
+chunks whose fp32 score matrix stays under :data:`CHUNK_BYTES`: ML-20M's
+whole (138,493 x 26,744) matrix is 14.8 GB, and the sort's buffers would
+triple it. Each row is scored and ranked on its own, so chunking changes
+no result.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import torch
 #: the reference's masked-score sentinel, bit for bit
 NEG_INF = -3.4e38
 
+#: most bytes of fp32 scores that one chunk of topk_scores_batch holds
+CHUNK_BYTES = 1 << 30
+
 
 def stable_topk(scores: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -28,6 +37,34 @@ def stable_topk(scores: torch.Tensor, k: int
     neg, idx = torch.sort(-scores, dim=-1, stable=True)
     # -(-x) is a bitwise round trip for floats (two sign flips)
     return -neg[..., :k], idx[..., :k].to(torch.int32)
+
+
+def _masked(scores: torch.Tensor, mask) -> torch.Tensor:
+    return scores if mask is None else scores.masked_fill(~mask, NEG_INF)
+
+
+def topk_scores(query_vec: torch.Tensor, item_factors: torch.Tensor,
+                mask=None, k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``V @ q`` with ineligible items (``mask`` False) at NEG_INF, then
+    the stable top-k. Returns (values, int32 indices)."""
+    return stable_topk(_masked(item_factors @ query_vec, mask), k)
+
+
+def topk_scores_batch(query_vecs: torch.Tensor, item_factors: torch.Tensor,
+                      mask=None, k: int = 10
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The evaluation's batched scorer: ``(b, r) @ (r, n_items)`` in fp32,
+    ``mask`` ((b, n_items) or (n_items,), True = eligible) applied with
+    NEG_INF, stable top-k; rows in chunks of at most :data:`CHUNK_BYTES`
+    of scores. Returns (values (b, k), int32 indices (b, k))."""
+    rows = max(1, CHUNK_BYTES // (4 * max(int(item_factors.shape[0]), 1)))
+    vt = item_factors.T
+    parts = [stable_topk(_masked(
+        query_vecs[lo:lo + rows] @ vt,
+        mask if mask is None or mask.dim() == 1 else mask[lo:lo + rows]), k)
+        for lo in range(0, int(query_vecs.shape[0]), rows)]
+    return (torch.cat([v for v, _i in parts]),
+            torch.cat([i for _v, i in parts]))
 
 
 def topk_for_user(user_factors: torch.Tensor, item_factors: torch.Tensor,

@@ -1,17 +1,20 @@
-"""The ``pio`` console of the port, train and deploy verbs (port of
+"""The ``pio`` console of the port, train, eval and deploy verbs (port of
 ``predictionio_tpu/tools/cli.py``).
 
     python -m predictionio_tpu_torch.tools.cli train [--engine-dir DIR]
         [--variant engine.json] [--synthetic N [--synthetic-seed S]]
         [--resume-from ID] [--no-auto-resume] [--batch LABEL]
+    python -m predictionio_tpu_torch.tools.cli eval EVALUATION_CLASS
+        [ENGINE_PARAMS_GENERATOR_CLASS] [--engine-dir DIR] [--batch LABEL]
+        [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
         [--engine-instance-id ID] [--ip HOST] [--port PORT] ...
 
-Both run on the card unless ``PIO_TORCH_DEVICE=cpu`` asks for the CPU.
+All run on the card unless ``PIO_TORCH_DEVICE=cpu`` asks for the CPU.
 Storage is configured as in the reference (zero configuration: SQLite and
 model files under ``$PIO_FS_BASEDIR``), so a store that the JAX package's
-``pio app new`` and ``pio import`` filled trains here. ``app``,
-``import``, ``eval`` and the event server wait for later slices.
+``pio app new`` and ``pio import`` filled trains and evaluates here.
+``app``, ``import`` and the event server wait for later slices.
 """
 
 from __future__ import annotations
@@ -65,6 +68,38 @@ def cmd_train(args) -> int:
         resume_from=args.resume_from,
     )
     _info(f"Training completed. EngineInstance ID: {instance_id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from predictionio_tpu_torch.workflow.context import (
+        WorkflowContext, WorkflowParams,
+    )
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+    from predictionio_tpu_torch.workflow.workflow_utils import (
+        get_engine_params_generator, get_evaluation,
+    )
+    engine_dir = os.path.abspath(args.engine_dir)
+    evaluation = get_evaluation(args.evaluation_class, base_dir=engine_dir)
+    if args.engine_params_generator_class:
+        params_list = get_engine_params_generator(
+            args.engine_params_generator_class,
+            base_dir=engine_dir).engine_params_list
+    else:
+        # an Evaluation may carry its own list (FakeRun does)
+        params_list = getattr(evaluation, "engine_params_list", None)
+        if params_list is None:
+            _error("No EngineParamsGenerator given and the Evaluation "
+                   "defines no engine_params_list.")
+            return 1
+    ctx = WorkflowContext(workflow_params=WorkflowParams(batch=args.batch))
+    result = run_evaluation(
+        ctx, evaluation, params_list,
+        evaluation_class=args.evaluation_class,
+        generator_class=args.engine_params_generator_class or "",
+        output_path=args.output_best_engine_params or "best.json",
+    )
+    print(str(result))
     return 0
 
 
@@ -126,6 +161,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed for --synthetic (default 7; sets "
                          "PIO_SYNTHETIC_SEED)")
 
+    sp = sub.add_parser("eval", help="run an evaluation")
+    sp.add_argument("evaluation_class")
+    sp.add_argument("engine_params_generator_class", nargs="?", default="")
+    sp.add_argument("--engine-dir", default=".")
+    sp.add_argument("--batch", default="")
+    sp.add_argument("--output-best-engine-params", default="",
+                    help="where to write best.json")
+
     sp = sub.add_parser("deploy", help="deploy the latest engine instance")
     engine_flags(sp)
     sp.add_argument("--engine-instance-id", default=None)
@@ -151,7 +194,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_DISPATCH = {"train": cmd_train, "deploy": cmd_deploy}
+_DISPATCH = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

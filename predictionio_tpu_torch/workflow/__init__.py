@@ -1,3 +1,4 @@
-"""Workflow runtime of the port: the train workflow (context, run_train,
+"""Workflow runtime of the port: the train and evaluation workflows
+(context, run_train, run_evaluation with its prefix-memoized grid,
 iteration checkpoints), model blobs, JSON codec and the engine (deploy)
-server. The evaluation workflow waits for the evaluation slice."""
+server."""

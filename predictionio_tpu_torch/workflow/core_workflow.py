@@ -1,4 +1,5 @@
-"""Training run bookkeeping around the engine (port of ``run_train`` in
+"""Training and evaluation run bookkeeping around the engine (port of
+``run_train`` and ``run_evaluation`` in
 ``predictionio_tpu/workflow/core_workflow.py``).
 
 A train run: insert EngineInstance(INIT), ``engine.train``, serialize the
@@ -6,8 +7,12 @@ models into the Models store keyed by the instance id, mark COMPLETED with
 the phase table in ``runtime_conf``. A failure marks the row ERROR and
 keeps its iteration snapshots, which the next run of the same
 engine/variant resumes from (auto-resume). Single process: the
-reference's multi-host branches have no counterpart yet, and evaluation
-waits for the evaluation slice.
+reference's multi-host branches have no counterpart yet.
+
+An eval run: insert EvaluationInstance(INIT), evaluate every EngineParams
+variant through the prefix-memoized FastEvalEngineWorkflow, score with
+the evaluation's MetricEvaluator, store the results and mark
+EVALCOMPLETED (ERROR on failure).
 """
 
 from __future__ import annotations
@@ -17,16 +22,22 @@ import json
 import logging
 import os
 import traceback
-from typing import Optional
+from typing import Optional, Sequence
 
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.evaluation import (
+    Evaluation, MetricEvaluatorResult,
+)
 from predictionio_tpu_torch.data import store
-from predictionio_tpu_torch.data.storage import EngineInstance, Model
+from predictionio_tpu_torch.data.storage import (
+    EngineInstance, EvaluationInstance, Model,
+)
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.checkpoint import (
     FactorCheckpointer, latest_step_in, run_checkpoint_dir,
 )
 from predictionio_tpu_torch.workflow.context import WorkflowContext
+from predictionio_tpu_torch.workflow.fast_eval import FastEvalEngineWorkflow
 
 logger = logging.getLogger("predictionio_tpu_torch.workflow")
 
@@ -126,4 +137,55 @@ def run_train(
             instances.update(EngineInstance(
                 **{**row.__dict__, "status": "ERROR", "end_time": _now()}))
         logger.error("Training failed:\n%s", traceback.format_exc())
+        raise
+
+
+def run_evaluation(
+    ctx: WorkflowContext,
+    evaluation: Evaluation,
+    engine_params_list: Sequence[EngineParams],
+    evaluation_class: str = "",
+    generator_class: str = "",
+    output_path: Optional[str] = None,
+) -> MetricEvaluatorResult:
+    """Evaluate every variant, pick the best, persist the ledger row
+    (CoreWorkflow.runEvaluation :103-160 + EvaluationWorkflow.scala:32-45).
+    A FakeRun's result (``no_save``) leaves the EVALCOMPLETED row only."""
+    instances = ctx.storage.get_meta_data_evaluation_instances()
+    instance_id = instances.insert(EvaluationInstance(
+        id="", status="INIT", start_time=_now(), end_time=_now(),
+        evaluation_class=evaluation_class,
+        engine_params_generator_class=generator_class,
+        batch=ctx.workflow_params.batch))
+    try:
+        workflow = FastEvalEngineWorkflow(evaluation.engine, ctx)
+        # one read and one layout per (data-source, preparator) prefix and
+        # fold, hoisted out of the per-variant loop
+        workflow.prepare_shared_layouts(engine_params_list)
+        engine_eval_data_sets = [
+            (ep, workflow.eval(ep)) for ep in engine_params_list]
+        evaluator = evaluation.evaluator
+        if output_path:
+            evaluator.output_path = output_path
+        result = evaluator.evaluate_base(ctx, evaluation,
+                                         engine_eval_data_sets)
+        row = instances.get(instance_id)
+        if getattr(result, "no_save", False):
+            instances.update(EvaluationInstance(
+                **{**row.__dict__, "status": "EVALCOMPLETED",
+                   "end_time": _now()}))
+        else:
+            instances.update(EvaluationInstance(
+                **{**row.__dict__, "status": "EVALCOMPLETED",
+                   "end_time": _now(),
+                   "evaluator_results": str(result),
+                   "evaluator_results_html": result.to_html(),
+                   "evaluator_results_json": result.to_json()}))
+        logger.info("EvaluationInstance %s EVALCOMPLETED", instance_id)
+        return result
+    except Exception:
+        row = instances.get(instance_id)
+        if row is not None:
+            instances.update(EvaluationInstance(
+                **{**row.__dict__, "status": "ERROR", "end_time": _now()}))
         raise

@@ -1,5 +1,5 @@
-"""Engine factory resolution and engine.json reading (port of
-``predictionio_tpu/workflow/workflow_utils.py``).
+"""Engine, evaluation and params-generator resolution and engine.json
+reading (port of ``predictionio_tpu/workflow/workflow_utils.py``).
 
 An engine instance or engine.json written for the JAX package names its
 factory under ``predictionio_tpu.`` (the JAX package's own engine.json
@@ -7,7 +7,8 @@ and every instance its ``pio train`` stores do). Importing that would
 import jax, so the port resolves such a path to its
 ``predictionio_tpu_torch.`` counterpart, and raises, naming the missing
 counterpart, when the port has none. Any other path (an engine template's
-own module) is imported as it is.
+own module) is imported as it is. The same mapping serves ``pio eval``'s
+Evaluation and EngineParamsGenerator paths.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import sys
 from typing import Any, Dict, Optional
 
 from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.evaluation import (
+    EngineParamsGenerator, Evaluation,
+)
 
 _JAX_PKG = "predictionio_tpu"
 _PORT_PKG = "predictionio_tpu_torch"
@@ -79,6 +83,27 @@ def get_engine(engine_factory: str, base_dir: Optional[str] = None) -> Engine:
             return engine
     raise TypeError(
         f"{engine_factory!r} is neither an Engine nor a factory returning one")
+
+
+def get_evaluation(path: str, base_dir: Optional[str] = None) -> Evaluation:
+    """An Evaluation instance, or an Evaluation subclass instantiated."""
+    obj = load_object(path, base_dir)
+    if isinstance(obj, Evaluation):
+        return obj
+    if isinstance(obj, type) and issubclass(obj, Evaluation):
+        return obj()
+    raise TypeError(f"{path!r} is not an Evaluation")
+
+
+def get_engine_params_generator(
+        path: str, base_dir: Optional[str] = None) -> EngineParamsGenerator:
+    """An EngineParamsGenerator instance, or a subclass instantiated."""
+    obj = load_object(path, base_dir)
+    if isinstance(obj, EngineParamsGenerator):
+        return obj
+    if isinstance(obj, type) and issubclass(obj, EngineParamsGenerator):
+        return obj()
+    raise TypeError(f"{path!r} is not an EngineParamsGenerator")
 
 
 def read_engine_variant(engine_dir: str,

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no port module (the CLI included), and
 not chip_smoke.py, imports jax or any module of the JAX package; an
 engine instance stored under the JAX package's factory name deploys in
-the port without importing it; and the device policy refuses the card
-where there is none."""
+the port without importing it; ``pio eval`` runs through the port's CLI
+with both blocked; and the device policy refuses the card where there is
+none."""
 
 import os
 import subprocess
@@ -64,8 +65,8 @@ def _run_blocked(code):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
-    # every module of both slices was walked, not an empty package
-    assert int(names[-1]) >= 45
+    # every module of the slices was walked, not an empty package
+    assert int(names[-1]) >= 50
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""
@@ -109,6 +110,67 @@ _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""
 
 def test_instance_under_the_jax_factory_deploys_with_jax_blocked():
     assert _run_blocked(_DEPLOY_JAX_FACTORY)[-1] == "ok"
+
+
+_EVAL_CLI = _BLOCK + textwrap.dedent("""
+    import datetime as dt, json, os, sys
+    import numpy as np
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import App, Storage
+    from predictionio_tpu_torch.tools import cli
+
+    work = sys.argv[1]
+    storage = Storage()               # SQLite under PIO_FS_BASEDIR
+    app_id = storage.get_meta_data_apps().insert(App(0, "EvalApp"))
+    storage.get_events().init(app_id)
+    rng = np.random.default_rng(0)
+    t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+    store.write([Event(
+        event="rate", entity_type="user", entity_id=f"u{rng.integers(20)}",
+        target_entity_type="item", target_entity_id=f"i{rng.integers(15)}",
+        properties=DataMap({"rating": float(rng.integers(1, 11)) / 2}),
+        event_time=t0 + dt.timedelta(seconds=k)) for k in range(300)],
+        app_id, storage=storage)
+    with open(os.path.join(work, "grid.py"), "w") as f:
+        f.write(
+            "from predictionio_tpu_torch.controller import EngineParamsGenerator\\n"
+            "from predictionio_tpu_torch.models.recommendation.evaluation "
+            "import engine_params_list\\n"
+            "class Grid(EngineParamsGenerator):\\n"
+            "    def __init__(self):\\n"
+            "        self.engine_params_list = [ep for ep in engine_params_list("
+            "'EvalApp', k_fold=2, query_num=5)\\n"
+            "            if ep.algorithm_params_list[0][1].numIterations == 1]\\n")
+    best = os.path.join(work, "best.json")
+    rc = cli.main(["eval", "predictionio_tpu.models.recommendation."
+                   "evaluation:RecommendationEvaluation", "grid:Grid",
+                   "--engine-dir", work, "--output-best-engine-params",
+                   best])
+    assert rc == 0, rc
+    (row,) = Storage().get_meta_data_evaluation_instances().get_all()
+    assert row.status == "EVALCOMPLETED", row.status
+    assert "Precision@K" in json.loads(row.evaluator_results_json)[
+        "metricHeader"]
+    with open(best) as f:
+        assert json.load(f)["algorithms"][0]["params"]["numIterations"] == 1
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_pio_eval_through_the_cli_with_jax_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, PIO_FS_BASEDIR=str(tmp_path / "store"),
+               PIO_TORCH_DEVICE="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", _EVAL_CLI, str(tmp_path)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+    assert "MetricEvaluatorResult" in proc.stdout
 
 
 def test_factory_paths_map_to_the_port():
