@@ -25,12 +25,16 @@ Phases (any failure raises and the script exits non-zero):
              catalog, and the device time of a 16-row flush at k = 10
              and with one whole-catalog request in it.
 4. kernel A — the batched Gauss-Jordan solve against its plain version,
-             exact equality, at the ALS shapes (n = 138,493 and 26,744 at
-             rank 10), at n = 700 for ranks 1, 16 and 32, on the
-             reference's marginal rank-3 batch and on its engineered
-             indefinite batch (the pivot floor engages); then times of
-             the kernel call, its device body, the plain version and
-             ``torch.linalg.solve``, beside the bound.
+             bit for bit: at every rank 1..32 on an odd batch (n = 257,
+             so every template instance runs with a tail group), at the
+             ALS shapes (n = 138,493 and 26,744 at rank 10), at n = 700
+             for ranks 1, 16 and 32, on the reference's marginal rank-3
+             batch, on its engineered indefinite batch (the pivot floor
+             engages), and at n = 6,900, 26,744 and 138,493 (the eval's
+             user and item half-steps and the ML-20M user half-step) for
+             ranks 5, 10, 20 and 32; then, at every shape but the sweep,
+             times of the kernel call, its device body, the plain version
+             and ``torch.linalg.solve``, beside the bound.
 5. train   — ``pio train --synthetic 20000263`` through the port's CLI, in
              process, on SQLite under a temporary ``PIO_FS_BASEDIR``, at
              the engine.json's rank 10 and 10 iterations: phase seconds,
@@ -147,6 +151,7 @@ _EPOCH = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 FP32_OPS_S = 67e12
+FP32_UNFUSED_OPS_S = 33.5e12    # one unfused multiply or add per lane-cycle
 
 
 def _smi() -> str:
@@ -525,7 +530,7 @@ def _solve_systems(n: int, r: int, seed: int, inner=None):
     tests/test_als.py TestPallasSolver.systems)."""
     rng = np.random.default_rng(seed)
     F = rng.normal(size=(n, r, inner or r + 2)).astype(np.float32)
-    A = np.einsum("nri,nsi->nrs", F, F).astype(np.float32)
+    A = np.matmul(F, F.transpose(0, 2, 1))
     b = rng.normal(size=(n, r)).astype(np.float32)
     reg = rng.uniform(0.05, 0.5, n).astype(np.float32)
     return A, b, reg
@@ -550,33 +555,77 @@ def _solve_bound_ms(n: int, r: int) -> tuple:
     """Least time for n solves: A, b and reg read once and x written
     once, against the fp32 operations the elimination needs (per pivot
     k: r - k divisions, and a multiply and a subtract for each of the
-    r - k live columns of the r - 1 other rows; r adds of reg)."""
+    r - k live columns of the r - 1 other rows; r adds of reg). The
+    bit-identity contract with the eager plain version forbids FMAs, so
+    each unfused multiply or subtract is one issue of the fp32 pipe, at
+    FP32_UNFUSED_OPS_S (the 67e12 peak counts an FMA as two operations).
+    Bytes bind at every shape phase 4 times."""
     bytes_moved = n * (r * r * 4 + r * 4 + 4 + r * 4)
     ops = n * (sum((r - k) * (1 + 2 * (r - 1)) for k in range(r)) + r)
     t_bytes = bytes_moved / HBM_BYTES_S
-    t_ops = ops / FP32_OPS_S
+    t_ops = ops / FP32_UNFUSED_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def _bitwise_same(x, p):
+    """x and p equal bit for bit (NaN payloads aside)."""
+    return (x.view(torch.int32) == p.view(torch.int32)) | (
+        torch.isnan(x) & torch.isnan(p))
+
+
+#: phase 4's timed (n, r) beyond users / items: the eval's user (6,900)
+#: and item (26,744) half-steps and the ML-20M user half-step (138,493),
+#: at the grid's ranks and the kernel's top rank
+SOLVE_SIZES = (6_900, 26_744, N_USERS)
+SOLVE_RANKS = (5, 10, 20, 32)
+#: the exactness sweep's batch: odd, so every layout has a tail group
+SOLVE_SWEEP_N = 257
+
+
 def phase_solve(seed: int, dev: torch.device):
-    """solve_gj kernel == plain version, exactly; then its times."""
-    shapes = [("users", _solve_systems(N_USERS, RANK, seed + 10)),
-              ("items", _solve_systems(N_ITEMS, RANK, seed + 11)),
-              ("r1", _solve_systems(700, 1, seed + 12)),
-              ("r16", _solve_systems(700, 16, seed + 13)),
-              ("r32", _solve_systems(700, 32, seed + 14)),
-              ("marginal rank-3", _solve_systems(700, 10, 0, inner=3)),
-              ("indefinite", _indefinite_systems())]
+    """solve_gj kernel == plain version, bit for bit, at every rank 1..32
+    and at every timed shape; then the timed shapes' numbers."""
+    sweep_worst = 0.0
+    for r in range(1, solve.MAX_RANK + 1):
+        A, b, reg = (torch.from_numpy(x).to(dev) for x in _solve_systems(
+            SOLVE_SWEEP_N, r, seed + 100 + r))
+        x = solve.solve_factors(A, b, reg)
+        p = solve.solve_gj_plain(A, b, reg)
+        torch.cuda.synchronize()
+        same = _bitwise_same(x, p)
+        if not bool(same.all()):
+            raise AssertionError(
+                f"solve_gj kernel != plain at n={SOLVE_SWEEP_N}, r={r}: "
+                f"{int((~same).sum())} values differ, first at "
+                f"{(~same).nonzero()[:3].tolist()}")
+        sweep_worst = max(sweep_worst, float((x - p).abs().max()))
+    print(f"kernel: solve_gj == plain bit for bit at every rank 1.."
+          f"{solve.MAX_RANK} (n={SOLVE_SWEEP_N}; max |diff| {sweep_worst})",
+          flush=True)
+    shapes = [("users", (N_USERS, RANK, seed + 10)),
+              ("items", (N_ITEMS, RANK, seed + 11)),
+              ("r1", (700, 1, seed + 12)),
+              ("r16", (700, 16, seed + 13)),
+              ("r32", (700, 32, seed + 14)),
+              ("marginal rank-3", (700, 10, 0, 3)),
+              ("indefinite", None)]
+    for i, (n, r) in enumerate((n, r) for n in SOLVE_SIZES
+                               for r in SOLVE_RANKS):
+        if (n, r) not in ((N_USERS, RANK), (N_ITEMS, RANK)):
+            shapes.append((f"n{n} r{r}", (n, r, seed + 20 + i)))
     rows = []
-    worst = 0.0
-    for name, host in shapes:
+    worst = sweep_worst
+    for name, args in shapes:
+        host = _indefinite_systems() if args is None else \
+            _solve_systems(*args)
         A, b, reg = (torch.from_numpy(x).to(dev) for x in host)
+        del host
         n, r = b.shape
         x = solve.solve_factors(A, b, reg)
         p = solve.solve_gj_plain(A, b, reg)
         torch.cuda.synchronize()
-        same = (x == p) | (torch.isnan(x) & torch.isnan(p))
+        same = _bitwise_same(x, p)
         if not bool(same.all()):
             raise AssertionError(
                 f"solve_gj kernel != plain at {name} (n={n}, r={r}): "
@@ -590,27 +639,18 @@ def phase_solve(seed: int, dev: torch.device):
                 float(b.abs().max()) * (2 / 0.05) * r:
             raise AssertionError("the pivot floor did not bound the "
                                  "indefinite batch")
-        Ar = solve.with_reg(A, reg)
-        ms = _time_ms(lambda: solve.solve_factors(A, b, reg))
-        plain_ms = _time_ms(lambda: solve.solve_gj_plain(A, b, reg),
-                            reps=50, warm=5)
-        library_ms = _time_ms(lambda: torch.linalg.solve(Ar, b[..., None]),
-                              reps=50, warm=5)
-        per, _wall = _device_profile(lambda: [
-            solve.solve_factors(A, b, reg) for _ in range(50)])
-        body = [us / cnt for key, (us, cnt) in per.items() if "gj_" in key]
-        body_ms = body[0] / 1e3 if body else None
-        bound_ms, bound_by = _solve_bound_ms(n, r)
-        rows.append({"shape": name, "n": n, "r": r, "ms": ms,
-                     "body_ms": body_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "max_abs_err": diff})
-        body_s = (f"{body_ms:.4f} ms" if body_ms is not None
+        del x, p
+        rows.append({**_solve_row(name, A, b, reg), "max_abs_err": diff})
+        row = rows[-1]
+        body_s = (f"{row['body_ms']:.4f} ms" if row["body_ms"] is not None
                   else "not measured")
         print(f"kernel: solve_gj {name} n={n} r={r} == plain (max |diff| "
-              f"{diff}); call {ms:.4f} ms (device body {body_s}), plain "
-              f"{plain_ms:.4f} ms, torch.linalg.solve {library_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+              f"{diff}); call {row['ms']:.4f} ms (device body {body_s}), "
+              f"plain {row['plain_ms']:.4f} ms, torch.linalg.solve "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})", flush=True)
+        del A, b, reg
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -1083,7 +1123,7 @@ def phase_eval(work: str, seed: int, dev: torch.device):
     for r in EVAL_RANKS:
         A, b, reg, x = captured[r]
         p = solve.solve_gj_plain(A, b, reg)
-        same = (x == p) | (torch.isnan(x) & torch.isnan(p))
+        same = _bitwise_same(x, p)
         if not bool(same.all()):
             raise AssertionError(f"solve_gj != plain on the eval's rank-{r} "
                                  f"half-step: {int((~same).sum())} differ")

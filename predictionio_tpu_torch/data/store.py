@@ -12,13 +12,12 @@
 
 The reference's device staging (``ops/staging.py``) and streamed
 out-of-core read (``PIO_TRAIN_STREAM``) wait for a later slice:
-:func:`check_train_stream` refuses ``PIO_TRAIN_STREAM=on`` rather than
+``knobs.refuse_unported`` refuses ``PIO_TRAIN_STREAM=on`` rather than
 train in-core behind the caller's back.
 """
 
 from __future__ import annotations
 
-import os
 import time as _time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -49,17 +48,6 @@ def _resolve_app(app_name: str, channel_name: Optional[str],
             f"channel {channel_name!r}: event channels are not ported yet; "
             "the port reads an app's default channel")
     return app.id, None
-
-
-def check_train_stream() -> None:
-    """The port reads in-core. ``PIO_TRAIN_STREAM`` ``auto`` and ``off``
-    mean that here (the reference's ``auto`` streams only where device
-    staging exists); ``on`` is refused."""
-    if os.environ.get("PIO_TRAIN_STREAM", "").lower() == "on":
-        raise ValueError(
-            "PIO_TRAIN_STREAM=on asks for the streamed (out-of-core) "
-            "training read, which the PyTorch port does not have yet; "
-            "unset it or set it to auto/off to train in-core")
 
 
 @dataclass

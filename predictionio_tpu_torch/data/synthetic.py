@@ -143,7 +143,7 @@ def training_data(n_events: int, seed: int = 7, n_users: int = 0,
     """Synthetic events -> recommendation ``TrainingData`` through the
     same columnar encode the event-store read uses (vocab assignment and
     the buy mapping behave identically). In-core: the streamed read waits
-    for a later slice (``store.check_train_stream``)."""
+    for a later slice (``knobs.refuse_unported``)."""
     from predictionio_tpu_torch.data import store
     from predictionio_tpu_torch.models.recommendation.data_source import (
         training_data_from_columnar,

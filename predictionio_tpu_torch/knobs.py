@@ -1,0 +1,253 @@
+"""The reference's environment variables, as the port treats each one.
+
+Every name that ``predictionio_tpu/common/declarations.py::ENV_VARS``
+declares has a row here (the port keeps its own table and imports nothing
+of the JAX package), in one of three kinds:
+
+- ``READ``: the port reads it, with the reference's meaning;
+- ``INERT``: it tunes something the port has no use for (a TPU layout,
+  the XLA compile cache, a daemon the port has no verb for) or tunes a
+  feature that another row refuses, so setting it changes nothing a user
+  of the port could see;
+- ``UNPORTED``: it turns on a feature the port lacks. :func:`refuse_unported`
+  raises ``ValueError`` at the entry points (the CLI's ``train``, ``eval``
+  and ``deploy``, ``run_train``, ``run_evaluation`` and ``QueryAPI``) when
+  such a variable is set to a value that turns the feature on, naming the
+  variable, the feature and the ROADMAP item that brings it. Unset, ``0``
+  and ``off`` (and the reference's own word for "off" where it has one,
+  such as ``PIO_TRANSPORT=threaded``) stay accepted. A row's refusal goes
+  when its slice lands.
+
+``PIO_TORCH_DEVICE`` and ``PIO_TORCH_KERNEL_DIR`` are the port's own and
+have no row.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Mapping, Optional, Tuple
+
+READ = "read"
+INERT = "inert"
+UNPORTED = "unported"
+
+TRAIN, EVAL, DEPLOY = "train", "eval", "deploy"
+ALL_VERBS = (TRAIN, EVAL, DEPLOY)
+
+
+@dataclass(frozen=True)
+class Knob:
+    kind: str
+    #: READ / INERT: what the port does with it; UNPORTED: the feature
+    what: str
+    #: UNPORTED: the entry points that refuse it
+    verbs: Tuple[str, ...] = ()
+    #: UNPORTED: the ROADMAP item that brings the feature
+    roadmap: str = ""
+    #: UNPORTED: values besides unset, 0 and off that leave the feature off
+    also_off: Tuple[str, ...] = ()
+
+
+def _read(what: str) -> Knob:
+    return Knob(READ, what)
+
+
+def _inert(what: str) -> Knob:
+    return Knob(INERT, what)
+
+
+def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
+              also_off: Tuple[str, ...] = ()) -> Knob:
+    return Knob(UNPORTED, what, tuple(verbs), roadmap, also_off)
+
+
+_EVENTLOG = "the eventlog store, whose storage type the port refuses"
+_REMOTE = "the remote storage client, whose storage type the port refuses"
+_NO_VERB = "a daemon the port has no verb for"
+_GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
+         "every PIO_ALS_KERNEL")
+_READS = ("read parallelism and staging; the port's in-core read is serial "
+          "and gives the same columns")
+_Q3 = "queue 1 item 3 (observability)"
+_Q4 = "queue 1 item 4 (the read and ingest path)"
+_Q5 = "queue 1 item 5 (fold-in, hot reload and warm start)"
+_Q6 = "queue 1 item 6 (distributed training and sharded serving)"
+_Q7 = "queue 1 item 7 (the router, multi-tenancy and the fleet tools)"
+
+KNOBS: Dict[str, Knob] = {
+    # storage
+    "PIO_FS_BASEDIR": _read("base directory of the zero-config stores"),
+    "PIO_STORAGE_SOURCES_*": _read(
+        "storage sources; an unported TYPE is refused by the storage layer"),
+    "PIO_STORAGE_REPOSITORIES_*": _read("repository bindings"),
+    "PIO_STORAGE_SERVER_KEY": _inert(_REMOTE),
+    "PIO_SERVER_KEY": _inert("the dashboard and admin daemons: " + _NO_VERB),
+    "PIO_SSL_CERTFILE": _unported(
+        "TLS on the HTTP daemons", "queue 1 item 1 (server_security)"),
+    "PIO_SSL_KEYFILE": _inert("pairs with PIO_SSL_CERTFILE, which decides"),
+    "PIO_EVENTLOG_CACHE_MB": _inert(_EVENTLOG),
+    "PIO_WAL_GROUP_MS": _inert(_EVENTLOG),
+    "PIO_WAL_FSYNC": _inert(_EVENTLOG),
+    # transport and event server
+    "PIO_TRANSPORT": _unported("the async HTTP transport", _Q4,
+                               also_off=("threaded",)),
+    "PIO_TRANSPORT_WORKERS": _inert("tunes the async transport"),
+    "PIO_TRANSPORT_PIPELINE": _inert("tunes the async transport"),
+    "PIO_BATCH_EVENTS_MAX": _inert("the event server: " + _NO_VERB),
+    "PIO_BATCH_BULK_INSERT": _inert("the event server: " + _NO_VERB),
+    # the training read
+    "PIO_DISABLE_NATIVE": _inert(
+        "the reference's native counting sort; the port sorts with torch"),
+    "PIO_READ_THREADS": _inert(_READS),
+    "PIO_READ_OVERLAP": _inert(_READS),
+    "PIO_READ_STAGE": _inert(_READS),
+    "PIO_TRAIN_STREAM": _unported(
+        "the streamed (out-of-core) training read", _Q4, verbs=(TRAIN,),
+        also_off=("auto",)),
+    "PIO_SYNTHETIC_EVENTS": _read("pio train --synthetic N"),
+    "PIO_SYNTHETIC_SEED": _read("the synthetic generator's seed"),
+    # ALS
+    "PIO_ALS_KERNEL": _read("hybrid / csrb / scan, one Gram for all three"),
+    "PIO_ALS_SOLVER": _inert(
+        "settled: kernel A runs on the card for either value"),
+    "PIO_ALS_HOT_K": _inert(_GRAM),
+    "PIO_ALS_DENSE_MIN_COUNT": _inert(_GRAM),
+    "PIO_ALS_XPAD": _inert(_GRAM),
+    "PIO_ALS_LAYOUT_CACHE": _inert(
+        "the process-wide layout cache; the port caches a layout on its "
+        "TrainingData, and 0 would only cost time"),
+    "PIO_ALS_BIG_LAYOUT_MIN": _inert(_GRAM),
+    "PIO_NNZ_BUCKETING": _read("bucketed nnz padding"),
+    "PIO_FINITE_CHECK": _read("the post-train non-finite check"),
+    # serving
+    "PIO_SERVE_BUCKETS": _read("the serving buckets"),
+    "PIO_SERVE_DEVICE_MS": _unported(
+        "the inline single-query device path and its host-vs-device "
+        "latency probe", _Q5),
+    "PIO_SERVE_SHARD": _unported("row-sharded serving", _Q6,
+                                 also_off=("auto",)),
+    "PIO_SERVE_QUANT": _read("quantized serving"),
+    "PIO_SERVE_QUANT_RECALL_MIN": _read("the recall probe's floor"),
+    "PIO_SERVE_FUSED": _read("the fused top-k kernel"),
+    "PIO_SERVE_FUSED_TILE": _read("the fused top-k kernel's tile"),
+    "PIO_SERVE_WARMUP_FLUSHES": _inert(
+        "the XLA recompile watchdog's warm-up; the port has no XLA"),
+    # fold-in
+    "PIO_FOLDIN": _unported("the realtime fold-in speed layer", _Q5),
+    "PIO_FOLDIN_TICK_MS": _inert("tunes fold-in"),
+    "PIO_FOLDIN_HEADROOM": _inert("tunes fold-in"),
+    "PIO_FOLDIN_MAX_EVENTS": _inert("tunes fold-in"),
+    "PIO_FOLDIN_USER_BUCKETS": _inert("tunes fold-in"),
+    "PIO_FOLDIN_CURSOR_DIR": _inert("tunes fold-in"),
+    "PIO_FOLDIN_DRIFT_EVERY": _inert("tunes fold-in"),
+    "PIO_FOLDIN_DRIFT_RECALL_MIN": _inert("tunes fold-in"),
+    "PIO_FOLDIN_ITEM_HEADROOM": _inert("tunes fold-in"),
+    # ahead-of-time serving and the compile cache
+    "PIO_AOT": _unported(
+        "the ahead-of-time warm-up of every serving shape before /readyz",
+        _Q5),
+    "PIO_AOT_KS": _inert("tunes the ahead-of-time warm-up"),
+    "PIO_AOT_PRUNE": _inert("tunes the ahead-of-time warm-up"),
+    "PIO_AOT_THREADS": _inert("tunes the ahead-of-time warm-up"),
+    "PIO_COMPILE_CACHE_DIR": _inert(
+        "the XLA compile cache; the port's kernels build once into "
+        "PIO_TORCH_KERNEL_DIR"),
+    "PIO_COMPILE_CACHE_MIN_S": _inert("the XLA compile cache"),
+    # router and tenants
+    "PIO_ROUTER_HEALTH_MS": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_DEADLINE_MS": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_MAX_INFLIGHT": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_TENANT_MAX_INFLIGHT": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_CACHE": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_CACHE_MB": _inert("the router: " + _NO_VERB),
+    "PIO_ROUTER_CACHE_TTL_MS": _inert("the router: " + _NO_VERB),
+    "PIO_DEPLOY_PARTITION": _unported("partition-routed deploys", _Q7),
+    "PIO_TENANT_RATE": _unported(
+        "per-access-key admission of multi-tenant deploys", _Q7),
+    "PIO_TENANT_BURST": _inert("tunes per-access-key admission"),
+    "PIO_TENANT_HBM_BUDGET_MB": _unported(
+        "the multi-tenant registry's per-tenant memory budget", _Q7),
+    "PIO_TENANT_HBM_HARD_CAP_MB": _unported(
+        "the multi-tenant registry's memory hard cap", _Q7),
+    # remote storage resilience
+    "PIO_RPC_RETRIES": _inert(_REMOTE),
+    "PIO_RPC_BACKOFF_MS": _inert(_REMOTE),
+    "PIO_RPC_BACKOFF_MAX_MS": _inert(_REMOTE),
+    "PIO_RPC_DEADLINE_MS": _inert(_REMOTE),
+    "PIO_RPC_WRITE_DEDUP": _inert(_REMOTE),
+    "PIO_RPC_POOL": _inert(_REMOTE),
+    "PIO_BREAKER_ENABLED": _inert(_REMOTE),
+    "PIO_BREAKER_WINDOW_S": _inert(_REMOTE),
+    "PIO_BREAKER_ERROR_RATE": _inert(_REMOTE),
+    "PIO_BREAKER_MIN_CALLS": _inert(_REMOTE),
+    "PIO_BREAKER_OPEN_S": _inert(_REMOTE),
+    "PIO_FAULT_SPEC": _unported(
+        "fault injection at the transport boundary (common/resilience.py)",
+        _Q4, verbs=ALL_VERBS),
+    "PIO_FAULT_SEED": _inert("seeds PIO_FAULT_SPEC"),
+    "PIO_AUTO_RESUME": _read("auto-resume of a crashed pio train"),
+    # observability
+    "PIO_TELEMETRY": _unported("hot-path metrics (the telemetry registry)",
+                               _Q3, verbs=ALL_VERBS),
+    "PIO_TRACE": _unported("per-request traces", _Q3),
+    "PIO_TRACE_BUFFER": _inert("tunes traces"),
+    "PIO_TRACE_TAIL_MS": _inert("tunes traces"),
+    "PIO_TRACE_TAIL_TRACES": _inert("tunes traces"),
+    "PIO_JOURNAL": _unported("the operational-event journal", _Q3,
+                             verbs=ALL_VERBS),
+    "PIO_JOURNAL_BUFFER": _inert("tunes the journal"),
+    "PIO_HISTORY": _unported("the metrics flight recorder", _Q3),
+    "PIO_HISTORY_TICK_S": _inert("tunes the metrics flight recorder"),
+    "PIO_HISTORY_MAX_SERIES": _inert("tunes the metrics flight recorder"),
+    "PIO_WATERFALL": _unported("per-request latency waterfalls", _Q3),
+    "PIO_WATERFALL_SAMPLE": _inert("tunes the latency waterfalls"),
+    "PIO_SLOW_RING": _inert("tunes the latency waterfalls"),
+    "PIO_PROFILE_DIR": _inert("tunes the POST /debug/profile surface"),
+    "PIO_PROFILE_MAX_MS": _inert("tunes the POST /debug/profile surface"),
+    "PIO_PROFILE_ENABLE": _unported("the POST /debug/profile surface", _Q3),
+    "PIO_SLO_AVAILABILITY": _inert("SLO targets of the telemetry layer"),
+    "PIO_SLO_LATENCY_MS": _inert("SLO targets of the telemetry layer"),
+    "PIO_SLO_LATENCY_TARGET": _inert("SLO targets of the telemetry layer"),
+    "PIO_SLO_FAST_WINDOW_S": _inert("SLO targets of the telemetry layer"),
+    "PIO_SLO_SLOW_WINDOW_S": _inert("SLO targets of the telemetry layer"),
+    # autopilot and autotrain
+    **{f"PIO_AUTOPILOT_{k}": _inert("the autopilot: " + _NO_VERB)
+       for k in ("POLL_MS", "COOLDOWN_S", "UTIL_LOW", "UTIL_HIGH",
+                 "MIN_REPLICAS", "MAX_REPLICAS", "OUTLIER_X", "PROFILE_MS")},
+    **{f"PIO_AUTOTRAIN_{k}": _inert("autotrain: " + _NO_VERB)
+       for k in ("POLL_MS", "COOLDOWN_S", "MAX_STALENESS_S",
+                 "VOLUME_EVENTS", "LAG_EVENTS", "TOLERANCE", "PARITY_MIN",
+                 "PROBE", "PUBLISH_TIMEOUT_S")},
+}
+
+_OFF = ("", "0", "off")
+
+
+def _is_off(knob: Knob, raw: str) -> bool:
+    """Does ``raw`` leave an UNPORTED knob's feature off?"""
+    v = raw.strip().lower()
+    if v in _OFF or v in knob.also_off:
+        return True
+    try:
+        return float(v) == 0.0
+    except ValueError:
+        return False
+
+
+def refuse_unported(verb: str,
+                    environ: Optional[Mapping[str, str]] = None) -> None:
+    """Raise ValueError when a variable set in ``environ`` (the process
+    environment by default) asks ``verb`` for a feature the port lacks."""
+    env = os.environ if environ is None else environ
+    for name, knob in KNOBS.items():
+        if knob.kind != UNPORTED or verb not in knob.verbs:
+            continue
+        raw = env.get(name)
+        if raw is None or _is_off(knob, raw):
+            continue
+        accepted = " / ".join(["unset", "0", "off", *knob.also_off])
+        raise ValueError(
+            f"{name}={raw} asks for {knob.what}, which the PyTorch port "
+            f"does not have yet; ROADMAP {knob.roadmap} brings it. "
+            f"Accepted here: {accepted}")

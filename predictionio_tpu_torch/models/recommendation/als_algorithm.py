@@ -10,7 +10,8 @@ skips it; the reference's process-wide fingerprinted layout cache,
 device staging and streamed read wait for a later slice.
 
 Evaluation scores with ``batch_predict``: the known users' rows are
-gathered on the factors' device and ranked by one fp32
+gathered on the factors' device (a trained model's, or the device policy's
+for a loaded model's numpy factors) and ranked by one fp32
 ``topk.topk_scores_batch``.
 
 A deployed model serves from the port's device: quantized (int8 factors
@@ -86,10 +87,13 @@ def _to_host(vals: torch.Tensor, idx: torch.Tensor
     return vals.cpu().numpy(), idx.cpu().numpy()
 
 
-def _tensor(x) -> torch.Tensor:
+def _tensor(x, device: device_mod.DeviceLike = None) -> torch.Tensor:
     """A trained model's factors as they are (a tensor on its device); a
-    loaded model's numpy factors copied into a CPU tensor."""
-    return x if isinstance(x, torch.Tensor) else torch.tensor(x)
+    loaded model's numpy factors copied to ``device_mod.resolve(device)``:
+    the card unless the caller or ``PIO_TORCH_DEVICE`` asks for the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, device=device_mod.resolve(device))
 
 
 def host_f32(x) -> np.ndarray:
@@ -254,13 +258,16 @@ class ALSAlgorithm(Algorithm):
         return out
 
     def batch_predict(self, model: ALSModel,
-                      queries: Iterable[Tuple[int, Query]]
+                      queries: Iterable[Tuple[int, Query]],
+                      device: device_mod.DeviceLike = None
                       ) -> List[Tuple[int, PredictedResult]]:
         """The eval path: the known users' rows gathered on the factors'
         device and one fp32 ``topk_scores_batch`` at the largest num
         asked (ALSAlgorithm.scala:113-148 did a cartesian join); each
         query keeps its own num. Unknown users and num <= 0 get empty
-        results."""
+        results. Trained factors stay on their device; a loaded model's
+        numpy factors go to ``device`` as the device policy resolves it
+        (the card unless ``device="cpu"`` or ``PIO_TORCH_DEVICE=cpu``)."""
         queries = list(queries)
         known = [(qx, q, model.user_vocab.get(q.user)) for qx, q in queries]
         out: List[Tuple[int, PredictedResult]] = [
@@ -272,8 +279,8 @@ class ALSAlgorithm(Algorithm):
         if k <= 0:      # every query asked for num <= 0
             out.extend((qx, PredictedResult(())) for qx, _q, _ix in valid)
             return out
-        U = _tensor(model.user_factors)
-        V = _tensor(model.item_factors).to(U.device)
+        U = _tensor(model.user_factors, device)
+        V = _tensor(model.item_factors, U.device).to(U.device)
         ixs = torch.tensor([ix for _qx, _q, ix in valid], dtype=torch.int64,
                            device=U.device)
         vals, idx = _to_host(*topk.topk_scores_batch(

@@ -17,6 +17,15 @@ plain version does, so the two agree bit for bit on the card. For r > 32
 both devices call ``torch.linalg.solve`` on ``A + reg I``, as the
 reference calls ``jnp.linalg.solve`` there.
 
+Kernel A is one template, one instance per rank: a group of P x Q lanes
+owns a system, each lane holding a cyclic share of its rows and columns
+in registers (one lane at r <= 2 up to 4 x 4 lanes at r > 23). Per pivot
+the lanes of the pivot row divide their entries once each and shuffle
+them down their columns, and the factors travel along the rows. The
+function is bound by bytes (each system's A read once), but the kernel
+is bound by instruction issue above r = 5; PERF.md gives its times beside
+the bound.
+
 The reference makes its Pallas kernel opt-in (``PIO_ALS_SOLVER=pallas``
 on a TPU) and otherwise runs the same sweep in XLA. The port has no XLA,
 so on the card the kernel is the only solver: ``PIO_ALS_SOLVER`` is not

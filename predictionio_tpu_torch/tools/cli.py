@@ -10,7 +10,10 @@
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
         [--engine-instance-id ID] [--ip HOST] [--port PORT] ...
 
-All run on the card unless ``PIO_TORCH_DEVICE=cpu`` asks for the CPU.
+All run on the card unless ``PIO_TORCH_DEVICE=cpu`` asks for the CPU. A
+reference variable that asks for a feature the port lacks (``knobs.py``:
+``PIO_SERVE_SHARD=1``, ``PIO_FOLDIN=1``, ``PIO_TELEMETRY=1``, ...) makes the
+verb exit 1 with a message naming it, before any work.
 Storage is configured as in the reference (zero configuration: SQLite and
 model files under ``$PIO_FS_BASEDIR``), so a store that the JAX package's
 ``pio app new`` and ``pio import`` filled trains and evaluates here.
@@ -25,7 +28,7 @@ import os
 import sys
 from typing import List, Optional
 
-from predictionio_tpu_torch import __version__
+from predictionio_tpu_torch import __version__, knobs
 
 logger = logging.getLogger("pio")
 
@@ -205,6 +208,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__version__)
         return 0
     try:
+        # a variable asking for an unported feature fails before any work
+        knobs.refuse_unported(args.command)
         return _DISPATCH[args.command](args)
     except (FileNotFoundError, ValueError) as e:
         # operational failures (no COMPLETED instance for deploy, bad

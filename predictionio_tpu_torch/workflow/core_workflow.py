@@ -24,11 +24,11 @@ import os
 import traceback
 from typing import Optional, Sequence
 
+from predictionio_tpu_torch import knobs
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.controller.evaluation import (
     Evaluation, MetricEvaluatorResult,
 )
-from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.storage import (
     EngineInstance, EvaluationInstance, Model,
 )
@@ -80,7 +80,7 @@ def run_train(
     """Run one training; returns the COMPLETED EngineInstance id
     (CoreWorkflow.runTrain, CoreWorkflow.scala:45-101). ``resume_from``
     names a failed run whose iteration snapshots seed this one."""
-    store.check_train_stream()
+    knobs.refuse_unported(knobs.TRAIN)
     instances = ctx.storage.get_meta_data_engine_instances()
     if resume_from is None and os.environ.get("PIO_AUTO_RESUME",
                                               "1") != "0":
@@ -151,6 +151,7 @@ def run_evaluation(
     """Evaluate every variant, pick the best, persist the ledger row
     (CoreWorkflow.runEvaluation :103-160 + EvaluationWorkflow.scala:32-45).
     A FakeRun's result (``no_save``) leaves the EVALCOMPLETED row only."""
+    knobs.refuse_unported(knobs.EVAL)
     instances = ctx.storage.get_meta_data_evaluation_instances()
     instance_id = instances.insert(EvaluationInstance(
         id="", status="INIT", start_time=_now(), end_time=_now(),

@@ -26,6 +26,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch import knobs
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.ops import quant as serve_quant
@@ -135,6 +136,7 @@ class QueryAPI:
     def __init__(self, config: Optional[ServerConfig] = None,
                  storage: Optional[Storage] = None,
                  engine: Optional[Engine] = None):
+        knobs.refuse_unported(knobs.DEPLOY)
         self.config = config or ServerConfig()
         self.storage = storage or get_storage()
         self.device = device_mod.resolve(self.config.device)

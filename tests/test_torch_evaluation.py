@@ -453,7 +453,7 @@ def _batch_predict_both(rank, exact):
     params = dict(rank=rank, numIterations=3, lambda_=0.05, seed=3)
     tgot = dict(ALSAlgorithm(ALSAlgorithmParams(**params)).batch_predict(
         tmodel, [(qx, teng.Query(user, n))
-                 for qx, (user, n) in enumerate(_ASKS)]))
+                 for qx, (user, n) in enumerate(_ASKS)], device="cpu"))
     jgot = dict(JALSAlgorithm(JALSAlgorithmParams(**params)).batch_predict(
         jmodel, [(qx, jeng.Query(user, n))
                  for qx, (user, n) in enumerate(_ASKS)]))
@@ -510,6 +510,45 @@ def test_batch_predict_with_no_known_user_or_no_num():
                                  (1, teng.Query("a", 0))])
     assert sorted(got) == [(0, teng.PredictedResult(())),
                            (1, teng.PredictedResult(()))]
+
+
+@pytest.mark.parametrize("case", ["device_cpu", "env_cpu", "no_card",
+                                  "trained_tensors"])
+def test_batch_predict_follows_the_device_policy(monkeypatch, case):
+    """A loaded model's numpy factors go to the resolved device: the CPU
+    when the caller or PIO_TORCH_DEVICE asks for it (the same answer as
+    scoring CPU tensors), the card otherwise, which raises without one.
+    Trained factors keep their device."""
+    rng = np.random.default_rng(5)
+    U = _dyadic(rng.normal(size=(6, 4)))
+    V = _dyadic(rng.normal(size=(9, 4)))
+    users = {f"u{x}": x for x in range(6)}
+    items = {f"i{x}": x for x in range(9)}
+    asks = [(0, teng.Query("u1", 3)), (1, teng.Query("u4", 9))]
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=4))
+    monkeypatch.delenv("PIO_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loaded = model_io.als_model_from_numpy(4, U, V, users, items)
+    assert isinstance(loaded.user_factors, np.ndarray)
+    trained = dataclasses.replace(loaded, user_factors=torch.from_numpy(U),
+                                  item_factors=torch.from_numpy(V))
+    want = dict(algo.batch_predict(trained, asks))
+    if case == "no_card":
+        with pytest.raises(RuntimeError, match="is_available"):
+            algo.batch_predict(loaded, asks)
+        return
+    if case == "device_cpu":
+        got = algo.batch_predict(loaded, asks, device="cpu")
+    elif case == "env_cpu":
+        monkeypatch.setenv("PIO_TORCH_DEVICE", "cpu")
+        got = algo.batch_predict(loaded, asks)
+    else:
+        got = want
+    assert dict(got) == want
+    for qx, (user, n) in enumerate([("u1", 3), ("u4", 9)]):
+        scores = V @ U[users[user]]
+        assert [s.item for s in want[qx].itemScores] == [
+            f"i{x}" for x in np.argsort(-scores, kind="stable")[:n]]
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,123 @@
+"""The port's table of the reference's environment variables
+(``predictionio_tpu_torch/knobs.py``) against the reference's own
+declarations, and the refusal of the variables that ask for a feature the
+port lacks, at the CLI's verbs and at ``QueryAPI`` construction."""
+
+import re
+
+import pytest
+
+from predictionio_tpu.common.declarations import ENV_VARS
+from predictionio_tpu_torch import knobs
+from predictionio_tpu_torch.data.storage import Storage
+from predictionio_tpu_torch.tools import cli
+from predictionio_tpu_torch.workflow.create_server import (
+    QueryAPI, ServerConfig,
+)
+
+MEM = {
+    "PIO_STORAGE_SOURCES_M_TYPE": "memory",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+}
+
+#: values that turn each unported feature on, as an operator would set them
+REFUSED = {
+    "PIO_SSL_CERTFILE": ["/etc/pio/cert.pem"],
+    "PIO_TRANSPORT": ["async"],
+    "PIO_TRAIN_STREAM": ["on"],
+    "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
+    "PIO_SERVE_SHARD": ["1", "on"],
+    "PIO_FOLDIN": ["1"],
+    "PIO_AOT": ["1"],
+    "PIO_DEPLOY_PARTITION": ["1/4"],
+    "PIO_TENANT_RATE": ["100"],
+    "PIO_TENANT_HBM_BUDGET_MB": ["512"],
+    "PIO_TENANT_HBM_HARD_CAP_MB": ["4096"],
+    "PIO_FAULT_SPEC": ["drop@server:0.5"],
+    "PIO_TELEMETRY": ["1"],
+    "PIO_TRACE": ["1"],
+    "PIO_JOURNAL": ["1"],
+    "PIO_HISTORY": ["1"],
+    "PIO_WATERFALL": ["1"],
+    "PIO_PROFILE_ENABLE": ["1"],
+}
+
+UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
+                  if k.kind == knobs.UNPORTED)
+
+
+def _clear(monkeypatch):
+    for name in UNPORTED:
+        monkeypatch.delenv(name, raising=False)
+
+
+def test_every_reference_variable_is_classified():
+    assert set(knobs.KNOBS) == set(ENV_VARS)
+    for name, knob in knobs.KNOBS.items():
+        assert knob.kind in (knobs.READ, knobs.INERT, knobs.UNPORTED), name
+        assert knob.what, name
+        if knob.kind == knobs.UNPORTED:
+            assert knob.roadmap.startswith("queue "), name
+            assert knob.verbs and set(knob.verbs) <= set(knobs.ALL_VERBS)
+    assert sorted(REFUSED) == UNPORTED
+    # settled: the solver variable stays unread
+    assert knobs.KNOBS["PIO_ALS_SOLVER"].kind == knobs.INERT
+
+
+@pytest.mark.parametrize("name,value", [
+    (name, value) for name in sorted(REFUSED) for value in REFUSED[name]])
+def test_unported_feature_is_refused_at_its_entry_points(
+        monkeypatch, capsys, tmp_path, name, value):
+    _clear(monkeypatch)
+    monkeypatch.setenv(name, value)
+    knob = knobs.KNOBS[name]
+    argv = {knobs.TRAIN: ["train"], knobs.EVAL: ["eval", "x.Evaluation"],
+            knobs.DEPLOY: ["deploy"]}
+    for verb in knob.verbs:
+        with pytest.raises(ValueError) as e:
+            knobs.refuse_unported(verb)
+        msg = str(e.value)
+        assert f"{name}={value}" in msg and knob.what in msg
+        assert f"ROADMAP {knob.roadmap}" in msg
+        # the CLI refuses before it reads the (missing) engine directory
+        rc = cli.main([*argv[verb], "--engine-dir", str(tmp_path / "none")])
+        assert rc == 1
+        assert f"{name}={value}" in capsys.readouterr().err
+    if knobs.DEPLOY in knob.verbs:
+        with pytest.raises(ValueError, match=re.escape(knob.roadmap)):
+            QueryAPI(config=ServerConfig(device="cpu"),
+                     storage=Storage(env=MEM))
+    for verb in set(knobs.ALL_VERBS) - set(knob.verbs):
+        knobs.refuse_unported(verb)
+
+
+@pytest.mark.parametrize("name,value", [
+    (name, value) for name in UNPORTED
+    for value in (None, "0", "off", "OFF", *knobs.KNOBS[name].also_off)])
+def test_off_values_are_accepted(monkeypatch, name, value):
+    _clear(monkeypatch)
+    if value is not None:
+        monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+
+
+def test_read_and_inert_variables_are_never_refused(monkeypatch):
+    _clear(monkeypatch)
+    env = {name: "1" for name, k in knobs.KNOBS.items()
+           if k.kind != knobs.UNPORTED and not name.endswith("*")}
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb, env)
+
+
+def test_accepted_deploy_reaches_the_instance_lookup(monkeypatch):
+    """With every unported knob off, QueryAPI gets past the table and
+    fails on the empty store instead."""
+    _clear(monkeypatch)
+    monkeypatch.setenv("PIO_SERVE_SHARD", "auto")
+    monkeypatch.setenv("PIO_TRANSPORT", "threaded")
+    with pytest.raises(Exception) as e:
+        QueryAPI(config=ServerConfig(device="cpu"), storage=Storage(env=MEM))
+    assert "ROADMAP" not in str(e.value)

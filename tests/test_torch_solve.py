@@ -49,7 +49,13 @@ def _rel(x, ref):
     return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-@pytest.mark.parametrize("r,n", [(1, 700), (10, 700), (32, 130)])
+# the ALS ranks, the ranks on both sides of each change of the kernel's
+# lane layout (csrc/solve_gj.cu split_for: 5|6, 20|21, 23|24) and the
+# power-of-two group widths' edges (7|8, 15|16|17, 31)
+@pytest.mark.parametrize("r,n", [(1, 700), (10, 700), (32, 130), (7, 129),
+                                 (8, 130), (15, 129), (16, 130), (17, 129),
+                                 (20, 130), (31, 129), (5, 129), (6, 130),
+                                 (21, 129), (24, 130)])
 def test_plain_matches_reference_sweep_well_posed(monkeypatch, r, n):
     monkeypatch.setenv("PIO_ALS_SOLVER", "gj")
     A, b, reg = _spd(n, r, seed=r)
