@@ -49,10 +49,22 @@ Phases (any failure raises and the script exits non-zero):
              the same factors, B1 and B2 must each launch once per
              flush, and the profiled requests' device trace must hold no
              sort kernel.
-7. eval    — ``pio eval`` through the port's CLI, in process: 1,000,000
-             synthetic ratings (6,900 users x 26,744 items, the
-             ML-20M catalog) written through ``store.write`` into the
-             SQLite store, then the reference's grid (ranks 5/10/20 x
+7. quickstart — the port's CLI in process, on the SQLite store: ``pio
+             app new`` with a fixed key, ``app channel-new`` and a
+             rate-only ``accesskey new``; ``pio import`` of 1,000,000
+             seeded rate events (6,900 users x 26,744 items, the ML-20M
+             catalog) from a JSON-lines file; ``pio eventserver`` on
+             127.0.0.1 (in the main thread, its client in another): a
+             POST read back, 200 timed single POSTs, a batch of 50 for
+             user "1", the 400 at 51, the rate-only key's 403, the
+             channel kept apart, then SIGTERM and ``/readyz`` 503 while
+             it drains; ``pio train`` from the store (kernel A twice an
+             iteration, RMSE falling); ``pio deploy`` answering
+             ``{"user": "1", "num": 4}`` with 4 itemScores equal to the
+             plain int8 path, B1 and B2 once per flush; ``pio
+             undeploy``.
+8. eval    — ``pio eval`` through the port's CLI, in process, on the
+             quickstart's app: the reference's grid (ranks 5/10/20 x
              1/5/10 iterations, kFold 5) under RecommendationEvaluation
              from a one-file generator module in an engine directory.
              The EvaluationInstance row must be EVALCOMPLETED, best.json
@@ -62,7 +74,7 @@ Phases (any failure raises and the script exits non-zero):
              ranks 5, 10 and 20, every variant's Precision@K must be
              finite in [0, 1] with PositiveCount > 0, and the rank-20,
              10-iteration variant run again must give bit-identical
-             scores. Then the wall split (fill, read_eval, layouts,
+             scores. Then the wall split (read_eval, layouts,
              train and batch_predict per variant, metrics), one fold's
              rank-20 train + batch_predict under torch.profiler, and
              ``topk_scores_batch`` at the full ML-20M shape against
@@ -77,12 +89,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import datetime as dt
+import http.client
 import json
 import math
 import os
 import shutil
+import signal
 import socket
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -98,16 +112,13 @@ import torch
 import predictionio_tpu_torch
 from predictionio_tpu_torch.controller.evaluation import MetricEvaluator
 from predictionio_tpu_torch.data import storage as storage_mod
-from predictionio_tpu_torch.data import store as store_mod
 from predictionio_tpu_torch.data import synthetic
-from predictionio_tpu_torch.data.datamap import DataMap
-from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.models.recommendation import evaluation
 from predictionio_tpu_torch.models.recommendation.als_algorithm import (
     ALSAlgorithm, ALSAlgorithmParams,
 )
 from predictionio_tpu_torch.models.recommendation.data_source import (
-    DataSource,
+    DataSource, DataSourceParams,
 )
 from predictionio_tpu_torch.models.recommendation.engine import (
     RecommendationEngine,
@@ -129,6 +140,9 @@ BUCKETS = (1, 4, 16, 64)
 EVAL_USERS, EVAL_RATINGS = 6_900, 1_000_000
 EVAL_APP, EVAL_K_FOLD, EVAL_QUERY_NUM = "SmokeEval", 5, 10
 EVAL_RANKS, EVAL_ITERS = (5, 10, 20), (1, 5, 10)
+# the quickstart, whose app the eval then reads
+QS_KEY, QS_RATE_KEY, QS_CHANNEL = "smoke-key", "smoke-rate-only", "mobile"
+QS_POSTS, QS_CHANNEL_BATCHES, QS_QUERIES = 200, 20, 20
 GRID_MODULE = f'''"""The reference's Recommendation grid, pointed at one app."""
 from predictionio_tpu_torch.controller import EngineParamsGenerator
 from predictionio_tpu_torch.models.recommendation.evaluation import (
@@ -144,8 +158,6 @@ class SmokeGrid(EngineParamsGenerator):
 '''
 ENGINE_JSON = os.path.join(os.path.dirname(predictionio_tpu_torch.__file__),
                            "models", "recommendation", "engine.json")
-
-_EPOCH = dt.datetime(1970, 1, 1, tzinfo=dt.timezone.utc)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
 HBM_BYTES_S = 3.35e12
@@ -654,6 +666,44 @@ def phase_solve(seed: int, dev: torch.device):
     return rows, worst
 
 
+def _rmse_and_iterations(td, model, params: dict, dev: torch.device,
+                         profile: bool = True):
+    """The RMSE of the seed factors and of the trained ``model`` on the
+    ratings ``td`` (which must be encoded with the model's vocabularies),
+    ms per ALS iteration from the trained factors, and one iteration under
+    torch.profiler (skipped when ``profile`` is False)."""
+    n_users, n_items = len(model.user_vocab), len(model.item_vocab)
+    rank = params["rank"]
+    data = als.prepare_ratings(td.user_idx, td.item_idx, td.rating,
+                               n_users, n_items, on_device=True, device=dev)
+    bu = data.by_user
+    mask = (bu.self_idx < n_users).to(torch.float32)
+    U0, V0 = als._seed_factors(params["seed"], n_users, n_items, rank,
+                               device=dev)
+    Ut = torch.from_numpy(model.user_factors).to(dev)
+    Vt = torch.from_numpy(model.item_factors).to(dev)
+    rmse0 = float(als.rmse(U0, V0, bu.self_idx, bu.other_idx, bu.rating,
+                           mask))
+    rmse1 = float(als.rmse(Ut, Vt, bu.self_idx, bu.other_idx, bu.rating,
+                           mask))
+    if not (np.isfinite(rmse1) and rmse1 < rmse0):
+        raise AssertionError(f"RMSE {rmse0} -> {rmse1}: not finite and "
+                             "falling")
+    als.train_explicit(data, rank=rank, iterations=1, u0=Ut, v0=Vt,
+                       lambda_=params["lambda"], device=dev)  # chunk plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    als.train_explicit(data, rank=rank, iterations=3, u0=Ut, v0=Vt,
+                       lambda_=params["lambda"], device=dev)
+    torch.cuda.synchronize()
+    ms_iter = (time.perf_counter() - t0) / 3 * 1e3
+    per, pwall = ({}, 0.0) if not profile else _device_profile(
+        lambda: als.train_explicit(data, rank=rank, iterations=1, u0=Ut,
+                                   v0=Vt, lambda_=params["lambda"],
+                                   device=dev))
+    return rmse0, rmse1, ms_iter, per, pwall
+
+
 def phase_train(work: str, seed: int, dev: torch.device):
     """``pio train --synthetic 20000263`` through the port's CLI, twice
     from one seed; returns the stored instance and the run's numbers."""
@@ -703,32 +753,8 @@ def phase_train(work: str, seed: int, dev: torch.device):
 
     # RMSE, ms per iteration and idle share on the same synthetic data
     td = synthetic.training_data(N_RATINGS, seed=seed)
-    data = als.prepare_ratings(td.user_idx, td.item_idx, td.rating,
-                               n_users, n_items, on_device=True, device=dev)
-    bu = data.by_user
-    mask = (bu.self_idx < n_users).to(torch.float32)
-    U0, V0 = als._seed_factors(params["seed"], n_users, n_items, rank,
-                               device=dev)
-    Ut = torch.from_numpy(model.user_factors).to(dev)
-    Vt = torch.from_numpy(model.item_factors).to(dev)
-    rmse0 = float(als.rmse(U0, V0, bu.self_idx, bu.other_idx, bu.rating,
-                           mask))
-    rmse1 = float(als.rmse(Ut, Vt, bu.self_idx, bu.other_idx, bu.rating,
-                           mask))
-    if not (np.isfinite(rmse1) and rmse1 < rmse0):
-        raise AssertionError(f"RMSE {rmse0} -> {rmse1}: not finite and "
-                             "falling")
-    als.train_explicit(data, rank=rank, iterations=1, u0=Ut, v0=Vt,
-                       lambda_=params["lambda"], device=dev)  # chunk plan
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    als.train_explicit(data, rank=rank, iterations=3, u0=Ut, v0=Vt,
-                       lambda_=params["lambda"], device=dev)
-    torch.cuda.synchronize()
-    ms_iter = (time.perf_counter() - t0) / 3 * 1e3
-    per, pwall = _device_profile(lambda: als.train_explicit(
-        data, rank=rank, iterations=1, u0=Ut, v0=Vt,
-        lambda_=params["lambda"], device=dev))
+    rmse0, rmse1, ms_iter, per, pwall = _rmse_and_iterations(
+        td, model, params, dev)
     busy_ms = sum(us for us, _n in per.values()) / 1e3
     idle = 1 - busy_ms / (pwall * 1e3) if per else None
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
@@ -776,6 +802,27 @@ def _post(port: int, user: str, num: int):
     return status, json.loads(payload), time.perf_counter() - t0
 
 
+def _pct(seconds) -> tuple:
+    """p50 and p99 of a list of seconds, in ms."""
+    ms = [x * 1e3 for x in seconds]
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _wait_ready(port: int, alive, deadline_s: float = 120.0) -> float:
+    """Poll GET /readyz until 200; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                if r.status == 200:
+                    return time.perf_counter() - t0
+        except OSError:
+            if not alive() or time.perf_counter() - t0 > deadline_s:
+                raise
+            time.sleep(0.05)
+
+
 def phase_path(store, iid: str, users, seed: int):
     """The trained instance deployed, answering POST /queries.json on the
     card."""
@@ -797,16 +844,7 @@ def phase_path(store, iid: str, users, seed: int):
     server = threading.Thread(target=create_server.serve,
                               args=(api, "127.0.0.1", port), daemon=True)
     server.start()
-    while True:
-        try:
-            with urllib.request.urlopen(
-                    f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
-                if r.status == 200:
-                    break
-        except OSError:
-            if not server.is_alive() or time.perf_counter() - t0 > 300:
-                raise
-            time.sleep(0.05)
+    _wait_ready(port, server.is_alive, deadline_s=300)
     ready_s = time.perf_counter() - t0
     answers = {}
     seq_lat, burst_lat = [], []
@@ -871,10 +909,6 @@ def phase_path(store, iid: str, users, seed: int):
             if not all(np.isfinite(s["score"])
                        for s in payload["itemScores"]):
                 raise AssertionError("non-finite score served")
-    def pct(lat):
-        ms = [x * 1e3 for x in lat]
-        return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
-
     b = stats["batching"]
     print(f"path: {len(seq) + len(burst) + len(profiled)} requests "
           f"({len(seq)} sequential, {len(burst)} from 16 client threads, "
@@ -886,7 +920,7 @@ def phase_path(store, iid: str, users, seed: int):
           f"{api.time_to_ready_s:.3f} s)", flush=True)
     print("path: latency sequential p50 %.3f ms p99 %.3f ms; concurrent "
           "p50 %.3f ms p99 %.3f ms; avg flush %.3f ms, avg queue wait "
-          "%.3f ms" % (*pct(seq_lat), *pct(burst_lat), b["avgFlushMs"],
+          "%.3f ms" % (*_pct(seq_lat), *_pct(burst_lat), b["avgFlushMs"],
                        b["avgQueueWaitMs"]), flush=True)
     busy_us = sum(us for us, _n in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
@@ -930,26 +964,367 @@ def _wrapped(*targets):
             setattr(obj, name, original)
 
 
-def _fill_eval_store(storage, seed: int) -> int:
+def _write_import_file(path: str, seed: int) -> int:
     """EVAL_RATINGS synthetic rate events (zipf users and items, half-star
-    ratings, from ``seed``) written through ``store.write`` in batches."""
-    app_id = storage.get_meta_data_apps().insert(
-        storage_mod.App(0, EVAL_APP))
-    storage.get_events().init(app_id)
+    ratings, from ``seed``) as the JSON lines ``pio import`` reads."""
     src = synthetic.chunk_source(EVAL_RATINGS, seed=seed, n_users=EVAL_USERS,
                                  n_items=N_ITEMS, chunk=50_000)
-    for chunk in src.chunks():
-        users = (chunk["entity_code"] - 3).tolist()
-        items = (chunk["target_code"] - 3 - EVAL_USERS).tolist()
-        store_mod.write([Event(
-            event="rate", entity_type="user", entity_id=f"u{u}",
-            target_entity_type="item", target_entity_id=f"i{i}",
-            properties=DataMap({"rating": r}),
-            event_time=_EPOCH + dt.timedelta(milliseconds=ms))
-            for u, i, r, ms in zip(users, items, chunk["rating"].tolist(),
-                                   chunk["time_ms"].tolist())],
-            app_id, storage=storage)
+    with open(path, "w") as f:
+        for chunk in src.chunks():
+            users = (chunk["entity_code"] - 3).tolist()
+            items = (chunk["target_code"] - 3 - EVAL_USERS).tolist()
+            times = np.datetime_as_string(
+                chunk["time_ms"].astype("datetime64[ms]"), unit="ms")
+            f.writelines(
+                '{"event": "rate", "entityType": "user", "entityId": '
+                f'"u{u}", "targetEntityType": "item", "targetEntityId": '
+                f'"i{i}", "properties": {{"rating": {r!r}}}, "eventTime": '
+                f'"{t}Z"}}\n'
+                for u, i, r, t in zip(users, items, chunk["rating"].tolist(),
+                                      times.tolist()))
     return src.n_events
+
+
+def _count_events(env: dict, app_id: int) -> int:
+    """Rows of the app's default channel, read with sqlite3 itself from
+    the store's file (the default channel is stored as -1)."""
+    path = os.path.join(env["PIO_FS_BASEDIR"], "pio.sqlite")
+    with contextlib.closing(sqlite3.connect(path)) as db:
+        return db.execute("SELECT COUNT(*) FROM events WHERE app_id=? AND "
+                          "channel_id=-1", (app_id,)).fetchone()[0]
+
+
+class _Client:
+    """One keep-alive HTTP/1.1 connection, as an SDK client holds one."""
+
+    def __init__(self, port: int):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=60)
+
+    def call(self, method: str, target: str, payload=None):
+        body = None if payload is None else json.dumps(payload).encode()
+        t0 = time.perf_counter()
+        self.conn.request(method, target, body=body,
+                          headers={"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        data = r.read()
+        return r.status, json.loads(data), time.perf_counter() - t0
+
+    def close(self):
+        self.conn.close()
+
+
+def _rate(user: str, item: str, rating: float) -> dict:
+    return {"event": "rate", "entityType": "user", "entityId": user,
+            "targetEntityType": "item", "targetEntityId": item,
+            "properties": {"rating": rating}}
+
+
+def _drive_event_server(port: int, out: dict) -> None:
+    """The client side of the event-server step: every answer is checked
+    as the reference gives it, then SIGTERM starts the drain and /readyz
+    must answer 503 on the open connection before it closes."""
+    _wait_ready(port, lambda: True)
+    c = _Client(port)
+    key = f"/events.json?accessKey={QS_KEY}"
+    try:
+        status, body, _t = c.call("POST", key, _rate("u0", "i0", 4.0))
+        if status != 201 or "eventId" not in body:
+            raise AssertionError(f"POST /events.json: {status} {body}")
+        status, got, _t = c.call(
+            "GET", f"/events/{body['eventId']}.json?accessKey={QS_KEY}")
+        if status != 200 or got["eventId"] != body["eventId"] or \
+                got["entityId"] != "u0":
+            raise AssertionError(f"GET /events/<id>.json: {status} {got}")
+        single = []
+        for k in range(QS_POSTS):
+            status, body, t = c.call("POST", key, _rate(
+                f"u{k % EVAL_USERS}", f"i{(7 * k) % N_ITEMS}",
+                float(k % 10 + 1) / 2))
+            if status != 201:
+                raise AssertionError(f"single POST {k}: {status} {body}")
+            single.append(t)
+        batch = [_rate("1", f"i{k}", float(k % 10 + 1) / 2)
+                 for k in range(50)]
+        status, results, t_batch = c.call(
+            "POST", f"/batch/events.json?accessKey={QS_KEY}", batch)
+        if status != 200 or [r["status"] for r in results] != [201] * 50:
+            raise AssertionError(f"batch of 50: {status} {results}")
+        status, body, _t = c.call(
+            "POST", f"/batch/events.json?accessKey={QS_KEY}", batch + [
+                _rate("1", "i50", 3.0)])
+        if (status, body) != (400, {"message": "Batch request must have "
+                                    "less than or equal to 50 events"}):
+            raise AssertionError(f"batch of 51: {status} {body}")
+        status, body, _t = c.call(
+            "POST", f"/events.json?accessKey={QS_RATE_KEY}", {
+                "event": "buy", "entityType": "user", "entityId": "u1",
+                "targetEntityType": "item", "targetEntityId": "i1"})
+        if (status, body) != (403, {"message": "buy events are not "
+                                    "allowed"}):
+            raise AssertionError(f"rate-only key, buy: {status} {body}")
+        # batches into the channel: ingest rate, apart from the app's data
+        chan = (f"/batch/events.json?accessKey={QS_KEY}"
+                f"&channel={QS_CHANNEL}")
+        chan_times = []
+        for b in range(QS_CHANNEL_BATCHES):
+            status, results, t = c.call("POST", chan, [
+                _rate(f"c{b}", f"i{k}", 4.0) for k in range(50)])
+            if status != 200 or [r["status"] for r in results] != [201] * 50:
+                raise AssertionError(f"channel batch {b}: {status}")
+            chan_times.append(t)
+        where = "&entityType=user&entityId=c0"
+        status, body, _t = c.call("GET", key + where)
+        if status != 404:
+            raise AssertionError("a channel's event shows in the default "
+                                 f"channel: {status} {body}")
+        status, body, _t = c.call(
+            "GET", key + where + f"&channel={QS_CHANNEL}&limit=-1")
+        if status != 200 or len(body) != 50:
+            raise AssertionError(f"channel read: {status} {len(body)}")
+        status, body, _t = c.call("GET", "/readyz")
+        if (status, body) != (200, {"status": "ready"}):
+            raise AssertionError(f"/readyz before the drain: {status}")
+        os.kill(os.getpid(), signal.SIGTERM)
+        out["sigterm_sent"] = True
+        t0 = time.perf_counter()
+        while True:
+            status, body, _t = c.call("GET", "/readyz")
+            if (status, body) == (503, {"status": "draining"}):
+                break
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("/readyz never answered 503 after "
+                                     "SIGTERM")
+            time.sleep(0.01)
+        out.update(single_s=single, batch_s=t_batch, channel_s=chan_times,
+                   drain_seen_s=time.perf_counter() - t0)
+    finally:
+        c.close()
+
+
+def phase_quickstart(work: str, seed: int, dev: torch.device):
+    """The quickstart through the port's CLI in process, on SQLite under
+    the run's PIO_FS_BASEDIR: app, channel and keys; ``pio import`` of
+    EVAL_RATINGS events; the event server on 127.0.0.1 (stopped through
+    its SIGTERM drain); ``pio train`` from the store; ``pio deploy`` and
+    the quickstart's query; ``pio undeploy``. Returns the kernels'
+    launches on its train and deploy paths and the phase's numbers."""
+    env = _store_env(work)
+    # phase 5's `pio train --synthetic` set these for the process; this
+    # train reads the store
+    for name in ("PIO_SYNTHETIC_EVENTS", "PIO_SYNTHETIC_SEED"):
+        os.environ.pop(name, None)
+    t_phase = time.perf_counter()
+    for argv in (["app", "new", EVAL_APP, "--access-key", QS_KEY],
+                 ["app", "channel-new", EVAL_APP, QS_CHANNEL],
+                 ["accesskey", "new", EVAL_APP, "--key", QS_RATE_KEY,
+                  "--event", "rate"]):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"pio {' '.join(argv)} failed")
+    store = storage_mod.Storage(env=env)
+    app_id = store.get_meta_data_apps().get_by_name(EVAL_APP).id
+
+    path = os.path.join(work, "events.json")
+    t0 = time.perf_counter()
+    n_file = _write_import_file(path, seed)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = cli.main(["import", "--appid", str(app_id), "--input", path])
+    import_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"pio import exited {rc}")
+    os.remove(path)
+    n_stored = _count_events(env, app_id)
+    if n_stored != n_file:
+        raise AssertionError(f"imported {n_stored} of {n_file} events")
+    print(f"quickstart: pio import of {n_file} events in {import_s:.3f} s "
+          f"({n_file / import_s:.0f} events/s); the file written in "
+          f"{write_s:.3f} s", flush=True)
+
+    # the event server runs in this (the main) thread, as `pio
+    # eventserver` does, so its SIGTERM handler is live; the client runs
+    # beside it
+    port = _free_port()
+    es_out, errors = {}, []
+
+    def client():
+        try:
+            _drive_event_server(port, es_out)
+        except BaseException as e:           # surfaced after the join
+            errors.append(e)
+            if not es_out.get("sigterm_sent"):
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    previous = signal.getsignal(signal.SIGTERM)
+    worker = threading.Thread(target=client, daemon=True)
+    worker.start()
+    try:
+        rc = cli.main(["eventserver", "--ip", "127.0.0.1", "--port",
+                       str(port)])
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    worker.join(timeout=60)
+    if errors:
+        raise errors[0]
+    if rc != 0 or worker.is_alive():
+        raise AssertionError(f"pio eventserver exited {rc}")
+    n_posted = 1 + QS_POSTS + 50
+    n_default = _count_events(env, app_id)
+    if n_default != n_file + n_posted:
+        raise AssertionError(f"{n_default} events in the app, want "
+                             f"{n_file} + {n_posted}")
+    single_p50, single_p99 = _pct(es_out["single_s"])
+    chan_eps = [50 / t for t in es_out["channel_s"]]
+    print(f"quickstart: event server: POST 201 and read back; {QS_POSTS} "
+          f"sequential single POSTs p50 {single_p50:.3f} ms p99 "
+          f"{single_p99:.3f} ms; batch of 50 for user 1 in "
+          f"{es_out['batch_s'] * 1e3:.3f} ms ({50 / es_out['batch_s']:.0f} "
+          f"events/s), {QS_CHANNEL_BATCHES} batches of 50 into the channel "
+          f"at a median {statistics.median(chan_eps):.0f} events/s; 51 -> "
+          "400, rate-only key -> 403, the channel apart; /readyz 503 "
+          f"{es_out['drain_seen_s'] * 1e3:.1f} ms after SIGTERM", flush=True)
+
+    # pio train from the store at the template's engine.json
+    engine_dir = os.path.join(work, "quickstart_engine")
+    os.makedirs(engine_dir)
+    with open(ENGINE_JSON) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"]["appName"] = EVAL_APP
+    with open(os.path.join(engine_dir, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    params = variant["algorithms"][0]["params"]
+    instances = store.get_meta_data_engine_instances()
+    before = {r.id for r in instances.get_all()}
+    solve.reset_launches()               # the quickstart train starts here
+    topk_fused.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--engine-dir", engine_dir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = solve.launches      # the quickstart train ends here
+    if rc != 0:
+        raise AssertionError(f"pio train exited {rc}")
+    if train_launches != 2 * params["numIterations"]:
+        raise AssertionError(f"solve_gj launched {train_launches} times in "
+                             f"{params['numIterations']} iterations")
+    (row,) = [r for r in instances.get_all() if r.id not in before]
+    if row.status != "COMPLETED":
+        raise AssertionError(f"train left the instance {row.status}")
+    (model,) = model_io.deserialize_models(
+        store.get_model_data_models().get(row.id).models)
+    phases = {k[len("phase_"):-len("_s")]: float(v)
+              for k, v in row.runtime_conf.items()
+              if k.startswith("phase_")}
+    td = DataSource(DataSourceParams(appName=EVAL_APP)).read_training(
+        WorkflowContext(storage=store))
+    if td.n != n_default:
+        raise AssertionError(f"the train's read holds {td.n} ratings, the "
+                             f"app {n_default}")
+    if (td.user_vocab.to_dict() != model.user_vocab.to_dict()
+            or td.item_vocab.to_dict() != model.item_vocab.to_dict()):
+        raise AssertionError("the store's read and the model disagree on "
+                             "the vocabularies")
+    rmse0, rmse1, ms_iter, _per, _w = _rmse_and_iterations(
+        td, model, params, dev, profile=False)
+    print(f"quickstart: pio train from the store: {td.n} ratings, "
+          f"{len(model.user_vocab)} users x {len(model.item_vocab)} items, "
+          f"rank {params['rank']}, {params['numIterations']} iterations in "
+          f"{train_s:.3f} s; phases " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in phases.items())
+          + f"; {ms_iter:.2f} ms per iteration; RMSE {rmse0:.4f} -> "
+          f"{rmse1:.4f}; solve_gj launched {train_launches} times",
+          flush=True)
+
+    # pio deploy of that instance, the quickstart's query, pio undeploy
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    q_port, rcs = _free_port(), []
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        topk_fused.reset_launches()      # the quickstart deploy starts here
+        solve.reset_launches()
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            row.id, "--ip", "127.0.0.1", "--port", str(q_port),
+            "--serve-quant", "on"])), daemon=True)
+        deploy.start()
+        ready_s = _wait_ready(q_port, deploy.is_alive)
+        c = _Client(q_port)
+        try:
+            answers = [c.call("POST", "/queries.json",
+                              {"user": "1", "num": 4})
+                       for _ in range(1 + QS_QUERIES)]
+        finally:
+            c.close()
+        (api,) = apis
+        stats = api.handle("GET", "/")[1]
+        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                     str(q_port)]) != 0:
+            raise AssertionError("pio undeploy failed")
+        deploy.join(timeout=60)
+    launches = topk_fused.launches       # the quickstart deploy ends here
+    merge_launches = topk_fused.merge_launches
+    if rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}")
+    if solve.launches:
+        raise AssertionError("the serving path launched solve_gj")
+    flushes = stats["batching"]["batches"]
+    if stats["quant"] is None or not stats["quant"].get("fused"):
+        raise AssertionError(f"deploy did not take the fused path: {stats}")
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
+        raise AssertionError(
+            f"B1 launched {launches} times and B2 {merge_launches} times "
+            f"for {flushes} flushes (want one each per flush)")
+    m = api.models[0]
+    qs = m.quant
+    vals, idx = quant.topk_for_users_quant(
+        qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale,
+        torch.tensor([m.user_vocab("1")], dtype=torch.int32,
+                     device=qs.device), k=4, n_items=len(m.item_vocab))
+    inv = m.item_vocab.inverse()
+    want = {"itemScores": [{"item": inv(int(i)), "score": float(v)}
+                           for v, i in zip(vals[0].cpu().numpy(),
+                                           idx[0].cpu().numpy())]}
+    if len(want["itemScores"]) != 4:
+        raise AssertionError(f"the plain int8 path gave {want}")
+    for status, payload, _t in answers:
+        if status != 200 or payload != want:
+            raise AssertionError(f"the quickstart query answered {status} "
+                                 f"{payload}, the plain int8 path {want}")
+    first_ms = answers[0][2] * 1e3
+    q_p50, q_p99 = _pct([t for _s, _p, t in answers[1:]])
+    print(f"quickstart: pio deploy ready in {ready_s:.3f} s; "
+          f"{{\"user\": \"1\", \"num\": 4}} -> 200 with 4 itemScores equal "
+          f"to the plain int8 path, {1 + QS_QUERIES} times; first "
+          f"{first_ms:.3f} ms, then p50 {q_p50:.3f} ms p99 {q_p99:.3f} ms; "
+          f"B1 launched {launches} times and B2 {merge_launches} times for "
+          f"{flushes} flushes; pio undeploy stopped it", flush=True)
+    out = {"events_imported": n_file, "import_s": import_s,
+           "import_events_per_s": n_file / import_s,
+           "file_write_s": write_s, "events_posted": n_posted,
+           "single_post_ms": {"p50": single_p50, "p99": single_p99,
+                              "n": QS_POSTS},
+           "batch_post_events_per_s": 50 / es_out["batch_s"],
+           "channel_batch_events_per_s_median":
+               statistics.median(chan_eps),
+           "drain_503_after_s": es_out["drain_seen_s"],
+           "train": {"ratings": td.n, "users": len(model.user_vocab),
+                     "items": len(model.item_vocab), "wall_s": train_s,
+                     "phases_s": phases, "ms_per_iteration": ms_iter,
+                     "rmse_before": rmse0, "rmse_after": rmse1,
+                     "solve_gj_launches": train_launches},
+           "deploy": {"ready_s": ready_s, "first_query_ms": first_ms,
+                      "query_ms": {"p50": q_p50, "p99": q_p99,
+                                   "n": QS_QUERIES},
+                      "flushes": flushes, "B1_launches": launches,
+                      "B2_launches": merge_launches},
+           "phase_s": time.perf_counter() - t_phase}
+    print("quickstart: " + json.dumps(out), flush=True)
+    return train_launches, launches, merge_launches, n_default, out
 
 
 def _solve_row(name: str, A, b, reg) -> dict:
@@ -1021,15 +1396,13 @@ def _scorer_at_full_shape(seed: int, dev: torch.device) -> dict:
     return out
 
 
-def phase_eval(work: str, seed: int, dev: torch.device):
+def phase_eval(work: str, seed: int, dev: torch.device, n_events: int):
     """``pio eval`` of the reference's grid through the port's CLI on the
-    card; returns kernel A's eval launches, its rows at ranks 5, 10 and
-    20, and the phase's numbers."""
+    card, on the app the quickstart phase filled (``n_events`` events in
+    its default channel); returns kernel A's eval launches, its rows at
+    ranks 5, 10 and 20, and the phase's numbers."""
     env = _store_env(work)
-    storage = storage_mod.get_storage()
-    t_phase = t0 = time.perf_counter()
-    n_events = _fill_eval_store(storage, seed)
-    fill_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
     engine_dir = os.path.join(work, "eval_engine")
     os.makedirs(engine_dir)
     with open(os.path.join(engine_dir, "smoke_grid.py"), "w") as f:
@@ -1157,8 +1530,7 @@ def phase_eval(work: str, seed: int, dev: torch.device):
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:8]
     scorer = _scorer_at_full_shape(seed, dev)
 
-    split = {"phase_s": time.perf_counter() - t_phase,
-             "store_fill_s": fill_s, "eval_wall_s": wall,
+    split = {"phase_s": time.perf_counter() - t_phase, "eval_wall_s": wall,
              "read_eval_s": seconds["read_eval"],
              "layouts_s": seconds["layouts"],
              "train_s_by_rank": {r: sum(v for k, v in seconds.items()
@@ -1187,8 +1559,8 @@ def phase_eval(work: str, seed: int, dev: torch.device):
                "top": [[k[:60], us, n] for k, (us, n) in top]},
            "scorer_ml20m": scorer, "bit_identical_rerun": True}
     print(f"eval: the phase took {split['phase_s']:.1f} s with its checks; "
-          f"{n_events} ratings ({EVAL_USERS} users x {N_ITEMS} "
-          f"items) written in {fill_s:.1f} s; pio eval of {n_grid} "
+          f"the quickstart's app, {n_events} ratings ({EVAL_USERS} users "
+          f"x {N_ITEMS} items and the event server's); pio eval of {n_grid} "
           f"variants x {EVAL_K_FOLD} folds in {wall:.1f} s: read_eval "
           f"{seconds['read_eval']:.2f} s, layouts {seconds['layouts']:.3f} "
           "s, train by rank " + ", ".join(
@@ -1258,8 +1630,10 @@ def main(argv=None) -> int:
         store, iid, users, train = phase_train(work, args.seed, dev)
         launches, merge_launches, split = phase_path(store, iid, users,
                                                      args.seed)
+        (qs_solve_launches, qs_launches, qs_merge_launches, n_app_events,
+         qs_out) = phase_quickstart(work, args.seed, dev)
         eval_launches, eval_solve_rows, eval_out = phase_eval(
-            work, args.seed, dev)
+            work, args.seed, dev, n_app_events)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1288,6 +1662,8 @@ def main(argv=None) -> int:
         "merge_bound_ms": main_row["merge_bound_ms"],
         "merge_bound_by": main_row["merge_bound_by"],
         "merge_library_ms": main_row["merge_library_ms"],
+        "quickstart_launches": qs_launches,
+        "quickstart_merge_launches": qs_merge_launches,
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
@@ -1310,6 +1686,8 @@ def main(argv=None) -> int:
         "library_ms": row_a["library_ms"],
         "shape": {"n": row_a["n"], "r": row_a["r"]},
         "by_shape": rows_a,
+        "quickstart_launches": qs_solve_launches,
+        "quickstart": qs_out,
         "eval_launches": eval_launches,
         "eval_by_rank": eval_solve_rows,
         "eval": eval_out,

@@ -13,7 +13,10 @@ score->top-k candidates, then a warp merge of them). Slice 2
 trains: ``pio train`` (``tools/cli.py``) reads the event store or the
 synthetic generator, lays the ratings out on the card and runs explicit
 ALS, each half-step ending in the hand-written batched solve
-(``csrc/solve_gj.cu``), and stores the model blob.
+(``csrc/solve_gj.cu``), and stores the model blob. Slice 5 evaluates a
+grid (``pio eval``). Slice 7 ingests: apps, channels and access keys
+(``tools/apps.py``), the event server (``data/api/service.py``) and
+``pio import``/``export`` (``tools/transfer.py``), all on the host.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
 """Threaded HTTP transport for pure route handlers (port of the threaded
 half of ``predictionio_tpu/data/api/http.py``; the asyncio transport
-arrives later).
+waits for ROADMAP queue 1 item 4, and ``PIO_TRANSPORT=async`` is refused).
 
 Any object with ``handle(method, path, query, body, headers) ->
-(status, payload[, extra_headers])`` can be served. Payloads render as
-strict JSON: a NaN or Infinity in a payload is a server bug, answered
-500.
+(status, payload[, extra_headers])`` can be served. A dict or list
+payload renders as strict JSON: a NaN or Infinity in it is a server bug,
+answered 500. A ``str`` payload (the dashboard's pages) is served as
+HTML. TLS engages when ``PIO_SSL_CERTFILE`` names a PEM certificate.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import signal
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
+
+from predictionio_tpu_torch.common.server_security import maybe_wrap_ssl
 
 logger = logging.getLogger("predictionio_tpu_torch.http")
 
@@ -39,6 +42,9 @@ def dispatch_request(api, method: str, target: str, body: bytes,
     except Exception as e:  # a handler without its own guard
         logger.exception("handler failed: %s %s", method, parsed.path)
         status, payload = 500, {"message": str(e)}
+    if isinstance(payload, str):  # pre-rendered HTML (dashboard pages)
+        return (status, payload.encode("utf-8"), "text/html; charset=UTF-8",
+                dict(extra))
     try:
         data = json.dumps(payload, allow_nan=False).encode("utf-8")
     except ValueError:
@@ -78,6 +84,12 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):  # noqa: N802
         self._dispatch("POST")
 
+    def do_DELETE(self):  # noqa: N802
+        self._dispatch("DELETE")
+
+    def do_PUT(self):  # noqa: N802
+        self._dispatch("PUT")
+
     def log_message(self, fmt, *args):
         logger.debug(fmt, *args)
 
@@ -85,14 +97,26 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(api, host: str = "localhost", port: int = 0
                 ) -> ThreadingHTTPServer:
     """Build (without starting) a threaded HTTP server around ``api``;
-    port 0 binds an ephemeral port (read ``server.server_address``)."""
+    port 0 binds an ephemeral port (read ``server.server_address``). TLS
+    engages when ``PIO_SSL_CERTFILE`` is set."""
     handler = type("BoundHandler", (_Handler,), {"api": api})
     # the default listen backlog of 5 resets bursts of concurrent connects
     server_cls = type("BoundServer", (ThreadingHTTPServer,),
                       {"request_queue_size": 128})
     server = server_cls((host, port), handler)
     server.daemon_threads = True
+    if maybe_wrap_ssl(server) == "https":
+        logger.info("TLS enabled (PIO_SSL_CERTFILE)")
     return server
+
+
+def serve_background(api, host: str = "localhost", port: int = 0
+                     ) -> Tuple[ThreadingHTTPServer, int]:
+    """Start ``api`` on a daemon thread; returns (server, bound port)."""
+    server = make_server(api, host, port)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, server.server_address[1]
 
 
 def install_sigterm_handler(fn: Callable[[], None]) -> bool:
@@ -105,3 +129,31 @@ def install_sigterm_handler(fn: Callable[[], None]) -> bool:
         return True
     except ValueError:
         return False
+
+
+def serve_forever(api, host: str = "localhost", port: int = 7070,
+                  on_drain: Optional[Callable[[], None]] = None) -> None:
+    """Run a daemon until SIGTERM or SIGINT, then shut down gracefully:
+    mark the api draining (``/readyz`` answers 503, so load balancers stop
+    routing here), stop accepting connections, wait for the open
+    connections to finish, and run ``on_drain`` once before returning."""
+    server = make_server(api, host, port)
+    drained = threading.Event()
+
+    def _drain():
+        if drained.is_set():
+            return
+        drained.set()
+        setattr(api, "draining", True)
+        server.shutdown()
+
+    install_sigterm_handler(_drain)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        _drain()
+        server.server_close()
+        if on_drain is not None:
+            on_drain()

@@ -19,19 +19,21 @@ from __future__ import annotations
 import importlib
 import os
 import threading
+import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from predictionio_tpu_torch.data.storage.base import (
-    App, Apps, EngineInstance, EngineInstances, EvaluationInstance,
-    EvaluationInstances, Events, Model, Models, NONE_FILTER,
+    AccessKey, AccessKeys, App, Apps, Channel, Channels, EngineInstance,
+    EngineInstances, EvaluationInstance, EvaluationInstances, Events, Model,
+    Models, NONE_FILTER,
 )
 
 __all__ = [
-    "App", "Apps", "EngineInstance", "EngineInstances",
-    "EvaluationInstance", "EvaluationInstances", "Events", "Model",
-    "Models", "NONE_FILTER", "StorageClientConfig", "Storage",
-    "get_storage",
+    "AccessKey", "AccessKeys", "App", "Apps", "Channel", "Channels",
+    "EngineInstance", "EngineInstances", "EvaluationInstance",
+    "EvaluationInstances", "Events", "Model", "Models", "NONE_FILTER",
+    "StorageClientConfig", "Storage", "get_storage",
 ]
 
 MetaData = "METADATA"
@@ -145,6 +147,12 @@ class Storage:
     def get_meta_data_apps(self) -> Apps:
         return self._get_data_object(MetaData, "Apps")
 
+    def get_meta_data_access_keys(self) -> AccessKeys:
+        return self._get_data_object(MetaData, "AccessKeys")
+
+    def get_meta_data_channels(self) -> Channels:
+        return self._get_data_object(MetaData, "Channels")
+
     def get_meta_data_engine_instances(self) -> EngineInstances:
         return self._get_data_object(MetaData, "EngineInstances")
 
@@ -156,6 +164,25 @@ class Storage:
 
     def get_model_data_models(self) -> Models:
         return self._get_data_object(ModelData, "Models")
+
+    def verify_all_data_objects(self) -> None:
+        """Open every repository's DAOs and round-trip one event through
+        app 0 (``pio status``; Storage.scala:341-363)."""
+        self.get_meta_data_apps()
+        self.get_meta_data_access_keys()
+        self.get_meta_data_channels()
+        self.get_meta_data_engine_instances()
+        self.get_meta_data_evaluation_instances()
+        self.get_model_data_models()
+        events = self.get_events()
+        events.init(0)
+        from predictionio_tpu_torch.data.event import Event
+        test_id = events.insert(
+            Event(event="test", entity_type="test",
+                  entity_id=uuid.uuid4().hex), app_id=0)
+        if not events.delete(test_id, app_id=0):
+            raise RuntimeError("event store write/delete verification failed")
+        events.remove(0)
 
 
 _storage: Optional[Storage] = None

@@ -1,19 +1,23 @@
 """Storage records and DAO interfaces (port of
-``predictionio_tpu/data/storage/base.py``): events, apps, the
-engine-instance ledger and model blobs.
+``predictionio_tpu/data/storage/base.py``): events, apps, access
+keys, channels, the engine-instance ledger and model blobs.
 
-An ``App`` names the event stream a DataSource reads; ``Events`` stores
-and queries it; an ``EngineInstance`` row names a train run and its
+An ``App`` names the event stream a DataSource reads; an ``AccessKey``
+lets a client write to it (all events, or a listed few); a ``Channel``
+is a named stream of its own within the app; ``Events`` stores and
+queries them; an ``EngineInstance`` row names a train run and its
 params; a ``Model`` row holds that run's serialized model blob; an
 ``EvaluationInstance`` row names a ``pio eval`` run and holds its
-results. Access keys, channels and property aggregation wait for the
-slices that use them.
+results. Property aggregation waits for the slice that uses it.
 """
 
 from __future__ import annotations
 
 import abc
 import datetime as _dt
+import random
+import re
+import string
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -26,6 +30,35 @@ class App:
     id: int
     name: str
     description: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    """An access key (AccessKeys.scala:35-38); empty events = all allowed."""
+    key: str
+    appid: int
+    events: Sequence[str] = ()
+
+
+@dataclass(frozen=True)
+class Channel:
+    """A named event channel within an app (Channels.scala:32-37)."""
+    id: int
+    name: str
+    appid: int
+
+    NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
+
+    @staticmethod
+    def is_valid_name(s: str) -> bool:
+        return bool(Channel.NAME_RE.match(s))
+
+    def __post_init__(self):
+        if not Channel.is_valid_name(self.name):
+            raise ValueError(
+                f"Invalid channel name: {self.name}. Must consist of 1 to 16 "
+                "alphanumeric and '-' characters."
+            )
 
 
 @dataclass(frozen=True)
@@ -147,6 +180,14 @@ class Events(abc.ABC):
         """Initialize the backing store for (app, channel). Idempotent."""
 
     @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Remove all data for (app, channel)."""
+
+    @abc.abstractmethod
+    def close(self) -> None:
+        """Release client connections."""
+
+    @abc.abstractmethod
     def insert(self, event: Event, app_id: int,
                channel_id: Optional[int] = None) -> str:
         """Insert one event; returns its generated event ID."""
@@ -155,6 +196,16 @@ class Events(abc.ABC):
                      channel_id: Optional[int] = None) -> List[str]:
         """Default per-event loop (LEvents.scala:106-112)."""
         return [self.insert(e, app_id, channel_id) for e in events]
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        """Get one event by ID."""
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        """Delete one event by ID; returns whether it existed."""
 
     @abc.abstractmethod
     def find(
@@ -230,4 +281,61 @@ class Apps(abc.ABC):
 
     @abc.abstractmethod
     def get_by_name(self, name: str) -> Optional[App]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[App]: ...
+
+    @abc.abstractmethod
+    def update(self, app: App) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> None: ...
+
+
+class AccessKeys(abc.ABC):
+    """AccessKeys DAO (AccessKeys.scala:45-75)."""
+
+    @abc.abstractmethod
+    def insert(self, k: AccessKey) -> Optional[str]:
+        """Insert; generates a key when k.key is empty; returns the key,
+        or None when it is taken."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def update(self, k: AccessKey) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        """64-char URL-safe random key (AccessKeys.scala insert default)."""
+        alphabet = string.ascii_letters + string.digits
+        return "".join(random.SystemRandom().choice(alphabet)
+                       for _ in range(64))
+
+
+class Channels(abc.ABC):
+    """Channels DAO (Channels.scala:63-90)."""
+
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> Optional[int]:
+        """Insert; generates an ID when channel.id == 0; returns the ID."""
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> List[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> None: ...
 

@@ -1,5 +1,5 @@
-"""In-memory storage backend (port of the events, apps, engine-instance,
-evaluation-instance and model DAOs of
+"""In-memory storage backend (port of the events, apps, access-key,
+channel, engine-instance, evaluation-instance and model DAOs of
 ``predictionio_tpu/data/storage/memory.py``; the fold-in cursor methods
 wait for the fold-in slice)."""
 
@@ -14,7 +14,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    App, EngineInstance, EvaluationInstance, Model, event_matches,
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
+    event_matches,
 )
 
 _ChannelKey = Tuple[int, Optional[int]]
@@ -30,6 +31,14 @@ class MemoryEvents(base.Events):
             self._store.setdefault((app_id, channel_id), {})
         return True
 
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        with self._lock:
+            self._store.pop((app_id, channel_id), None)
+        return True
+
+    def close(self) -> None:
+        pass
+
     def insert(self, event: Event, app_id: int,
                channel_id: Optional[int] = None) -> str:
         event_id = event.event_id or uuid.uuid4().hex
@@ -37,6 +46,17 @@ class MemoryEvents(base.Events):
             table = self._store.setdefault((app_id, channel_id), {})
             table[event_id] = event.with_event_id(event_id)
         return event_id
+
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        with self._lock:
+            return self._store.get((app_id, channel_id), {}).get(event_id)
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        with self._lock:
+            table = self._store.get((app_id, channel_id), {})
+            return table.pop(event_id, None) is not None
 
     def find(
         self,
@@ -88,6 +108,75 @@ class MemoryApps(base.Apps):
 
     def get_by_name(self, name: str) -> Optional[App]:
         return next((a for a in self._by_id.values() if a.name == name), None)
+
+    def get_all(self) -> List[App]:
+        return list(self._by_id.values())
+
+    def update(self, app: App) -> None:
+        with self._lock:
+            self._by_id[app.id] = app
+
+    def delete(self, app_id: int) -> None:
+        with self._lock:
+            self._by_id.pop(app_id, None)
+
+
+class MemoryAccessKeys(base.AccessKeys):
+    def __init__(self, client=None, config=None, namespace: str = ""):
+        self._by_key: Dict[str, AccessKey] = {}
+        self._lock = threading.RLock()
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        key = k.key or self.generate_key()
+        with self._lock:
+            if key in self._by_key:
+                return None
+            self._by_key[key] = AccessKey(key, k.appid, tuple(k.events))
+            return key
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        return self._by_key.get(key)
+
+    def get_all(self) -> List[AccessKey]:
+        return list(self._by_key.values())
+
+    def get_by_appid(self, appid: int) -> List[AccessKey]:
+        return [k for k in self._by_key.values() if k.appid == appid]
+
+    def update(self, k: AccessKey) -> None:
+        with self._lock:
+            self._by_key[k.key] = k
+
+    def delete(self, key: str) -> None:
+        with self._lock:
+            self._by_key.pop(key, None)
+
+
+class MemoryChannels(base.Channels):
+    def __init__(self, client=None, config=None, namespace: str = ""):
+        self._by_id: Dict[int, Channel] = {}
+        self._lock = threading.RLock()
+
+    def insert(self, channel: Channel) -> Optional[int]:
+        with self._lock:
+            channel_id = channel.id
+            if channel_id == 0:
+                channel_id = max(self._by_id.keys(), default=0) + 1
+            if channel_id in self._by_id:
+                return None
+            self._by_id[channel_id] = Channel(channel_id, channel.name,
+                                              channel.appid)
+            return channel_id
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        return self._by_id.get(channel_id)
+
+    def get_by_appid(self, appid: int) -> List[Channel]:
+        return [c for c in self._by_id.values() if c.appid == appid]
+
+    def delete(self, channel_id: int) -> None:
+        with self._lock:
+            self._by_id.pop(channel_id, None)
 
 
 class MemoryEngineInstances(base.EngineInstances):

@@ -1,7 +1,7 @@
 """SQLite storage backend — the file-backed default (port of
-``predictionio_tpu/data/storage/sqlite.py``: events, apps, engine
-instances, evaluation instances and model blobs; the fold-in cursor and
-tail reads wait for the fold-in slice).
+``predictionio_tpu/data/storage/sqlite.py``: events, apps, access keys,
+channels, engine instances, evaluation instances and model blobs; the
+fold-in cursor and tail reads wait for the fold-in slice).
 
 The schema is the reference's, table for table, so a store that the JAX
 package's ``pio app new``/``pio import``/``pio train`` filled reads here,
@@ -30,7 +30,8 @@ import numpy as np
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.base import (
-    App, EngineInstance, EvaluationInstance, Model, NONE_FILTER,
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
+    NONE_FILTER,
 )
 
 _EPOCH = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
@@ -125,6 +126,16 @@ class SqliteEvents(_Sqlite, base.Events):
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         return True  # single-table schema created in ctor
 
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        self._exec(
+            "DELETE FROM events WHERE app_id=? AND channel_id=?",
+            (app_id, _ck(channel_id)),
+        )
+        return True
+
+    def close(self) -> None:
+        pass  # client owns the connection
+
     def insert(self, event: Event, app_id: int,
                channel_id: Optional[int] = None) -> str:
         event_id = event.event_id or uuid.uuid4().hex
@@ -158,6 +169,22 @@ class SqliteEvents(_Sqlite, base.Events):
                 "INSERT OR REPLACE INTO events VALUES (?,?,?,?,?,?,?,?,?,?)", rows)
             self._c.commit()
         return ids
+
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        rows = self._query(
+            "SELECT doc FROM events WHERE id=? AND app_id=? AND channel_id=?",
+            (event_id, app_id, _ck(channel_id)),
+        )
+        return Event.from_json(rows[0][0], validate=False) if rows else None
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        cur = self._exec(
+            "DELETE FROM events WHERE id=? AND app_id=? AND channel_id=?",
+            (event_id, app_id, _ck(channel_id)),
+        )
+        return cur.rowcount > 0
 
     def find(
         self,
@@ -331,6 +358,94 @@ class SqliteApps(_Sqlite, base.Apps):
         rows = self._query("SELECT id,name,description FROM apps WHERE name=?",
                            (name,))
         return App(*rows[0]) if rows else None
+
+    def get_all(self) -> List[App]:
+        return [App(*r) for r in
+                self._query("SELECT id,name,description FROM apps")]
+
+    def update(self, app: App) -> None:
+        self._exec("UPDATE apps SET name=?, description=? WHERE id=?",
+                   (app.name, app.description, app.id))
+
+    def delete(self, app_id: int) -> None:
+        self._exec("DELETE FROM apps WHERE id=?", (app_id,))
+
+
+def _row_to_key(r) -> AccessKey:
+    return AccessKey(r[0], r[1], tuple(json.loads(r[2])))
+
+
+class SqliteAccessKeys(_Sqlite, base.AccessKeys):
+    def _create_tables(self):
+        self._exec(
+            "CREATE TABLE IF NOT EXISTS access_keys "
+            "(key TEXT PRIMARY KEY, appid INTEGER, events TEXT)")
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        key = k.key or self.generate_key()
+        try:
+            self._exec("INSERT INTO access_keys VALUES (?,?,?)",
+                       (key, k.appid, json.dumps(list(k.events))))
+            return key
+        except sqlite3.IntegrityError:
+            return None
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        rows = self._query(
+            "SELECT key,appid,events FROM access_keys WHERE key=?", (key,))
+        return _row_to_key(rows[0]) if rows else None
+
+    def get_all(self) -> List[AccessKey]:
+        return [_row_to_key(r) for r in
+                self._query("SELECT key,appid,events FROM access_keys")]
+
+    def get_by_appid(self, appid: int) -> List[AccessKey]:
+        return [_row_to_key(r) for r in
+                self._query("SELECT key,appid,events FROM access_keys "
+                            "WHERE appid=?", (appid,))]
+
+    def update(self, k: AccessKey) -> None:
+        self._exec("UPDATE access_keys SET appid=?, events=? WHERE key=?",
+                   (k.appid, json.dumps(list(k.events)), k.key))
+
+    def delete(self, key: str) -> None:
+        self._exec("DELETE FROM access_keys WHERE key=?", (key,))
+
+
+class SqliteChannels(_Sqlite, base.Channels):
+    def _create_tables(self):
+        self._exec(
+            "CREATE TABLE IF NOT EXISTS channels "
+            "(id INTEGER PRIMARY KEY, name TEXT, appid INTEGER)")
+
+    def insert(self, channel: Channel) -> Optional[int]:
+        with self._lock:
+            try:
+                if channel.id == 0:
+                    cur = self._c.execute(
+                        "INSERT INTO channels (name, appid) VALUES (?,?)",
+                        (channel.name, channel.appid))
+                else:
+                    cur = self._c.execute(
+                        "INSERT INTO channels VALUES (?,?,?)",
+                        (channel.id, channel.name, channel.appid))
+                self._c.commit()
+                return cur.lastrowid if channel.id == 0 else channel.id
+            except sqlite3.IntegrityError:
+                return None
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        rows = self._query("SELECT id,name,appid FROM channels WHERE id=?",
+                           (channel_id,))
+        return Channel(*rows[0]) if rows else None
+
+    def get_by_appid(self, appid: int) -> List[Channel]:
+        return [Channel(*r) for r in
+                self._query("SELECT id,name,appid FROM channels WHERE appid=?",
+                            (appid,))]
+
+    def delete(self, channel_id: int) -> None:
+        self._exec("DELETE FROM channels WHERE id=?", (channel_id,))
 
 
 def _ei_to_row(i: EngineInstance):

@@ -10,10 +10,12 @@ of the JAX package), in one of three kinds:
   feature that another row refuses, so setting it changes nothing a user
   of the port could see;
 - ``UNPORTED``: it turns on a feature the port lacks. :func:`refuse_unported`
-  raises ``ValueError`` at the entry points (the CLI's ``train``, ``eval``
-  and ``deploy``, ``run_train``, ``run_evaluation`` and ``QueryAPI``) when
-  such a variable is set to a value that turns the feature on, naming the
-  variable, the feature and the ROADMAP item that brings it. Unset, ``0``
+  raises ``ValueError`` at the entry points (the CLI's ``train``,
+  ``eval``, ``deploy``, ``eventserver``, ``import``, ``export``,
+  ``dashboard`` and ``adminserver``, ``run_train``, ``run_evaluation`` and
+  ``QueryAPI``) when such a variable is set to a value that turns the
+  feature on, naming the variable, the feature and the ROADMAP item that
+  brings it. Unset, ``0``
   and ``off`` (and the reference's own word for "off" where it has one,
   such as ``PIO_TRANSPORT=threaded``) stay accepted. A row's refusal goes
   when its slice lands.
@@ -33,7 +35,12 @@ INERT = "inert"
 UNPORTED = "unported"
 
 TRAIN, EVAL, DEPLOY = "train", "eval", "deploy"
-ALL_VERBS = (TRAIN, EVAL, DEPLOY)
+EVENTSERVER, IMPORT, EXPORT = "eventserver", "import", "export"
+DASHBOARD, ADMINSERVER = "dashboard", "adminserver"
+#: the verbs that serve HTTP
+DAEMONS = (DEPLOY, EVENTSERVER, DASHBOARD, ADMINSERVER)
+ALL_VERBS = (TRAIN, EVAL, DEPLOY, EVENTSERVER, IMPORT, EXPORT, DASHBOARD,
+             ADMINSERVER)
 
 
 @dataclass(frozen=True)
@@ -65,6 +72,7 @@ def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
 _EVENTLOG = "the eventlog store, whose storage type the port refuses"
 _REMOTE = "the remote storage client, whose storage type the port refuses"
 _NO_VERB = "a daemon the port has no verb for"
+_TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
 _READS = ("read parallelism and staging; the port's in-core read is serial "
@@ -82,20 +90,22 @@ KNOBS: Dict[str, Knob] = {
         "storage sources; an unported TYPE is refused by the storage layer"),
     "PIO_STORAGE_REPOSITORIES_*": _read("repository bindings"),
     "PIO_STORAGE_SERVER_KEY": _inert(_REMOTE),
-    "PIO_SERVER_KEY": _inert("the dashboard and admin daemons: " + _NO_VERB),
-    "PIO_SSL_CERTFILE": _unported(
-        "TLS on the HTTP daemons", "queue 1 item 1 (server_security)"),
-    "PIO_SSL_KEYFILE": _inert("pairs with PIO_SSL_CERTFILE, which decides"),
+    "PIO_SERVER_KEY": _read(
+        "the shared key of the dashboard and admin daemons"),
+    "PIO_SSL_CERTFILE": _read(_TLS + ": the PEM certificate"),
+    "PIO_SSL_KEYFILE": _read(_TLS + ": the PEM key"),
     "PIO_EVENTLOG_CACHE_MB": _inert(_EVENTLOG),
     "PIO_WAL_GROUP_MS": _inert(_EVENTLOG),
     "PIO_WAL_FSYNC": _inert(_EVENTLOG),
     # transport and event server
     "PIO_TRANSPORT": _unported("the async HTTP transport", _Q4,
-                               also_off=("threaded",)),
+                               verbs=DAEMONS, also_off=("threaded",)),
     "PIO_TRANSPORT_WORKERS": _inert("tunes the async transport"),
     "PIO_TRANSPORT_PIPELINE": _inert("tunes the async transport"),
-    "PIO_BATCH_EVENTS_MAX": _inert("the event server: " + _NO_VERB),
-    "PIO_BATCH_BULK_INSERT": _inert("the event server: " + _NO_VERB),
+    "PIO_BATCH_EVENTS_MAX": _read(
+        "the event server's cap on items per batch request"),
+    "PIO_BATCH_BULK_INSERT": _read(
+        "the event server's batch store: one insert_batch, or per item"),
     # the training read
     "PIO_DISABLE_NATIVE": _inert(
         "the reference's native counting sort; the port sorts with torch"),
@@ -190,14 +200,15 @@ KNOBS: Dict[str, Knob] = {
     # observability
     "PIO_TELEMETRY": _unported("hot-path metrics (the telemetry registry)",
                                _Q3, verbs=ALL_VERBS),
-    "PIO_TRACE": _unported("per-request traces", _Q3),
+    "PIO_TRACE": _unported("per-request traces", _Q3, verbs=DAEMONS),
     "PIO_TRACE_BUFFER": _inert("tunes traces"),
     "PIO_TRACE_TAIL_MS": _inert("tunes traces"),
     "PIO_TRACE_TAIL_TRACES": _inert("tunes traces"),
     "PIO_JOURNAL": _unported("the operational-event journal", _Q3,
                              verbs=ALL_VERBS),
     "PIO_JOURNAL_BUFFER": _inert("tunes the journal"),
-    "PIO_HISTORY": _unported("the metrics flight recorder", _Q3),
+    "PIO_HISTORY": _unported("the metrics flight recorder", _Q3,
+                             verbs=DAEMONS),
     "PIO_HISTORY_TICK_S": _inert("tunes the metrics flight recorder"),
     "PIO_HISTORY_MAX_SERIES": _inert("tunes the metrics flight recorder"),
     "PIO_WATERFALL": _unported("per-request latency waterfalls", _Q3),
@@ -205,7 +216,8 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SLOW_RING": _inert("tunes the latency waterfalls"),
     "PIO_PROFILE_DIR": _inert("tunes the POST /debug/profile surface"),
     "PIO_PROFILE_MAX_MS": _inert("tunes the POST /debug/profile surface"),
-    "PIO_PROFILE_ENABLE": _unported("the POST /debug/profile surface", _Q3),
+    "PIO_PROFILE_ENABLE": _unported("the POST /debug/profile surface", _Q3,
+                                    verbs=DAEMONS),
     "PIO_SLO_AVAILABILITY": _inert("SLO targets of the telemetry layer"),
     "PIO_SLO_LATENCY_MS": _inert("SLO targets of the telemetry layer"),
     "PIO_SLO_LATENCY_TARGET": _inert("SLO targets of the telemetry layer"),

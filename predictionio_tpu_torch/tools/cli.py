@@ -1,6 +1,17 @@
-"""The ``pio`` console of the port, train, eval and deploy verbs (port of
+"""The ``pio`` console of the port (port of
 ``predictionio_tpu/tools/cli.py``).
 
+    python -m predictionio_tpu_torch.tools.cli app new NAME [--id N]
+        [--description TEXT] [--access-key KEY]
+    python -m predictionio_tpu_torch.tools.cli app {list,show,delete,
+        data-delete,channel-new,channel-delete} ...
+    python -m predictionio_tpu_torch.tools.cli accesskey {new,list,delete}
+    python -m predictionio_tpu_torch.tools.cli eventserver [--ip HOST]
+        [--port PORT] [--stats]
+    python -m predictionio_tpu_torch.tools.cli import --appid N
+        [--channel NAME] --input events.json
+    python -m predictionio_tpu_torch.tools.cli export --appid N
+        [--channel NAME] --output events.json
     python -m predictionio_tpu_torch.tools.cli train [--engine-dir DIR]
         [--variant engine.json] [--synthetic N [--synthetic-seed S]]
         [--resume-from ID] [--no-auto-resume] [--batch LABEL]
@@ -9,15 +20,21 @@
         [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
         [--engine-instance-id ID] [--ip HOST] [--port PORT] ...
+    python -m predictionio_tpu_torch.tools.cli undeploy [--ip HOST]
+        [--port PORT]
+    python -m predictionio_tpu_torch.tools.cli {status,dashboard,
+        adminserver} ...
 
-All run on the card unless ``PIO_TORCH_DEVICE=cpu`` asks for the CPU. A
-reference variable that asks for a feature the port lacks (``knobs.py``:
-``PIO_SERVE_SHARD=1``, ``PIO_FOLDIN=1``, ``PIO_TELEMETRY=1``, ...) makes the
-verb exit 1 with a message naming it, before any work.
-Storage is configured as in the reference (zero configuration: SQLite and
-model files under ``$PIO_FS_BASEDIR``), so a store that the JAX package's
-``pio app new`` and ``pio import`` filled trains and evaluates here.
-``app``, ``import`` and the event server wait for later slices.
+``train``, ``eval`` and ``deploy`` run on the card unless
+``PIO_TORCH_DEVICE=cpu`` asks for the CPU; the event server, the app and
+key commands, ``import`` and ``export`` work on the host and never touch
+the card. A reference variable that asks for a feature the port lacks
+(``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_FOLDIN=1``,
+``PIO_TELEMETRY=1``, ...) makes the verb exit 1 with a message naming it,
+before any work. Storage is configured as in the reference (zero
+configuration: SQLite and model files under ``$PIO_FS_BASEDIR``), so a
+store that either package's ``pio app new`` and ``pio import`` filled
+reads in the other.
 """
 
 from __future__ import annotations
@@ -29,6 +46,8 @@ import sys
 from typing import List, Optional
 
 from predictionio_tpu_torch import __version__, knobs
+from predictionio_tpu_torch.tools import apps as app_cmds
+from predictionio_tpu_torch.tools.apps import CommandError
 
 logger = logging.getLogger("pio")
 
@@ -134,12 +153,166 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_undeploy(args) -> int:
+    from predictionio_tpu_torch.workflow.create_server import undeploy
+    if undeploy(args.ip, args.port):
+        _info(f"Undeployed server at {args.ip}:{args.port}.")
+        return 0
+    _error(f"Undeploy failed: nothing listening at {args.ip}:{args.port}.")
+    return 1
+
+
+def cmd_eventserver(args) -> int:
+    from predictionio_tpu_torch.data.api import EventAPI, EventServerConfig
+    from predictionio_tpu_torch.data.api.http import serve_forever
+    api = EventAPI(config=EventServerConfig(
+        ip=args.ip, port=args.port, stats=args.stats))
+    _info(f"Event Server is started at {args.ip}:{args.port}.")
+    serve_forever(api, host=args.ip, port=args.port)
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.data.api.http import serve_forever
+    from predictionio_tpu_torch.tools.dashboard import DashboardAPI
+    _info(f"Dashboard is started at {args.ip}:{args.port}.")
+    serve_forever(DashboardAPI(server_key=args.key or None),
+                  host=args.ip, port=args.port)
+    return 0
+
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.data.api.http import serve_forever
+    from predictionio_tpu_torch.tools.admin import AdminAPI
+    _info(f"Admin server is started at {args.ip}:{args.port}.")
+    serve_forever(AdminAPI(server_key=args.key or None),
+                  host=args.ip, port=args.port)
+    return 0
+
+
+def cmd_status(args) -> int:
+    """Verify installation + storage (commands/Management.scala:181,
+    Storage.verifyAllDataObjects); the device line names the card the
+    train and deploy verbs would run on."""
+    import torch
+
+    from predictionio_tpu_torch import device
+    from predictionio_tpu_torch.data.storage import get_storage
+    _info(f"PredictionIO-TPU PyTorch port {__version__}")
+    try:
+        dev = device.resolve()
+    except RuntimeError as e:
+        _error(str(e))
+        return 1
+    _info(f"torch {torch.__version__}; device: {device.describe(dev)}")
+    _info("Verifying configured storage backend(s)...")
+    try:
+        get_storage().verify_all_data_objects()
+    except Exception as e:
+        _error(f"Unable to connect to all storage backends: {e}")
+        return 1
+    _info("Your system is all ready to go.")
+    return 0
+
+
+def cmd_app(args) -> int:
+    from predictionio_tpu_torch.data.storage import get_storage
+    storage = get_storage()
+    if args.app_command == "new":
+        d = app_cmds.create(args.name, app_id=args.id,
+                            description=args.description,
+                            access_key=args.access_key or "",
+                            storage=storage)
+        _info(f"Initialized Event Store for this app ID: {d.app.id}.")
+        _info("Created a new app:")
+        _info(f"      Name: {d.app.name}")
+        _info(f"        ID: {d.app.id}")
+        _info(f"Access Key: {d.keys[0].key}")
+    elif args.app_command == "list":
+        _info(f"{'Name':20} | {'ID':4} | Access Key | Allowed Event(s)")
+        for d in app_cmds.list_apps(storage):
+            for k in d.keys:
+                allowed = ",".join(k.events) if k.events else "(all)"
+                _info(f"{d.app.name:20} | {d.app.id:4} | {k.key} | {allowed}")
+        _info(f"Finished listing {len(app_cmds.list_apps(storage))} app(s).")
+    elif args.app_command == "show":
+        d, channels = app_cmds.show(args.name, storage=storage)
+        _info(f"    App Name: {d.app.name}")
+        _info(f"      App ID: {d.app.id}")
+        _info(f" Description: {d.app.description or ''}")
+        for k in d.keys:
+            allowed = ",".join(k.events) if k.events else "(all)"
+            _info(f"  Access Key: {k.key} | {allowed}")
+        for c in channels:
+            _info(f"     Channel: {c.name} (ID {c.id})")
+    elif args.app_command == "delete":
+        if not args.force and not _confirm(
+                f"Delete app {args.name} and ALL of its data?"):
+            return 1
+        app_cmds.delete(args.name, storage=storage)
+        _info(f"App {args.name} deleted.")
+    elif args.app_command == "data-delete":
+        if not args.force and not _confirm(
+                f"Delete data of app {args.name}?"):
+            return 1
+        app_cmds.data_delete(args.name, channel=args.channel,
+                             delete_all=args.all, storage=storage)
+        _info(f"Data of app {args.name} deleted.")
+    elif args.app_command == "channel-new":
+        c = app_cmds.channel_new(args.name, args.channel, storage=storage)
+        _info(f"Channel {c.name} (ID {c.id}) created for app {args.name}.")
+    elif args.app_command == "channel-delete":
+        if not args.force and not _confirm(
+                f"Delete channel {args.channel} of app {args.name}?"):
+            return 1
+        app_cmds.channel_delete(args.name, args.channel, storage=storage)
+        _info(f"Channel {args.channel} deleted.")
+    return 0
+
+
+def cmd_accesskey(args) -> int:
+    from predictionio_tpu_torch.data.storage import get_storage
+    storage = get_storage()
+    if args.accesskey_command == "new":
+        k = app_cmds.accesskey_new(args.app_name, key=args.key or "",
+                                   events=args.event or (), storage=storage)
+        _info(f"Created new access key: {k.key}")
+    elif args.accesskey_command == "list":
+        for k in app_cmds.accesskey_list(args.app_name, storage=storage):
+            allowed = ",".join(k.events) if k.events else "(all)"
+            _info(f"{k.key} | app {k.appid} | {allowed}")
+    elif args.accesskey_command == "delete":
+        app_cmds.accesskey_delete(args.key, storage=storage)
+        _info(f"Deleted access key {args.key}.")
+    return 0
+
+
+def cmd_import(args) -> int:
+    from predictionio_tpu_torch.tools.transfer import file_to_events
+    n = file_to_events(args.input, args.appid, channel=args.channel)
+    _info(f"Imported {n} events.")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from predictionio_tpu_torch.tools.transfer import events_to_file
+    n = events_to_file(args.output, args.appid, channel=args.channel)
+    _info(f"Exported {n} events.")
+    return 0
+
+
+def _confirm(prompt: str) -> bool:
+    answer = input(f"{prompt} (Y/n) ")
+    return answer.strip().lower() in ("", "y", "yes")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pio", description="PredictionIO console, PyTorch port")
     p.add_argument("--verbose", action="store_true")
     sub = p.add_subparsers(dest="command")
     sub.add_parser("version", help="show version")
+    sub.add_parser("status", help="verify installation and storage")
 
     def engine_flags(sp):
         sp.add_argument("--engine-dir", default=".",
@@ -194,10 +367,92 @@ def build_parser() -> argparse.ArgumentParser:
                          "scales through the fused kernel (auto = on the "
                          "card, gated by the ranking-parity probe; "
                          "PIO_SERVE_QUANT overrides)")
+
+    sp = sub.add_parser("undeploy", help="stop a deployed engine server")
+    sp.add_argument("--ip", default="localhost")
+    sp.add_argument("--port", type=int, default=8000)
+
+    sp = sub.add_parser("eventserver", help="start the event server")
+    sp.add_argument("--ip", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=7070)
+    sp.add_argument("--stats", action="store_true")
+
+    sp = sub.add_parser("dashboard", help="start the evaluation dashboard")
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=9000)
+    sp.add_argument("--key", default="",
+                    help="require this server key (or set PIO_SERVER_KEY)")
+
+    sp = sub.add_parser("adminserver", help="start the admin API server")
+    sp.add_argument("--ip", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=7071)
+    sp.add_argument("--key", default="",
+                    help="require this server key (or set PIO_SERVER_KEY)")
+
+    sp = sub.add_parser("app", help="manage apps")
+    asub = sp.add_subparsers(dest="app_command", required=True)
+    a = asub.add_parser("new")
+    a.add_argument("name")
+    a.add_argument("--id", type=int, default=None)
+    a.add_argument("--description", default=None)
+    a.add_argument("--access-key", default=None)
+    asub.add_parser("list")
+    a = asub.add_parser("show")
+    a.add_argument("name")
+    a = asub.add_parser("delete")
+    a.add_argument("name")
+    a.add_argument("-f", "--force", action="store_true")
+    a = asub.add_parser("data-delete")
+    a.add_argument("name")
+    a.add_argument("--channel", default=None)
+    a.add_argument("--all", action="store_true")
+    a.add_argument("-f", "--force", action="store_true")
+    a = asub.add_parser("channel-new")
+    a.add_argument("name")
+    a.add_argument("channel")
+    a = asub.add_parser("channel-delete")
+    a.add_argument("name")
+    a.add_argument("channel")
+    a.add_argument("-f", "--force", action="store_true")
+
+    sp = sub.add_parser("accesskey", help="manage access keys")
+    ksub = sp.add_subparsers(dest="accesskey_command", required=True)
+    k = ksub.add_parser("new")
+    k.add_argument("app_name")
+    k.add_argument("--key", default=None)
+    k.add_argument("--event", action="append", default=None,
+                   help="restrict to this event name (repeatable)")
+    k = ksub.add_parser("list")
+    k.add_argument("app_name", nargs="?", default=None)
+    k = ksub.add_parser("delete")
+    k.add_argument("key")
+
+    sp = sub.add_parser("import", help="import events from a JSON-lines file")
+    sp.add_argument("--appid", type=int, required=True)
+    sp.add_argument("--channel", default=None)
+    sp.add_argument("--input", required=True)
+
+    sp = sub.add_parser("export", help="export events to a JSON-lines file")
+    sp.add_argument("--appid", type=int, required=True)
+    sp.add_argument("--channel", default=None)
+    sp.add_argument("--output", required=True)
     return p
 
 
-_DISPATCH = {"train": cmd_train, "eval": cmd_eval, "deploy": cmd_deploy}
+_DISPATCH = {
+    "train": cmd_train,
+    "eval": cmd_eval,
+    "deploy": cmd_deploy,
+    "undeploy": cmd_undeploy,
+    "eventserver": cmd_eventserver,
+    "dashboard": cmd_dashboard,
+    "adminserver": cmd_adminserver,
+    "status": cmd_status,
+    "app": cmd_app,
+    "accesskey": cmd_accesskey,
+    "import": cmd_import,
+    "export": cmd_export,
+}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -209,9 +464,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     try:
         # a variable asking for an unported feature fails before any work
-        knobs.refuse_unported(args.command)
+        if args.command in knobs.ALL_VERBS:
+            knobs.refuse_unported(args.command)
         return _DISPATCH[args.command](args)
-    except (FileNotFoundError, ValueError) as e:
+    except (CommandError, FileNotFoundError, ValueError) as e:
         # operational failures (no COMPLETED instance for deploy, bad
         # params, incompatible checkpoints, missing files) print one line
         # and exit 1; -v keeps the traceback reachable

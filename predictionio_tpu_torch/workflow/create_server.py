@@ -23,6 +23,7 @@ import logging
 import math
 import threading
 import time
+import urllib.request
 from typing import Any, Dict, Optional, Tuple
 
 from predictionio_tpu_torch import device as device_mod
@@ -368,6 +369,17 @@ class QueryAPI:
             ) / (self.request_count + 1)
             self.request_count += 1
         return 200, result
+
+
+def undeploy(ip: str, port: int) -> bool:
+    """POST /stop to a running engine server (commands/Engine.scala:240+)."""
+    try:
+        req = urllib.request.Request(
+            f"http://{ip}:{port}/stop", data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=5) as r:
+            return r.status == 200
+    except Exception:
+        return False
 
 
 def serve(api: QueryAPI, host: str = "localhost", port: int = 8000,

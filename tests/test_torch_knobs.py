@@ -1,7 +1,8 @@
 """The port's table of the reference's environment variables
 (``predictionio_tpu_torch/knobs.py``) against the reference's own
-declarations, and the refusal of the variables that ask for a feature the
-port lacks, at the CLI's verbs and at ``QueryAPI`` construction."""
+declarations, the refusal of the variables that ask for a feature the
+port lacks, at the CLI's verbs and at ``QueryAPI`` construction, and the
+event server's and daemons' variables that the port reads."""
 
 import re
 
@@ -24,7 +25,6 @@ MEM = {
 
 #: values that turn each unported feature on, as an operator would set them
 REFUSED = {
-    "PIO_SSL_CERTFILE": ["/etc/pio/cert.pem"],
     "PIO_TRANSPORT": ["async"],
     "PIO_TRAIN_STREAM": ["on"],
     "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
@@ -73,16 +73,28 @@ def test_unported_feature_is_refused_at_its_entry_points(
     _clear(monkeypatch)
     monkeypatch.setenv(name, value)
     knob = knobs.KNOBS[name]
-    argv = {knobs.TRAIN: ["train"], knobs.EVAL: ["eval", "x.Evaluation"],
-            knobs.DEPLOY: ["deploy"]}
+    missing = str(tmp_path / "none")
+    # an address no daemon can bind: a verb that failed to refuse errors
+    # out at once instead of serving
+    nowhere = ["--ip", "256.256.256.256"]
+    argv = {knobs.TRAIN: ["train", "--engine-dir", missing],
+            knobs.EVAL: ["eval", "x.Evaluation", "--engine-dir", missing],
+            knobs.DEPLOY: ["deploy", "--engine-dir", missing],
+            knobs.EVENTSERVER: ["eventserver", *nowhere],
+            knobs.IMPORT: ["import", "--appid", "1", "--input", missing],
+            knobs.EXPORT: ["export", "--appid", "1", "--output", missing],
+            knobs.DASHBOARD: ["dashboard", *nowhere],
+            knobs.ADMINSERVER: ["adminserver", *nowhere]}
+    assert sorted(argv) == sorted(knobs.ALL_VERBS)
     for verb in knob.verbs:
         with pytest.raises(ValueError) as e:
             knobs.refuse_unported(verb)
         msg = str(e.value)
         assert f"{name}={value}" in msg and knob.what in msg
         assert f"ROADMAP {knob.roadmap}" in msg
-        # the CLI refuses before it reads the (missing) engine directory
-        rc = cli.main([*argv[verb], "--engine-dir", str(tmp_path / "none")])
+        # the CLI refuses before it reads the (missing) engine directory,
+        # input file or store, or binds a socket
+        rc = cli.main(argv[verb])
         assert rc == 1
         assert f"{name}={value}" in capsys.readouterr().err
     if knobs.DEPLOY in knob.verbs:
@@ -121,3 +133,37 @@ def test_accepted_deploy_reaches_the_instance_lookup(monkeypatch):
     with pytest.raises(Exception) as e:
         QueryAPI(config=ServerConfig(device="cpu"), storage=Storage(env=MEM))
     assert "ROADMAP" not in str(e.value)
+
+
+#: the variables this port reads since the event server and the daemons'
+#: security landed, each with a value that changes what a user sees
+NOW_READ = {
+    "PIO_BATCH_EVENTS_MAX": "2",
+    "PIO_BATCH_BULK_INSERT": "0",
+    "PIO_SERVER_KEY": "tok",
+    "PIO_SSL_CERTFILE": "/nonexistent/cert.pem",
+    "PIO_SSL_KEYFILE": "/nonexistent/key.pem",
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_READ))
+def test_event_server_and_daemon_variables_are_read(monkeypatch, name):
+    from predictionio_tpu_torch.common import server_security
+    from predictionio_tpu_torch.data.api import service
+
+    _clear(monkeypatch)
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, NOW_READ[name])
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)       # never refused
+    if name == "PIO_BATCH_EVENTS_MAX":
+        assert service.batch_events_max() == 2
+    elif name == "PIO_BATCH_BULK_INSERT":
+        assert service.batch_bulk_insert() is False
+    elif name == "PIO_SERVER_KEY":
+        assert server_security.KeyAuth().key == "tok"
+    else:
+        # the certificate pair is loaded, so a missing file is an error
+        monkeypatch.setenv("PIO_SSL_CERTFILE", NOW_READ["PIO_SSL_CERTFILE"])
+        with pytest.raises(OSError):
+            server_security.ssl_context_from_env()
