@@ -79,6 +79,34 @@ Phases (any failure raises and the script exits non-zero):
              rank-20 train + batch_predict under torch.profiler, and
              ``topk_scores_batch`` at the full ML-20M shape against
              ``torch.topk`` on the same chunks.
+9. templates — the classification, similar-product and e-commerce
+             templates through the port's CLI, in process, on the same
+             SQLite store. ``pio app new`` of a shop app and a plans app,
+             filled with ``store.write`` from ``--seed``: 6,900 users and
+             the 26,744-item catalog in 10 categories (80% of a user's
+             events in a home category), 200,000 views, 200,000 half-star
+             rates, 20,000 buys, 20 visitors with views and no ``$set``,
+             a ``constraint/unavailableItems`` of 100 items and a
+             ``constraint/weightedItems`` with a weight-0 group; 100,000
+             users with a plan of 4 and three attribute counts. Per
+             template ``pio train`` from an engine.json naming the JAX
+             package's factory (rank 10, 20 iterations for both ALS
+             trains: kernel A exactly 40 times each, at n = 6,900 and
+             26,744), ``pio deploy``, sequential queries, ``pio
+             undeploy``: no kernel launches while serving, no answer
+             degraded. Similar-product (implicit ALS): a profiled second
+             train bit-identical to the stored one; one iteration on the
+             card within rtol 2e-3 / atol 2e-4 of the CPU's, its two
+             half-steps' kernel A == plain bit for bit, then timed; 50
+             query items, at least half of the top-10 answers in the
+             query item's category. E-commerce (explicit ALS,
+             ``unseenOnly``, ``weightedItems``): a bit-identical profiled
+             retrain; 45 users and 5 visitors get answers with no item
+             they viewed or bought, no unavailable or weight-0 item, and
+             the visitors non-empty ones. Classification (NaiveBayes on
+             the card): ``pi`` and ``theta`` within 1e-5 relative of a
+             CPU train, and 1,000 held-out points answered at least 90%
+             right.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -89,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime as _dt
 import http.client
 import json
 import math
@@ -112,7 +141,15 @@ import torch
 import predictionio_tpu_torch
 from predictionio_tpu_torch.controller.evaluation import MetricEvaluator
 from predictionio_tpu_torch.data import storage as storage_mod
+from predictionio_tpu_torch.data import store as store_mod
 from predictionio_tpu_torch.data import synthetic
+from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.models.classification.engine import (
+    ClassificationEngine,
+)
+from predictionio_tpu_torch.models.ecommerce.engine import ECommerceEngine
 from predictionio_tpu_torch.models.recommendation import evaluation
 from predictionio_tpu_torch.models.recommendation.als_algorithm import (
     ALSAlgorithm, ALSAlgorithmParams,
@@ -123,8 +160,11 @@ from predictionio_tpu_torch.models.recommendation.data_source import (
 from predictionio_tpu_torch.models.recommendation.engine import (
     RecommendationEngine,
 )
+from predictionio_tpu_torch.models.similarproduct.engine import (
+    SimilarProductEngine,
+)
 from predictionio_tpu_torch.ops import (
-    _kernels, als, quant, solve, topk, topk_fused,
+    _kernels, als, naive_bayes, quant, solve, topk, topk_fused,
 )
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow import (
@@ -156,6 +196,24 @@ class SmokeGrid(EngineParamsGenerator):
             app_name={EVAL_APP!r}, k_fold={EVAL_K_FOLD},
             query_num={EVAL_QUERY_NUM})
 '''
+# the templates phase: the shop app both ALS templates read (6,900 users
+# x the 26,744-item catalog, 10 categories, 80% of a user's events in
+# their home category) and the classification app (100,000 users, 4
+# plans, three attributes whose proportions depend on the plan)
+TPL_APP, NB_APP = "SmokeShop", "SmokePlans"
+TPL_USERS, TPL_CATEGORIES, TPL_HOME_SHARE = 6_900, 10, 0.8
+TPL_VIEWS, TPL_RATES, TPL_BUYS = 200_000, 200_000, 20_000
+TPL_VISITORS, TPL_VISITOR_VIEWS = 20, 5       # views, no $set
+TPL_UNAVAILABLE, TPL_ZERO_WEIGHT = 100, 50
+TPL_RANK, TPL_ITERS, TPL_QUERIES = 10, 20, 50  # the templates' defaults
+NB_USERS, NB_HELD_OUT, NB_CLASSES = 100_000, 1_000, 4
+NB_RATES = np.array([[16, 3, 3], [3, 16, 3], [3, 3, 16], [8, 8, 8]],
+                    dtype=np.float64)
+#: NB's pi / theta on the card against the CPU: relative
+NB_RTOL = 1e-5
+#: one implicit iteration on the card against the CPU (the whole-train
+#: tolerance of tests/test_torch_als.py)
+ITER_RTOL, ITER_ATOL = 2e-3, 2e-4
 ENGINE_JSON = os.path.join(os.path.dirname(predictionio_tpu_torch.__file__),
                            "models", "recommendation", "engine.json")
 
@@ -1587,6 +1645,501 @@ def phase_eval(work: str, seed: int, dev: torch.device, n_events: int):
     print("eval: " + json.dumps(out), flush=True)
     return launches, solve_rows, out
 
+# ---------------------------------------------------------------------------
+# phase 9: the classification, similar-product and e-commerce templates
+# ---------------------------------------------------------------------------
+
+def _template_events(seed: int):
+    """The shop app's events from ``seed``, in chunks of Events, and the
+    truth the checks read: each item's category, each user's viewed and
+    bought items, the unavailable and weight-0 items, the visitors (view
+    events, no ``$set``) and the query items (drawn by popularity).
+
+    Items fall in TPL_CATEGORIES categories; each user has a home
+    category that takes TPL_HOME_SHARE of their events; within a
+    category, item popularity falls as 1 / (rank + 50)."""
+    rng = np.random.default_rng(seed + 11)
+    item_cat = rng.integers(0, TPL_CATEGORIES, N_ITEMS)
+    home = rng.integers(0, TPL_CATEGORIES, TPL_USERS)
+    members = [rng.permutation(np.flatnonzero(item_cat == c))
+               for c in range(TPL_CATEGORIES)]
+    width = min(len(m) for m in members)
+    by_cat = np.stack([m[:width] for m in members])    # (cats, width)
+    pmf = 1.0 / (np.arange(width) + 50.0)
+    pmf /= pmf.sum()
+
+    def draw(users):
+        own = rng.random(users.shape[0]) < TPL_HOME_SHARE
+        cat = np.where(own, home[users % TPL_USERS],
+                       rng.integers(0, TPL_CATEGORIES, users.shape[0]))
+        return by_cat[cat, rng.choice(width, users.shape[0], p=pmf)], own
+
+    n_visit = TPL_VISITORS * TPL_VISITOR_VIEWS
+    view_u = rng.integers(0, TPL_USERS, TPL_VIEWS - n_visit)
+    view_i, _own = draw(view_u)
+    visit_u = np.repeat(np.arange(TPL_VISITORS), TPL_VISITOR_VIEWS)
+    visit_i, _own = draw(visit_u)
+    rate_u = rng.integers(0, TPL_USERS, TPL_RATES)
+    rate_i, own = draw(rate_u)
+    rating = np.clip(np.round((np.where(own, 4.0, 2.0) + rng.normal(
+        0.0, 0.8, TPL_RATES)) * 2) / 2, 1.0, 5.0)
+    buy_u = rng.integers(0, TPL_USERS, TPL_BUYS)
+    buy_i, _own = draw(buy_u)
+    popular = by_cat[:, :40].ravel()          # each category's top 40
+    hidden = rng.choice(popular, TPL_UNAVAILABLE + 2 * TPL_ZERO_WEIGHT,
+                        replace=False)
+    unavailable = hidden[:TPL_UNAVAILABLE]
+    zero = hidden[TPL_UNAVAILABLE:TPL_UNAVAILABLE + TPL_ZERO_WEIGHT]
+    boost = hidden[TPL_UNAVAILABLE + TPL_ZERO_WEIGHT:]
+    queries = rng.choice(view_i, 4 * TPL_QUERIES)
+    queries = list(dict.fromkeys(queries.tolist()))[:TPL_QUERIES]
+
+    t0 = _dt.datetime(2024, 1, 1, tzinfo=_dt.timezone.utc)
+    clock = iter(range(10 ** 9))
+
+    def event(name, etype, eid, props=None, target=None):
+        return Event(event=name, entity_type=etype, entity_id=eid,
+                     target_entity_type="item" if target else None,
+                     target_entity_id=target,
+                     properties=DataMap(props or {}),
+                     event_time=t0 + _dt.timedelta(seconds=next(clock)))
+
+    def chunks():
+        yield [event("$set", "user", f"u{u}") for u in range(TPL_USERS)]
+        yield [event("$set", "item", f"i{i}",
+                     {"categories": [f"c{item_cat[i]}"]})
+               for i in range(N_ITEMS)]
+        for name, users, items in (("view", view_u, view_i),
+                                   ("buy", buy_u, buy_i)):
+            for lo in range(0, users.shape[0], 50_000):
+                yield [event(name, "user", f"u{u}", target=f"i{i}")
+                       for u, i in zip(users[lo:lo + 50_000].tolist(),
+                                       items[lo:lo + 50_000].tolist())]
+        for lo in range(0, TPL_RATES, 50_000):
+            yield [event("rate", "user", f"u{u}", {"rating": r}, f"i{i}")
+                   for u, i, r in zip(rate_u[lo:lo + 50_000].tolist(),
+                                      rate_i[lo:lo + 50_000].tolist(),
+                                      rating[lo:lo + 50_000].tolist())]
+        yield [event("view", "user", f"v{u}", target=f"i{i}")
+               for u, i in zip(visit_u.tolist(), visit_i.tolist())]
+        yield [event("$set", "constraint", "unavailableItems",
+                     {"items": [f"i{i}" for i in unavailable.tolist()]}),
+               event("$set", "constraint", "weightedItems", {"weights": [
+                   {"items": [f"i{i}" for i in zero.tolist()],
+                    "weight": 0.0},
+                   {"items": [f"i{i}" for i in boost.tolist()],
+                    "weight": 1.5}]})]
+
+    seen = [set() for _ in range(TPL_USERS)]
+    for users, items in ((view_u, view_i), (buy_u, buy_i)):
+        for u, i in zip(users.tolist(), items.tolist()):
+            seen[u].add(f"i{i}")
+    truth = {"item_cat": item_cat, "seen": seen,
+             "unavailable": {f"i{i}" for i in unavailable.tolist()},
+             "zero": {f"i{i}" for i in zero.tolist()},
+             "queries": [f"i{i}" for i in queries],
+             "n_events": (TPL_USERS + N_ITEMS + TPL_VIEWS + TPL_BUYS
+                          + TPL_RATES + 2)}
+    return chunks, truth
+
+
+def _plan_points(seed: int):
+    """NB_USERS + NB_HELD_OUT points: plan ids 1.0..4.0, three attribute
+    counts whose proportions depend on the plan."""
+    rng = np.random.default_rng(seed + 12)
+    y = rng.integers(0, NB_CLASSES, NB_USERS + NB_HELD_OUT)
+    x = rng.poisson(NB_RATES[y]).astype(np.float64)
+    return y.astype(np.float64) + 1.0, x
+
+
+def _write_templates_data(store, seed: int):
+    """Both apps through ``pio app new``, their events through
+    ``store.write``; returns the shop's truth, the held-out points and
+    the write's numbers."""
+    for app in (TPL_APP, NB_APP):
+        if cli.main(["app", "new", app]) != 0:
+            raise AssertionError(f"pio app new {app} failed")
+    apps = store.get_meta_data_apps()
+    shop_id, plans_id = (apps.get_by_name(a).id for a in (TPL_APP, NB_APP))
+    chunks, truth = _template_events(seed)
+    t0 = time.perf_counter()
+    n_shop = 0
+    for chunk in chunks():
+        store_mod.write(chunk, shop_id, storage=store)
+        n_shop += len(chunk)
+    shop_s = time.perf_counter() - t0
+    if n_shop != truth["n_events"]:
+        raise AssertionError(f"wrote {n_shop} shop events, want "
+                             f"{truth['n_events']}")
+    labels, x = _plan_points(seed)
+    t_clock = _dt.datetime(2024, 2, 1, tzinfo=_dt.timezone.utc)
+    t0 = time.perf_counter()
+    for lo in range(0, NB_USERS, 50_000):
+        store_mod.write([Event(
+            event="$set", entity_type="user", entity_id=f"p{k}",
+            properties=DataMap({"plan": labels[k], "attr0": x[k, 0],
+                                "attr1": x[k, 1], "attr2": x[k, 2]}),
+            event_time=t_clock + _dt.timedelta(seconds=k))
+            for k in range(lo, min(lo + 50_000, NB_USERS))],
+            plans_id, storage=store)
+    plans_s = time.perf_counter() - t0
+    env = {"PIO_FS_BASEDIR": os.environ["PIO_FS_BASEDIR"]}
+    for app_id, want in ((shop_id, n_shop), (plans_id, NB_USERS)):
+        got = _count_events(env, app_id)
+        if got != want:
+            raise AssertionError(f"app {app_id} holds {got} events, want "
+                                 f"{want}")
+    held = (labels[NB_USERS:], x[NB_USERS:])
+    out = {"shop_events": n_shop, "shop_write_s": shop_s,
+           "shop_events_per_s": n_shop / shop_s, "plan_events": NB_USERS,
+           "plans_write_s": plans_s, "plans_events_per_s": NB_USERS / plans_s}
+    print(f"templates: store.write of {n_shop} shop events in {shop_s:.2f} "
+          f"s ({n_shop / shop_s:.0f} events/s) and {NB_USERS} plan $sets "
+          f"in {plans_s:.2f} s, counted with sqlite3", flush=True)
+    return truth, held, out
+
+
+def _template_train(work: str, store, name: str, variant: dict,
+                    want_launches: int):
+    """``pio train`` of one template from an engine.json in its own
+    directory; kernel A must launch ``want_launches`` times. Returns the
+    engine directory, the stored row, the model blob's models and the
+    train's numbers."""
+    engine_dir = os.path.join(work, f"{name}_engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    instances = store.get_meta_data_engine_instances()
+    before = {r.id for r in instances.get_all()}
+    solve.reset_launches()               # this template's train starts
+    topk_fused.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--engine-dir", engine_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = solve.launches            # ... and ends here
+    if rc != 0:
+        raise AssertionError(f"pio train of {name} exited {rc}")
+    if launches != want_launches or topk_fused.launches:
+        raise AssertionError(
+            f"{name}: solve_gj launched {launches} times (want "
+            f"{want_launches}), topk_fused {topk_fused.launches}")
+    (row,) = [r for r in instances.get_all() if r.id not in before]
+    if row.status != "COMPLETED":
+        raise AssertionError(f"{name}: train left the instance "
+                             f"{row.status}")
+    models = model_io.deserialize_models(
+        store.get_model_data_models().get(row.id).models)
+    phases = {k[len("phase_"):-len("_s")]: float(v)
+              for k, v in row.runtime_conf.items()
+              if k.startswith("phase_")}
+    return engine_dir, row, models, {"wall_s": wall, "phases_s": phases,
+                                     "solve_gj_launches": launches}
+
+
+def _template_serve(engine_dir: str, iid: str, bodies):
+    """``pio deploy`` of the instance in a thread, ``bodies`` POSTed in
+    sequence on one connection, ``pio undeploy``. Nothing may launch a
+    kernel: these templates score on the host, as the reference does."""
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    port, rcs = _free_port(), []
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        solve.reset_launches()           # the template's deploy starts
+        topk_fused.reset_launches()
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            iid, "--ip", "127.0.0.1", "--port", str(port)])), daemon=True)
+        deploy.start()
+        ready_s = _wait_ready(port, deploy.is_alive)
+        c = _Client(port)
+        try:
+            answers = [c.call("POST", "/queries.json", b) for b in bodies]
+        finally:
+            c.close()
+        (api,) = apis
+        stats = api.handle("GET", "/")[1]
+        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                     str(port)]) != 0:
+            raise AssertionError("pio undeploy failed")
+        deploy.join(timeout=60)
+    if rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}")
+    if solve.launches or topk_fused.launches or topk_fused.merge_launches:
+        raise AssertionError("a template's serving path launched a kernel")
+    bad = [(s, p) for s, p, _t in answers if s != 200 or p.get("degraded")]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers failed or degraded: "
+                             f"{bad[:3]}")
+    p50, p99 = _pct([t for _s, _p, t in answers])
+    return [p for _s, p, _t in answers], api, {
+        "ready_s": ready_s, "query_ms": {"p50": p50, "p99": p99,
+                                         "n": len(answers)},
+        "degradedCount": stats["degradedCount"]}
+
+
+def _gj_bodies(per: dict) -> dict:
+    """Kernel A's mean device time per launch (over both half-steps'
+    shapes) and its launch count in a profile."""
+    rows = [(us, n) for key, (us, n) in per.items() if "gj_" in key]
+    if not rows:
+        raise AssertionError("the profiler recorded no solve_gj kernel")
+    us, n = rows[0]
+    return {"mean_body_ms": us / n / 1e3, "profiled_launches": n}
+
+
+def _retrain_profiled(algo, ctx, td, stored, fields, name: str):
+    """The template's train again from the same seed, under
+    torch.profiler: its factors must equal the stored model's bit for
+    bit; returns kernel A's bodies and the train's idle share."""
+    trained = []
+    per, wall = _device_profile(lambda: trained.append(algo.train(ctx, td)))
+    for f in fields:
+        if getattr(trained[-1], f).tobytes() != getattr(stored, f).tobytes():
+            raise AssertionError(f"{name}: a second train from the seed "
+                                 f"gave other {f}")
+    busy_ms = sum(us for us, _n in per.values()) / 1e3
+    return {**_gj_bodies(per), "profiled_train_ms": wall * 1e3,
+            "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / (wall * 1e3)}
+
+
+def _one_iteration_card_vs_cpu(coo, n_users: int, n_items: int,
+                               params: dict, dev: torch.device):
+    """One implicit iteration on the card (kernel A) and on the CPU (its
+    plain version) from one seed; the card's two half-steps are captured
+    and held against the plain sweep bit for bit, then timed."""
+    captured = []
+
+    def capture(fn):
+        def run(A, b, reg):
+            x = fn(A, b, reg)
+            captured.append(tuple(t.clone() for t in (A, b, reg, x)))
+            return x
+        return run
+
+    kw = dict(rank=params["rank"], iterations=1, lambda_=params["lambda"],
+              alpha=1.0, seed=params["seed"])
+    data = als.prepare_ratings(*coo, n_users=n_users, n_items=n_items,
+                               on_device=True, device=dev)
+    with _wrapped((als, "solve_factors", capture)):
+        U, V = als.train_implicit(data, device=dev, **kw)
+    torch.cuda.synchronize()
+    host = als.prepare_ratings(*coo, n_users=n_users, n_items=n_items)
+    CU, CV = als.train_implicit(host, device="cpu", **kw)
+    errs = {}
+    for side, got, want in (("U", U, CU), ("V", V, CV)):
+        g, w = got.cpu().numpy(), want.numpy()
+        diff = np.abs(g - w)
+        errs[side] = {"max_abs_err": float(diff.max()),
+                      "max_rel_err": float((diff / np.maximum(
+                          np.abs(w), 1e-30)).max())}
+        if not np.allclose(g, w, rtol=ITER_RTOL, atol=ITER_ATOL):
+            raise AssertionError(
+                f"one implicit iteration: card {side} != CPU {side} beyond "
+                f"rtol {ITER_RTOL} / atol {ITER_ATOL}: {errs[side]}")
+    rows = []
+    for (A, b, reg, x), side in zip(captured, ("users", "items")):
+        p = solve.solve_gj_plain(A, b, reg)
+        same = _bitwise_same(x, p)
+        if not bool(same.all()):
+            raise AssertionError(f"solve_gj != plain on the implicit "
+                                 f"{side} half-step: "
+                                 f"{int((~same).sum())} differ")
+        rows.append({**_solve_row(f"implicit {side}", A, b, reg),
+                     "max_abs_err": float((x - p).abs().max())})
+    return errs, rows
+
+
+def _instantiate(engine, variant: dict):
+    """The data source and the algorithm of an engine.json variant."""
+    ds, _prep, (algo,), _serving = engine._instantiate(
+        engine.engine_params_from_json(variant))
+    return ds, algo
+
+
+def _coo(algo, td):
+    """The COO ratings a template's train hands ``prepare_ratings``."""
+    user_vocab = BiMap.string_int(td.users.keys())
+    item_vocab = BiMap.string_int(td.items.keys())
+    ratings = algo._ratings(td, user_vocab, item_vocab)
+    return ((np.array([u for u, _ in ratings], dtype=np.int32),
+             np.array([i for _, i in ratings], dtype=np.int32),
+             np.array(list(ratings.values()), dtype=np.float32)),
+            len(user_vocab), len(item_vocab))
+
+
+def _run_similarproduct(work, store, truth, dev):
+    params = {"rank": TPL_RANK, "numIterations": TPL_ITERS,
+              "lambda": 0.01, "seed": 3}
+    variant = {"id": "smoke-similarproduct",
+               "engineFactory": "predictionio_tpu.models.similarproduct."
+                                "engine:SimilarProductEngine",
+               "datasource": {"params": {"appName": TPL_APP}},
+               "algorithms": [{"name": "als", "params": params}]}
+    engine_dir, row, (model,), train = _template_train(
+        work, store, "similarproduct", variant, 2 * TPL_ITERS)
+    ctx = WorkflowContext(storage=store)
+    ds, algo = _instantiate(SimilarProductEngine(), variant)
+    td = ds.read_training(ctx)
+    train.update(_retrain_profiled(algo, ctx, td, model,
+                                   ("product_features",), "similarproduct"))
+    coo, n_users, n_items = _coo(algo, td)
+    errs, rows = _one_iteration_card_vs_cpu(coo, n_users, n_items, params,
+                                            dev)
+    bodies = [{"items": [q], "num": 10} for q in truth["queries"]]
+    answers, _api, serve = _template_serve(engine_dir, row.id, bodies)
+    same = total = 0
+    for q, ans in zip(truth["queries"], answers):
+        items = [s["item"] for s in ans["itemScores"]]
+        if not items or len(items) > 10 or q in items:
+            raise AssertionError(f"similar to {q}: {ans}")
+        cat = truth["item_cat"][int(q[1:])]
+        same += sum(truth["item_cat"][int(i[1:])] == cat for i in items)
+        total += len(items)
+    share = same / total
+    if share < 0.5:
+        raise AssertionError(f"similar-product: {share:.3f} of the answers "
+                             "share the query item's category (want 0.5)")
+    out = {"users": n_users, "items": n_items, "ratings": len(coo[0]),
+           "train": train, "one_iteration_vs_cpu": errs,
+           "same_category_share": share, "serve": serve}
+    return out, rows
+
+
+def _run_ecommerce(work, store, truth, dev):
+    params = {"appName": TPL_APP, "unseenOnly": True,
+              "seenEvents": ["buy", "view"], "similarEvents": ["view"],
+              "rank": TPL_RANK, "numIterations": TPL_ITERS,
+              "lambda": 0.01, "seed": 3, "weightedItems": True}
+    variant = {"id": "smoke-ecommerce",
+               "engineFactory": "predictionio_tpu.models.ecommerce.engine:"
+                                "ECommerceEngine",
+               "datasource": {"params": {"appName": TPL_APP}},
+               "algorithms": [{"name": "ecomm", "params": params}]}
+    engine_dir, row, (model,), train = _template_train(
+        work, store, "ecommerce", variant, 2 * TPL_ITERS)
+    ctx = WorkflowContext(storage=store)
+    ds, algo = _instantiate(ECommerceEngine(), variant)
+    td = ds.read_training(ctx)
+    train.update(_retrain_profiled(
+        algo, ctx, td, model, ("user_features", "product_features"),
+        "ecommerce"))
+    rng = np.random.default_rng(TPL_QUERIES)
+    users = [f"u{u}" for u in rng.choice(TPL_USERS, TPL_QUERIES
+                                         - TPL_VISITORS // 4, replace=False)]
+    visitors = [f"v{v}" for v in range(TPL_VISITORS // 4)]
+    answers, _api, serve = _template_serve(
+        engine_dir, row.id, [{"user": u, "num": 10}
+                             for u in users + visitors])
+    hidden = truth["unavailable"] | truth["zero"]
+    for user, ans in zip(users + visitors, answers):
+        items = {s["item"] for s in ans["itemScores"]}
+        if not items:
+            raise AssertionError(f"e-commerce: {user} got no answer")
+        if user[0] == "u" and items & truth["seen"][int(user[1:])]:
+            raise AssertionError(f"e-commerce: {user} was offered items "
+                                 "they viewed or bought")
+        if items & hidden:
+            raise AssertionError(f"e-commerce: {user} was offered "
+                                 f"{sorted(items & hidden)}, unavailable "
+                                 "or weighted 0")
+    out = {"users": len(model.user_vocab), "items": len(model.item_vocab),
+           "train": train, "serve": serve,
+           "queries": {"known_users": len(users),
+                       "visitors": len(visitors)}}
+    return out
+
+
+def _run_classification(work, store, held, dev):
+    variant = {"id": "smoke-classification",
+               "engineFactory": "predictionio_tpu.models.classification."
+                                "engine:ClassificationEngine",
+               "datasource": {"params": {"appName": NB_APP}},
+               "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}]}
+    engine_dir, row, (model,), train = _template_train(
+        work, store, "classification", variant, 0)
+    ds, _algo = _instantiate(ClassificationEngine(), variant)
+    td = ds.read_training(WorkflowContext(storage=store))
+    classes, y = td.encode_labels()
+    ref = naive_bayes.train(td.features_array(), y, lambda_=1.0,
+                            n_classes=len(classes), device="cpu")
+    rel = {}
+    for f in ("pi", "theta"):
+        got, want = getattr(model.nb, f), getattr(ref, f).numpy()
+        rel[f] = float((np.abs(got - want) / np.abs(want)).max())
+        if rel[f] > NB_RTOL:
+            raise AssertionError(f"NB {f} on the card vs the CPU: max "
+                                 f"relative error {rel[f]} > {NB_RTOL}")
+    labels, x = held
+    answers, api, serve = _template_serve(
+        engine_dir, row.id, [{"features": row_x.tolist()} for row_x in x])
+    served_on = api.models[0].nb.pi.device.type
+    if served_on != dev.type:
+        raise AssertionError(f"NB served on {served_on}, not {dev.type}")
+    acc = float(np.mean([a["label"] == lbl
+                         for a, lbl in zip(answers, labels.tolist())]))
+    if acc < 0.9:
+        raise AssertionError(f"NB deploy accuracy {acc} < 0.9 on "
+                             f"{len(labels)} held-out points")
+    return {"points": len(td.labeled_points), "classes": len(classes),
+            "train": train, "pi_theta_max_rel_err_vs_cpu": rel,
+            "held_out_accuracy": acc, "serve": serve}
+
+
+def phase_templates(work: str, seed: int, dev: torch.device):
+    """The classification, similar-product and e-commerce templates
+    through the port's CLI on the card, on apps filled from ``seed``;
+    returns kernel A's launches in the two ALS trains, its rows on the
+    implicit half-steps and the phase's numbers."""
+    env = _store_env(work)
+    t_phase = time.perf_counter()
+    store = storage_mod.Storage(env=env)
+    truth, held, write = _write_templates_data(store, seed)
+    sim_out, rows = _run_similarproduct(work, store, truth, dev)
+    ecom_out = _run_ecommerce(work, store, truth, dev)
+    cls_out = _run_classification(work, store, held, dev)
+    out = {"write": write, "similarproduct": sim_out,
+           "ecommerce": ecom_out, "classification": cls_out,
+           "phase_s": time.perf_counter() - t_phase}
+    for name, o in (("similarproduct", sim_out), ("ecommerce", ecom_out),
+                    ("classification", cls_out)):
+        t, s = o["train"], o["serve"]
+        body = (f"; kernel A {t['solve_gj_launches']} launches, mean "
+                f"body {t['mean_body_ms']:.4f} ms, the profiled retrain "
+                f"idle {t['idle_share']:.4f} and bit-identical"
+                if "mean_body_ms" in t else "; no kernel A")
+        print(f"templates: {name}: pio train {t['wall_s']:.2f} s (" + ", "
+              .join(f"{k} {v:.3f} s" for k, v in t["phases_s"].items())
+              + f"){body}; pio deploy ready in {s['ready_s']:.3f} s; "
+              f"{s['query_ms']['n']} sequential queries p50 "
+              f"{s['query_ms']['p50']:.3f} ms p99 "
+              f"{s['query_ms']['p99']:.3f} ms; none degraded", flush=True)
+    print(f"templates: similar-product: {sim_out['same_category_share']:.4f}"
+          " of the top-10 answers share the query item's category (chance "
+          f"{1 / TPL_CATEGORIES}); one implicit iteration on the card vs "
+          f"the CPU: {sim_out['one_iteration_vs_cpu']}", flush=True)
+    print(f"templates: e-commerce: {ecom_out['queries']} answered with no "
+          "seen, unavailable or weight-0 item; classification: held-out "
+          f"accuracy {cls_out['held_out_accuracy']:.4f}, pi / theta vs the "
+          f"CPU max relative error {cls_out['pi_theta_max_rel_err_vs_cpu']}",
+          flush=True)
+    for row_a in rows:
+        print(f"templates: solve_gj {row_a['shape']} n={row_a['n']} "
+              f"r={row_a['r']}: == plain; call {row_a['ms']:.4f} ms (device "
+              f"body {row_a['body_ms']} ms), plain {row_a['plain_ms']:.4f} "
+              f"ms, torch.linalg.solve {row_a['library_ms']:.4f} ms, bound "
+              f"{row_a['bound_ms']:.5f} ms ({row_a['bound_by']})",
+              flush=True)
+    print("templates: " + json.dumps(out), flush=True)
+    return (sim_out["train"]["solve_gj_launches"],
+            ecom_out["train"]["solve_gj_launches"], rows, out)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1634,6 +2187,8 @@ def main(argv=None) -> int:
          qs_out) = phase_quickstart(work, args.seed, dev)
         eval_launches, eval_solve_rows, eval_out = phase_eval(
             work, args.seed, dev, n_app_events)
+        (sim_launches, ecom_launches, tpl_solve_rows,
+         tpl_out) = phase_templates(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1691,6 +2246,10 @@ def main(argv=None) -> int:
         "eval_launches": eval_launches,
         "eval_by_rank": eval_solve_rows,
         "eval": eval_out,
+        "similarproduct_launches": sim_launches,
+        "ecommerce_launches": ecom_launches,
+        "implicit_by_side": tpl_solve_rows,
+        "templates": tpl_out,
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

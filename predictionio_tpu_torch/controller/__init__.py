@@ -5,7 +5,9 @@ from predictionio_tpu_torch.controller.base import (
     EmptyParams, Params, Preparator, SanityCheck, Serving,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
-from predictionio_tpu_torch.controller.identity import FirstServing
+from predictionio_tpu_torch.controller.identity import (
+    AverageServing, FirstServing, IdentityPreparator,
+)
 from predictionio_tpu_torch.controller.metric import (
     AverageMetric, Metric, OptionAverageMetric, OptionStdevMetric,
     StdevMetric, SumMetric, ZeroMetric,
@@ -17,7 +19,8 @@ from predictionio_tpu_torch.controller.evaluation import (
 __all__ = [
     "Algorithm", "DataSource", "EmptyActualResult", "EmptyEvaluationInfo",
     "EmptyParams", "Params", "Preparator", "SanityCheck", "Serving",
-    "Engine", "EngineParams", "FirstServing",
+    "Engine", "EngineParams",
+    "AverageServing", "FirstServing", "IdentityPreparator",
     "AverageMetric", "Metric", "OptionAverageMetric", "OptionStdevMetric",
     "StdevMetric", "SumMetric", "ZeroMetric",
     "EngineParamsGenerator", "Evaluation", "MetricEvaluator", "MetricScores",

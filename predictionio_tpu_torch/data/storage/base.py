@@ -8,7 +8,8 @@ is a named stream of its own within the app; ``Events`` stores and
 queries them; an ``EngineInstance`` row names a train run and its
 params; a ``Model`` row holds that run's serialized model blob; an
 ``EvaluationInstance`` row names a ``pio eval`` run and holds its
-results. Property aggregation waits for the slice that uses it.
+results. ``Events.aggregate_properties`` folds an entity type's
+``$set``/``$unset``/``$delete`` events into current properties.
 """
 
 from __future__ import annotations
@@ -21,6 +22,10 @@ import string
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence
 
+from predictionio_tpu_torch.data.aggregate import (
+    EVENT_NAMES, aggregate_properties, aggregate_properties_single,
+)
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 
 
@@ -225,6 +230,56 @@ class Events(abc.ABC):
         """Query events, eventTime-ascending (descending when reversed_);
         limit None or -1 means all; filters are conjunctive. Pass
         ``target_entity_type=NONE_FILTER`` for "no target entity"."""
+
+    # -- aggregation (LEvents.scala:215-302) --------------------------------
+    def aggregate_properties(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        entity_type: str = "",
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Every entity of ``entity_type`` with its current properties;
+        with ``required``, only entities holding all of those keys."""
+        if not entity_type:
+            raise ValueError("entity_type is required for aggregate_properties")
+        events = self.find(
+            app_id=app_id, channel_id=channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type,
+            event_names=list(EVENT_NAMES),
+        )
+        result = aggregate_properties(events)
+        if required:
+            req = list(required)
+            result = {
+                k: v for k, v in result.items() if all(r in v for r in req)
+            }
+        return result
+
+    def aggregate_properties_of_entity(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        entity_type: str = "",
+        entity_id: str = "",
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+    ) -> Optional[PropertyMap]:
+        """One entity's current properties, or None."""
+        if not entity_type or not entity_id:
+            raise ValueError(
+                "entity_type and entity_id are required for "
+                "aggregate_properties_of_entity")
+        events = self.find(
+            app_id=app_id, channel_id=channel_id,
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type, entity_id=entity_id,
+            event_names=list(EVENT_NAMES),
+        )
+        return aggregate_properties_single(events)
 
 
 #: the reference's Some(None) target-entity filter: "only events with NO

@@ -1,6 +1,11 @@
-"""Event store access for engines (port of the in-core training read of
-``predictionio_tpu/data/store.py``).
+"""Event store access for engines (port of the in-core training read and
+the engine lookups of ``predictionio_tpu/data/store.py``).
 
+- :func:`find`, :func:`find_by_entity`, :func:`find_target_ids` — Event
+  reads by app name (PEventStore.find, LEventStore.findByEntity), the
+  templates' training reads and their live serve-time lookups;
+- :func:`aggregate_properties`, :func:`extract_entity_map` — entities'
+  current ``$set`` properties (PEventStore.aggregateProperties);
 - :func:`find_columnar` — one pass from the event store to **columnar
   numpy buffers** with vocab-encoded ids (the training read), through
   the backend's columnar ``read_columns`` when it has one (SQLite) and
@@ -18,13 +23,15 @@ train in-core behind the caller's back.
 
 from __future__ import annotations
 
+import datetime as _dt
 import time as _time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.data.bimap import BiMap, EntityMap
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 
@@ -48,6 +55,134 @@ def _resolve_app(app_name: str, channel_name: Optional[str],
             f"channel {channel_name!r}: event channels are not ported yet; "
             "the port reads an app's default channel")
     return app.id, None
+
+
+def find(
+    app_name: str,
+    channel_name: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    entity_type: Optional[str] = None,
+    entity_id: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Optional[str] = None,
+    target_entity_id: Optional[str] = None,
+    limit: Optional[int] = None,
+    storage: Optional[Storage] = None,
+) -> Iterator[Event]:
+    """Read events by app name (PEventStore.find, PEventStore.scala:59-97)."""
+    storage = storage or get_storage()
+    app_id, channel_id = _resolve_app(app_name, channel_name, storage)
+    return storage.get_events().find(
+        app_id=app_id, channel_id=channel_id,
+        start_time=start_time, until_time=until_time,
+        entity_type=entity_type, entity_id=entity_id,
+        event_names=event_names,
+        target_entity_type=target_entity_type,
+        target_entity_id=target_entity_id,
+        limit=limit,
+    )
+
+
+def find_target_ids(
+    app_name: str,
+    entity_type: str,
+    entity_id: str,
+    channel_name: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Optional[str] = None,
+    storage: Optional[Storage] = None,
+) -> List[str]:
+    """Target entity ids of one entity's matching events, the serve-time
+    seen-items lookup. A backend with a columnar ``find_target_ids``
+    answers it directly; the others through :func:`find_by_entity`."""
+    storage = storage or get_storage()
+    events_dao = storage.get_events()
+    if hasattr(events_dao, "find_target_ids"):
+        app_id, channel_id = _resolve_app(app_name, channel_name, storage)
+        return events_dao.find_target_ids(
+            app_id, channel_id, entity_type=entity_type,
+            entity_id=entity_id, event_names=event_names,
+            target_entity_type=target_entity_type)
+    return [e.target_entity_id for e in find_by_entity(
+        app_name, entity_type, entity_id, channel_name=channel_name,
+        event_names=event_names, target_entity_type=target_entity_type,
+        storage=storage) if e.target_entity_id is not None]
+
+
+def find_by_entity(
+    app_name: str,
+    entity_type: str,
+    entity_id: str,
+    channel_name: Optional[str] = None,
+    event_names: Optional[Sequence[str]] = None,
+    target_entity_type: Optional[str] = None,
+    target_entity_id: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    limit: Optional[int] = None,
+    latest: bool = True,
+    storage: Optional[Storage] = None,
+) -> List[Event]:
+    """One entity's events, newest first unless ``latest`` is False
+    (LEventStore.findByEntity, LEventStore.scala:61-115)."""
+    storage = storage or get_storage()
+    app_id, channel_id = _resolve_app(app_name, channel_name, storage)
+    return list(storage.get_events().find(
+        app_id=app_id, channel_id=channel_id,
+        start_time=start_time, until_time=until_time,
+        entity_type=entity_type, entity_id=entity_id,
+        event_names=event_names,
+        target_entity_type=target_entity_type,
+        target_entity_id=target_entity_id,
+        limit=limit, reversed_=latest,
+    ))
+
+
+def aggregate_properties(
+    app_name: str,
+    entity_type: str,
+    channel_name: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    required: Optional[Sequence[str]] = None,
+    storage: Optional[Storage] = None,
+) -> Dict[str, PropertyMap]:
+    """PEventStore.aggregateProperties (PEventStore.scala:99-120)."""
+    storage = storage or get_storage()
+    app_id, channel_id = _resolve_app(app_name, channel_name, storage)
+    return storage.get_events().aggregate_properties(
+        app_id=app_id, channel_id=channel_id, entity_type=entity_type,
+        start_time=start_time, until_time=until_time, required=required,
+    )
+
+
+def extract_entity_map(
+    app_name: str,
+    entity_type: str,
+    extract,
+    channel_name: Optional[str] = None,
+    start_time: Optional[_dt.datetime] = None,
+    until_time: Optional[_dt.datetime] = None,
+    required: Optional[Sequence[str]] = None,
+    storage: Optional[Storage] = None,
+) -> EntityMap:
+    """An entity type's aggregated properties, each turned into an object
+    by ``extract(property_map)`` (PEvents.extractEntityMap,
+    PEvents.scala:134-165). A failing extraction names its entity."""
+    props = aggregate_properties(
+        app_name, entity_type, channel_name=channel_name,
+        start_time=start_time, until_time=until_time, required=required,
+        storage=storage)
+    id_to_data = {}
+    for eid, dm in props.items():
+        try:
+            id_to_data[eid] = extract(dm)
+        except Exception as e:
+            raise StoreError(
+                f"Failed to extract entity from DataMap of entityId "
+                f"{eid!r}: {e}") from e
+    return EntityMap(id_to_data)
 
 
 @dataclass

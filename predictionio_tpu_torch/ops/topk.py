@@ -14,6 +14,12 @@ chunks whose fp32 score matrix stays under :data:`CHUNK_BYTES`: ML-20M's
 whole (138,493 x 26,744) matrix is 14.8 GB, and the sort's buffers would
 triple it. Each row is scored and ranked on its own, so chunking changes
 no result.
+
+The item-scoring templates (similar-product, e-commerce) serve on the
+host, as the reference does: :func:`host_masked_topk` and
+:func:`host_masked_topk_batch` are its numpy, copied (exact class).
+:func:`cosine_topk` is the reference's device cosine scorer in torch
+(tolerance class: the norms and the product round in another order).
 """
 
 from __future__ import annotations
@@ -106,3 +112,38 @@ def host_topk(scores, k: int):
     ties = np.flatnonzero(scores == kth)[:k - strict.size]
     idx = np.concatenate([strict, ties])
     return scores[idx], idx
+
+
+def host_masked_topk(factors, query_vec, mask, k: int, weights=None):
+    """Host serving for the item-scoring templates: one BLAS matvec,
+    optional per-item score multipliers (the weighted-items rule), -inf
+    outside the candidate mask, then :func:`host_topk`. Callers drop
+    non-finite and non-positive entries when building results."""
+    scores = np.asarray(factors) @ np.asarray(query_vec)
+    if weights is not None:
+        scores = scores * np.asarray(weights)
+    scores = np.where(np.asarray(mask), scores, -np.inf)
+    return host_topk(scores, k)
+
+
+def host_masked_topk_batch(factors, query_vecs, masks, ks, weights=None):
+    """Batched :func:`host_masked_topk`: ONE (b, r) x (r, n_items) BLAS
+    matmul for a micro-batch, then each row's mask, weights and top-k at
+    its own k. Returns a list of (vals, idx) rows."""
+    scores = np.asarray(query_vecs) @ np.asarray(factors).T
+    if weights is not None:
+        scores = scores * np.asarray(weights)[None, :]
+    return [host_topk(np.where(np.asarray(mask), row, -np.inf), k)
+            for row, mask, k in zip(scores, masks, ks)]
+
+
+def cosine_topk(query_vec: torch.Tensor, item_factors: torch.Tensor,
+                mask=None, k: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cosine similarity of every item to ``query_vec`` (norms floored at
+    1e-12), ineligible items at NEG_INF, stable top-k on the factors'
+    device. Returns (values, int32 indices)."""
+    qn = query_vec / torch.clamp(torch.linalg.vector_norm(query_vec),
+                                 min=1e-12)
+    norms = torch.linalg.vector_norm(item_factors, dim=1)
+    scores = (item_factors @ qn) / torch.clamp(norms, min=1e-12)
+    return stable_topk(_masked(scores, mask), k)

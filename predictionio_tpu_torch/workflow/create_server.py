@@ -10,6 +10,15 @@ else the device policy: the card) and answers:
   POST /queries.json -> supplement -> predict -> serve, micro-batched
   POST /stop         -> shut the server down
 
+Before its models are laid out, every algorithm is bound
+(``bind_serving``) to a context that carries the server's storage, so an
+engine that reads the event store at predict time (the e-commerce
+template's live business rules) reads the store it was deployed from. A
+side-channel lookup that fails answers without its rule and the response
+carries ``"degraded": true``; ``GET /`` counts them in ``degradedCount``
+(batch-granular on the batched path: a tainted flush flags every answer
+in it, so the count is an upper bound on the queries affected).
+
 Multi-tenancy, fold-in, partitions, plugins, feedback, AOT, SLOs and the
 metrics history of the JAX server arrive in later slices.
 """
@@ -28,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch import knobs
+from predictionio_tpu_torch.common import resilience
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.ops import quant as serve_quant
@@ -35,6 +45,7 @@ from predictionio_tpu_torch.serving import (
     MicroBatcher, ServerSaturated, batch_capable, protocol,
 )
 from predictionio_tpu_torch.workflow import json_extractor, model_io
+from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.workflow_utils import get_engine
 
 logger = logging.getLogger("predictionio_tpu_torch.server")
@@ -141,6 +152,9 @@ class QueryAPI:
         self.config = config or ServerConfig()
         self.storage = storage or get_storage()
         self.device = device_mod.resolve(self.config.device)
+        #: the context algorithms read the event store through at
+        #: predict time (bind_serving)
+        self.ctx = WorkflowContext(storage=self.storage, device=self.device)
         self._engine_override = engine
         self._lock = threading.Lock()
         self._stop_requested = threading.Event()
@@ -148,6 +162,9 @@ class QueryAPI:
         self._batcher: Optional[MicroBatcher] = None
         self._quant_state: Optional[Dict[str, Any]] = None
         self.request_count = 0
+        #: responses flagged degraded (an upper bound on the queries
+        #: affected when batching is on)
+        self.degraded_count = 0
         self.avg_serving_sec = 0.0
         self.last_serving_sec = 0.0
         self.start_time = _utcnow()
@@ -169,6 +186,8 @@ class QueryAPI:
             raise ValueError(f"No model data for EngineInstance {instance.id}")
         models = model_io.deserialize_models(blob.models)
         _, _, algorithms, serving = engine._instantiate(engine_params)
+        for a in algorithms:
+            a.bind_serving(self.ctx)
         with serve_quant.deploy_scope(self.config.serve_quant,
                                       device=self.device):
             models = [a.prepare_serving(m)
@@ -212,11 +231,16 @@ class QueryAPI:
             return None
 
         def flush(queries):
+            # a failed side-channel lookup anywhere in the flush taints
+            # every answer of it: predict_batch does not say which query
+            resilience.reset_degraded()
             supplemented = [serving.supplement(q) for q in queries]
             per_algo = [protocol.predict_batch(a, m, supplemented)
                         for a, m in zip(algorithms, models)]
-            return [serving.serve(q, [col[j] for col in per_algo])
-                    for j, q in enumerate(queries)]
+            served = [serving.serve(q, [col[j] for col in per_algo])
+                      for j, q in enumerate(queries)]
+            degraded = bool(resilience.pop_degraded())
+            return [(p, degraded) for p in served]
 
         return MicroBatcher(
             flush,
@@ -292,6 +316,7 @@ class QueryAPI:
             "requestCount": self.request_count,
             "avgServingSec": self.avg_serving_sec,
             "lastServingSec": self.last_serving_sec,
+            "degradedCount": self.degraded_count,
             "draining": self._draining.is_set(),
             "serverStartTime": _format_time(self.start_time),
             "generation": self.generation,
@@ -339,7 +364,7 @@ class QueryAPI:
             return 400, {"message": str(e)}
         if batcher is not None:
             try:
-                prediction = batcher.submit(query)
+                prediction, degraded = batcher.submit(query)
             except ServerSaturated as e:
                 return 503, {"message": (
                     "serving queue is saturated (admission control); "
@@ -349,11 +374,18 @@ class QueryAPI:
                 return 503, {"message": "server is draining"}, \
                     {"Retry-After": "1"}
         else:
+            resilience.reset_degraded()
             supplemented = serving.supplement(query)
             predictions = [a.predict(m, supplemented)
                            for a, m in zip(algorithms, models)]
             prediction = serving.serve(query, predictions)
+            degraded = bool(resilience.pop_degraded())
         result = json_extractor.to_json_obj(prediction)
+        if degraded:
+            with self._lock:
+                self.degraded_count += 1
+            if isinstance(result, dict):
+                result = {**result, "degraded": True}
         if _has_non_finite(result):
             logger.error("prediction for instance %s contains non-finite "
                          "scores; refusing to serve it", instance.id)

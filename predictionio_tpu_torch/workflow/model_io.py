@@ -5,9 +5,12 @@ A blob is a pickle of the trained models with every array as numpy.
 Loading one that ``pio train`` of the JAX package wrote would, with a
 plain ``pickle.loads``, import ``predictionio_tpu`` — and jax with it.
 :func:`deserialize_models` therefore unpickles with a restricted
-``find_class``: the classes a Recommendation blob holds (ALSModel, BiMap)
-map to the port's twins, which keep the same fields, numpy's array
-reconstruction is allowed, and every other class is refused. The same
+``find_class``: the classes the templates' blobs hold (the
+Recommendation, similar-product and e-commerce models, the
+classification template's Naive Bayes and random-forest models, their
+``Item`` records and BiMap) map to the port's twins, which keep the same
+fields, numpy's array reconstruction is allowed, and every other class
+is refused. The same
 rule makes loading a blob from an untrusted store unable to run code.
 """
 
@@ -22,16 +25,44 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.data.bimap import BiMap
+from predictionio_tpu_torch.models.classification import (
+    nb_algorithm, random_forest,
+)
+from predictionio_tpu_torch.models.ecommerce import (
+    als_algorithm as ecomm_als, engine as ecomm_engine,
+)
 from predictionio_tpu_torch.models.recommendation.als_algorithm import (
     ALSModel, host_f32,
 )
+from predictionio_tpu_torch.models.similarproduct import (
+    als_algorithm as simprod_als, engine as simprod_engine,
+)
+from predictionio_tpu_torch.ops import naive_bayes
 
-#: (module, name) a blob may name -> the port's class or function
-_PORT_CLASSES: Dict[Tuple[str, str], Any] = {}
-for _mod in ("predictionio_tpu", "predictionio_tpu_torch"):
-    _PORT_CLASSES[(f"{_mod}.models.recommendation.als_algorithm",
-                   "ALSModel")] = ALSModel
-    _PORT_CLASSES[(f"{_mod}.data.bimap", "BiMap")] = BiMap
+#: a blob's class, by module below the package, -> the port's class
+_TEMPLATE_CLASSES = {
+    ("models.recommendation.als_algorithm", "ALSModel"): ALSModel,
+    ("data.bimap", "BiMap"): BiMap,
+    ("models.classification.nb_algorithm", "ClassificationModel"):
+        nb_algorithm.ClassificationModel,
+    ("ops.naive_bayes", "NaiveBayesModel"): naive_bayes.NaiveBayesModel,
+    ("models.classification.random_forest", "RandomForestModel"):
+        random_forest.RandomForestModel,
+    ("models.classification.random_forest", "_FlatTree"):
+        random_forest._FlatTree,
+    ("models.similarproduct.als_algorithm", "ALSModel"):
+        simprod_als.ALSModel,
+    ("models.similarproduct.engine", "Item"): simprod_engine.Item,
+    ("models.ecommerce.als_algorithm", "ECommModel"): ecomm_als.ECommModel,
+    ("models.ecommerce.engine", "Item"): ecomm_engine.Item,
+}
+
+#: (module, name) a blob may name -> the port's class, under the module
+#: paths of both packages
+_PORT_CLASSES: Dict[Tuple[str, str], Any] = {
+    (f"{pkg}.{mod}", name): cls
+    for pkg in ("predictionio_tpu", "predictionio_tpu_torch")
+    for (mod, name), cls in _TEMPLATE_CLASSES.items()}
 
 #: numpy's own array / dtype reconstruction, under its 1.x and 2.x paths
 _NUMPY_GLOBALS = frozenset(
@@ -52,7 +83,8 @@ class _Unpickler(pickle.Unpickler):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"model blob names {module}.{name}, which the port does not "
-            "load (allowed: ALSModel, BiMap and numpy arrays)")
+            "load (allowed: the templates' model classes, BiMap and numpy "
+            "arrays)")
 
 
 def _map_arrays(obj: Any, leaf_p: Callable[[Any], bool],

@@ -73,6 +73,29 @@ EVENT_SLICE = [
     "predictionio_tpu_torch.tools.transfer",
 ]
 
+#: the classification, similar-product and e-commerce templates, with the
+#: store reads, NB, the k-fold splitter and the degraded flag they need
+TEMPLATE_SLICE = [
+    "predictionio_tpu_torch.common.resilience",
+    "predictionio_tpu_torch.data.aggregate",
+    "predictionio_tpu_torch.e2",
+    "predictionio_tpu_torch.e2.evaluation",
+    "predictionio_tpu_torch.models.classification",
+    "predictionio_tpu_torch.models.classification.data_source",
+    "predictionio_tpu_torch.models.classification.engine",
+    "predictionio_tpu_torch.models.classification.nb_algorithm",
+    "predictionio_tpu_torch.models.classification.random_forest",
+    "predictionio_tpu_torch.models.ecommerce",
+    "predictionio_tpu_torch.models.ecommerce.als_algorithm",
+    "predictionio_tpu_torch.models.ecommerce.data_source",
+    "predictionio_tpu_torch.models.ecommerce.engine",
+    "predictionio_tpu_torch.models.similarproduct",
+    "predictionio_tpu_torch.models.similarproduct.als_algorithm",
+    "predictionio_tpu_torch.models.similarproduct.data_source",
+    "predictionio_tpu_torch.models.similarproduct.engine",
+    "predictionio_tpu_torch.ops.naive_bayes",
+]
+
 
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -87,8 +110,9 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 65
+    assert int(names[-1]) == len(names) - 1 >= 83
     assert set(EVENT_SLICE) <= set(names[:-1])
+    assert set(TEMPLATE_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""
@@ -206,12 +230,19 @@ def test_factory_paths_map_to_the_port():
         "predictionio_tpu.models.recommendation.engine.RecommendationEngine")
     assert type(engine).__module__ == \
         "predictionio_tpu_torch.controller.engine"
+    for template, factory in (
+            ("classification", "ClassificationEngine"),
+            ("similarproduct", "SimilarProductEngine"),
+            ("ecommerce", "ECommerceEngine")):
+        engine = workflow_utils.get_engine(
+            f"predictionio_tpu.models.{template}.engine:{factory}")
+        assert engine.data_source_class.__module__ == \
+            f"predictionio_tpu_torch.models.{template}.data_source"
 
 
 @pytest.mark.parametrize("path,missing", [
-    ("predictionio_tpu.models.similarproduct.engine:SimilarProductEngine",
-     "predictionio_tpu_torch.models.similarproduct.engine:"
-     "SimilarProductEngine"),
+    ("predictionio_tpu.examples.dimsum:engine",
+     "predictionio_tpu_torch.examples.dimsum:engine"),
     ("predictionio_tpu.models.recommendation.engine:NoSuchEngine",
      "predictionio_tpu_torch.models.recommendation.engine:NoSuchEngine"),
 ])

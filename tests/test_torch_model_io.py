@@ -2,8 +2,12 @@
 into the PyTorch port without importing jax, anything else is refused,
 als_model_from_numpy builds the same model from plain arrays or trained
 factors of either package, and iteration snapshots ({"U", "V"} npz)
-written by either package resume training in the other."""
+written by either package resume training in the other. The
+classification, similar-product and e-commerce templates' blobs load
+across both ways too."""
 
+import datetime as dt
+import json
 import os
 import pickle
 import subprocess
@@ -212,3 +216,212 @@ def test_snapshots_resume_in_the_other_package(tmp_path, writer):
 def test_snapshot_without_factors_is_refused():
     with pytest.raises(ValueError, match="'U' and 'V'"):
         model_io.factors_from_snapshot({"U": np.zeros((2, 2))})
+
+
+# ---------------------------------------------------------------------------
+# the classification, similar-product and e-commerce templates' blobs
+# ---------------------------------------------------------------------------
+
+_MEM = {
+    "PIO_STORAGE_SOURCES_M_TYPE": "memory",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+}
+
+#: template -> (factory, engine.json algorithms, queries)
+_TEMPLATES = {
+    "classification": (
+        "ClassificationEngine",
+        [{"name": "naive", "params": {"lambda": 1.0}},
+         {"name": "randomforest", "params": {
+             "numClasses": 2, "numTrees": 3, "maxDepth": 3, "seed": 5}}],
+        [{"features": [9.0, 2.0, 1.0]}, {"features": [1.0, 2.0, 9.0]}]),
+    "similarproduct": (
+        "SimilarProductEngine",
+        [{"name": "als", "params": {"rank": 3, "numIterations": 4,
+                                    "seed": 3}}],
+        [{"items": ["i0"], "num": 3}, {"items": ["i1", "i2"], "num": 4,
+                                       "categories": ["odd"]}]),
+    "ecommerce": (
+        "ECommerceEngine",
+        [{"name": "ecomm", "params": {"appName": "BlobApp", "rank": 3,
+                                      "numIterations": 4, "seed": 3,
+                                      "unseenOnly": True,
+                                      "seenEvents": ["buy"]}}],
+        [{"user": "u1", "num": 3}, {"user": "new", "num": 2},
+         {"user": "u2", "num": 4, "categories": ["even"]}]),
+}
+
+
+def _blob_events(event_cls, map_cls):
+    t0 = dt.datetime(2021, 1, 1, tzinfo=dt.timezone.utc)
+
+    def ev(name, etype, eid, props=None, target=None, k=0):
+        return event_cls(event=name, entity_type=etype, entity_id=eid,
+                         target_entity_type="item" if target else None,
+                         target_entity_id=target,
+                         properties=map_cls(props or {}),
+                         event_time=t0 + dt.timedelta(minutes=k))
+
+    out = []
+    for n in range(12):
+        plan = n % 2
+        lo, hi = float(n % 3), 8.0 + n % 3
+        out.append(ev("$set", "user", f"u{n}", {
+            "plan": float(plan), "attr0": hi if plan == 0 else lo,
+            "attr1": 2.0, "attr2": lo if plan == 0 else hi}, k=n))
+    out += [ev("$set", "item", f"i{i}", {"categories": [
+        "even" if i % 2 == 0 else "odd"]}, k=20 + i) for i in range(6)]
+    k = 40
+    for u in range(8):
+        for i in range(6):
+            k += 1
+            match = (u % 2) == (i % 2)
+            out.append(ev("rate", "user", f"u{u}",
+                          {"rating": 5.0 if match else 1.0}, f"i{i}", k))
+            if match:
+                out.append(ev("view", "user", f"u{u}", None, f"i{i}", k))
+    out.append(ev("buy", "user", "u1", None, "i1", k + 1))
+    out.append(ev("view", "user", "new", None, "i0", k + 2))
+    return out
+
+
+def _train_template(pkg, template):
+    """(storage, engine, algorithms, blob) after `run_train` of the
+    template in package ``pkg`` ("jax" or "port") on a memory store."""
+    factory, algorithms, _q = _TEMPLATES[template]
+    if pkg == "jax":
+        from predictionio_tpu.data import store as st_mod
+        from predictionio_tpu.data.datamap import DataMap as map_cls
+        from predictionio_tpu.data.event import Event as event_cls
+        from predictionio_tpu.data.storage import App as app_cls
+        from predictionio_tpu.data.storage import Storage as storage_cls
+        from predictionio_tpu.workflow import core_workflow
+        from predictionio_tpu.workflow.context import WorkflowContext
+        from predictionio_tpu.workflow.workflow_utils import get_engine
+        ctx_kw = {}
+    else:
+        from predictionio_tpu_torch.data import store as st_mod
+        from predictionio_tpu_torch.data.datamap import DataMap as map_cls
+        from predictionio_tpu_torch.data.event import Event as event_cls
+        from predictionio_tpu_torch.data.storage import App as app_cls
+        from predictionio_tpu_torch.data.storage import (
+            Storage as storage_cls,
+        )
+        from predictionio_tpu_torch.workflow import core_workflow
+        from predictionio_tpu_torch.workflow.context import WorkflowContext
+        from predictionio_tpu_torch.workflow.workflow_utils import get_engine
+        ctx_kw = {"device": "cpu"}
+    storage = storage_cls(env=_MEM)
+    app_id = storage.get_meta_data_apps().insert(app_cls(0, "BlobApp",
+                                                         None))
+    storage.get_events().init(app_id)
+    st_mod.write(_blob_events(event_cls, map_cls), app_id, storage=storage)
+    prefix = "predictionio_tpu" if pkg == "jax" else "predictionio_tpu_torch"
+    engine = get_engine(f"{prefix}.models.{template}.engine:{factory}")
+    variant = {"datasource": {"params": {"appName": "BlobApp"}},
+               "algorithms": algorithms}
+    ctx = WorkflowContext(storage=storage, **ctx_kw)
+    iid = core_workflow.run_train(
+        ctx, engine, engine.engine_params_from_json(variant),
+        engine_factory=f"{prefix}.models.{template}.engine:{factory}",
+        params_json=variant)
+    _ds, _p, algos, _s = engine._instantiate(
+        engine.engine_params_from_json(variant))
+    for a in algos:
+        a.bind_serving(ctx)
+    return algos, storage.get_model_data_models().get(iid).models
+
+
+def _answers(algos, models, template):
+    """Each algorithm's predictions for the template's queries, as
+    plain data."""
+    from predictionio_tpu_torch.workflow import json_extractor
+    out = []
+    for algo, model in zip(algos, models):
+        for q in _TEMPLATES[template][2]:
+            query = json_extractor.extract_query(
+                algo.query_class, json.dumps(q).encode())
+            out.append(json_extractor.to_json_obj(algo.predict(model,
+                                                               query)))
+    return out
+
+
+def _leaves(obj):
+    """The model tree's arrays and scalars, in order, with class names."""
+    import dataclasses
+    if dataclasses.is_dataclass(obj):
+        return [type(obj).__name__] + [
+            x for f in dataclasses.fields(obj)
+            for x in _leaves(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj, key=str)
+                for x in [repr(k)] + _leaves(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _leaves(v)]
+    if isinstance(obj, np.ndarray):
+        return [(str(obj.dtype), obj.shape, obj.tobytes())]
+    if isinstance(obj, (BiMap, JBiMap)):
+        return [sorted(obj.to_dict().items())]
+    return [obj]
+
+
+@pytest.mark.parametrize("template", sorted(_TEMPLATES))
+def test_template_blob_of_the_jax_package_loads_into_the_port(
+        monkeypatch, template):
+    monkeypatch.setenv("PIO_TORCH_DEVICE", "cpu")
+    jalgos, blob = _train_template("jax", template)
+    palgos, _pblob = _train_template("port", template)
+    models = model_io.deserialize_models(blob)
+    jmodels = jmodel_io.deserialize_models(blob)
+    for m in models:
+        assert type(m).__module__.startswith("predictionio_tpu_torch.")
+    assert _leaves(models) == _leaves(jmodels)
+    # the port's algorithms serve the JAX package's model as the JAX
+    # package does (host numpy, and NB labels with a clear margin)
+    assert _answers(palgos, models, template) == \
+        _answers(jalgos, jmodels, template)
+
+
+@pytest.mark.parametrize("template", sorted(_TEMPLATES))
+def test_port_template_blob_loads_in_the_jax_package(monkeypatch,
+                                                     template):
+    monkeypatch.setenv("PIO_TORCH_DEVICE", "cpu")
+    palgos, blob = _train_template("port", template)
+    jalgos, _jblob = _train_template("jax", template)
+    models = model_io.deserialize_models(blob)
+    jmodels = jmodel_io.deserialize_models(blob)    # unrestricted loader
+    assert _leaves(models) == _leaves(jmodels)
+    assert _answers(jalgos, jmodels, template) == \
+        _answers(palgos, models, template)
+
+
+def test_template_blobs_load_with_jax_blocked(tmp_path):
+    paths = []
+    for template in sorted(_TEMPLATES):
+        _algos, blob = _train_template("jax", template)
+        paths.append(str(tmp_path / f"{template}.blob"))
+        with open(paths[-1], "wb") as f:
+            f.write(blob)
+    probe = textwrap.dedent("""
+        import sys
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib",
+                                          "predictionio_tpu"):
+                    raise ImportError(name)
+        sys.meta_path.insert(0, Block())
+        from predictionio_tpu_torch.workflow import model_io
+        for path in sys.argv[1:]:
+            with open(path, "rb") as f:
+                models = model_io.deserialize_models(f.read())
+            print(" ".join(type(m).__name__ for m in models))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", probe, *paths],
+                          capture_output=True, cwd=REPO, env=env,
+                          timeout=120, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:3] == [
+        "ClassificationModel RandomForestModel", "ECommModel", "ALSModel"]

@@ -131,3 +131,54 @@ def test_host_topk_matches_reference(k):
 def test_neg_inf_is_the_reference_constant():
     assert np.float32(ttopk.NEG_INF).view(np.int32) == \
         np.asarray(jtopk.NEG_INF).view(np.int32)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_host_masked_topk_matches_reference(weighted):
+    """The item-scoring templates' host serving: the same numpy in both
+    packages, so values and indices are equal bit for bit."""
+    _U, V = _factors(1, 300, 10, seed=7)
+    V[40] = V[11]                        # an exact tie
+    rng = np.random.default_rng(8)
+    q = V[11] + rng.normal(size=10).astype(np.float32) * 0.1
+    Q = rng.normal(size=(5, 10)).astype(np.float32)
+    masks = [rng.random(300) < p for p in (1.0, 0.5, 0.1, 0.01, 0.0)]
+    w = (rng.choice([0.0, 0.5, 1.0, 3.0], 300).astype(np.float32)
+         if weighted else None)
+    for mask in masks:
+        for k in (1, 10, 300, 0):
+            tv, ti = ttopk.host_masked_topk(V, q, mask, k, weights=w)
+            jv, ji = jtopk.host_masked_topk(V, q, mask, k, weights=w)
+            np.testing.assert_array_equal(_bits(tv), _bits(jv))
+            np.testing.assert_array_equal(ti, ji)
+    ks = [3, 10, 50, 1, 7]
+    got = ttopk.host_masked_topk_batch(V, Q, masks, ks, weights=w)
+    want = jtopk.host_masked_topk_batch(V, Q, masks, ks, weights=w)
+    assert len(got) == len(want) == 5
+    for (tv, ti), (jv, ji) in zip(got, want):
+        np.testing.assert_array_equal(_bits(tv), _bits(jv))
+        np.testing.assert_array_equal(ti, ji)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cosine_topk_within_tolerance_of_the_reference(masked):
+    """Cosine scores: the norms and the product round in another order,
+    so scores agree within 1e-5 relative and indices wherever the
+    neighbouring scores are further apart than that."""
+    _U, V = _factors(1, 500, 10, seed=9)
+    V[3] *= 0.0                          # a zero row: the norm floor
+    q = np.random.default_rng(10).normal(size=10).astype(np.float32)
+    mask = (np.random.default_rng(11).random(500) < 0.6) if masked \
+        else None
+    k = 25
+    tv, ti = ttopk.cosine_topk(T(q), T(V), None if mask is None
+                               else T(mask), k=k)
+    jv, ji = jtopk.cosine_topk(q, V, mask, k=k)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-6)
+    jv = np.asarray(jv)
+    gaps = np.abs(np.diff(jv))
+    clear = np.concatenate([[gaps[0]], np.minimum(gaps[:-1], gaps[1:]),
+                            [gaps[-1]]]) > 1e-5
+    np.testing.assert_array_equal(ti.numpy()[clear], np.asarray(ji)[clear])
+    assert ti.dtype == torch.int32
