@@ -49,6 +49,27 @@ Phases (any failure raises and the script exits non-zero):
              the same factors, B1 and B2 must each launch once per
              flush, and the profiled requests' device trace must hold no
              sort kernel.
+6b. observe — the same instance deployed again with PIO_TELEMETRY,
+             PIO_TRACE, PIO_WATERFALL and PIO_JOURNAL on, answering
+             phase 6's sequential and concurrent queries (each carrying
+             an X-PIO-Trace id): every answer byte-equal to phase 6's,
+             B1 and B2 once per flush; /metrics' stage counts match the
+             requests and flushes; /debug/slow.json holds every request
+             with admission, supplement, dispatch (pad and execute
+             inside it), merge and serialize summing to at most its
+             total; /traces.json chains server -> admission -> flush ->
+             dispatch under one trace id; /debug/device.json's HBM
+             gauges are the card's and no kernel build ran after
+             warmup; /debug/events.json holds the deploy, the journal
+             its drain. Then POST /debug/profile?ms=1000 while 32
+             sequential queries run: the Chrome trace must hold B1 and
+             B2 once per flush, launched by one thread other than the
+             client's. Then ``pio train --synthetic 200000 --telemetry
+             --profile DIR`` in process: gj_solve exactly twice an
+             iteration in the trace, telemetry_phases.json beside it.
+             Prints each stage's p50 / p99, sequential and concurrent,
+             the transport's share, and the latency with the knobs on
+             beside phase 6's with them off.
 7. quickstart — the port's CLI in process, on the SQLite store: ``pio
              app new`` with a fixed key, ``app channel-new`` and a
              rate-only ``accesskey new``; ``pio import`` of 1,000,000
@@ -849,15 +870,21 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _post(port: int, user: str, num: int):
+def _post(port: int, user: str, num: int, trace: str = ""):
+    """POST /queries.json; returns (status, JSON, seconds, raw bytes).
+    ``trace`` names the request's trace id (an ``X-PIO-Trace`` header the
+    server adopts)."""
     body = json.dumps({"user": user, "num": num}).encode()
+    headers = {"Content-Type": "application/json"}
+    if trace:
+        headers["X-PIO-Trace"] = f"{trace}-0"
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/queries.json", data=body, method="POST",
-        headers={"Content-Type": "application/json"})
+        headers=headers)
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=60) as r:
         status, payload = r.status, r.read()
-    return status, json.loads(payload), time.perf_counter() - t0
+    return status, json.loads(payload), time.perf_counter() - t0, payload
 
 
 def _pct(seconds) -> tuple:
@@ -881,9 +908,9 @@ def _wait_ready(port: int, alive, deadline_s: float = 120.0) -> float:
             time.sleep(0.05)
 
 
-def phase_path(store, iid: str, users, seed: int):
-    """The trained instance deployed, answering POST /queries.json on the
-    card."""
+def _path_queries(users, seed: int):
+    """The serving path's traffic: 64 sequential queries (nums 1 to
+    1000), 64 concurrent ones and 32 profiled ones, from ``seed``."""
     rng = np.random.default_rng(seed + 2)
     nums = [1, 4, 10, 10, 100, 10, 600, 10, 10, 2, 10, 50, 10, 10, 1000, 10]
     seq = [(users[u], nums[i % len(nums)])
@@ -891,6 +918,14 @@ def phase_path(store, iid: str, users, seed: int):
     burst = [(users[u], 10) for u in rng.integers(0, len(users), size=64)]
     profiled = [(users[u], 10)
                 for u in rng.integers(0, len(users), size=32)]
+    return seq, burst, profiled
+
+
+def phase_path(store, iid: str, users, seed: int):
+    """The trained instance deployed, answering POST /queries.json on the
+    card; returns the launches, the device split and the answers' bytes
+    with the client latencies, which the observe phase is held to."""
+    seq, burst, profiled = _path_queries(users, seed)
 
     topk_fused.reset_launches()          # the serving path starts here
     solve.reset_launches()
@@ -909,16 +944,16 @@ def phase_path(store, iid: str, users, seed: int):
 
     def sequential(queries, lat):
         for u, n in queries:
-            status, payload, dt_s = _post(port, u, n)
-            answers.setdefault((u, n), []).append((status, payload))
+            status, payload, dt_s, raw = _post(port, u, n)
+            answers.setdefault((u, n), []).append((status, payload, raw))
             lat.append(dt_s)
 
     try:
         sequential(seq, seq_lat)
         with ThreadPoolExecutor(max_workers=16) as pool:
-            for (u, n), (status, payload, dt_s) in zip(burst, pool.map(
+            for (u, n), (status, payload, dt_s, raw) in zip(burst, pool.map(
                     lambda q: _post(port, q[0], q[1]), burst)):
-                answers.setdefault((u, n), []).append((status, payload))
+                answers.setdefault((u, n), []).append((status, payload, raw))
                 burst_lat.append(dt_s)
         unprofiled = api.handle("GET", "/")[1]["batching"]["batches"]
         # where a sequential request's time goes: device time under the
@@ -960,7 +995,7 @@ def phase_path(store, iid: str, users, seed: int):
         want = {"itemScores": [{"item": inv(int(i)), "score": float(s)}
                                for s, i in zip(vals[0].cpu().numpy(),
                                                idx[0].cpu().numpy())]}
-        for status, payload in got:
+        for status, payload, _raw in got:
             if status != 200 or payload != want:
                 raise AssertionError(f"answer for {u} num={n} differs "
                                      "from the plain int8 path")
@@ -997,7 +1032,410 @@ def phase_path(store, iid: str, users, seed: int):
           "sort kernel; top device entries " + "; ".join(
               f"{k[:60]} {us:.1f} us x{n}" for k, (us, n) in top),
           flush=True)
-    return launches, merge_launches, split
+    raw = {q: got[0][2] for q, got in answers.items()}
+    if any(r != raw[q] for q, got in answers.items() for _s, _p, r in got):
+        raise AssertionError("one query answered with different bytes")
+    served = {"raw": raw, "seq_lat": seq_lat, "burst_lat": burst_lat}
+    return launches, merge_launches, split, served
+
+
+#: the deploy's observability knobs in the observe phase; the slow ring
+#: holds every request of the phase, and the watchdog arms after 8
+#: flushes (the span ring keeps its 512 spans: it is sized at import)
+OBSERVE_ENV = {"PIO_TELEMETRY": "1", "PIO_TRACE": "1", "PIO_WATERFALL": "1",
+               "PIO_JOURNAL": "1", "PIO_SLOW_RING": "512",
+               "PIO_SERVE_WARMUP_FLUSHES": "8"}
+#: the waterfall's top-level stages (their sum is at most the total) and
+#: the two that nest inside ``dispatch``
+TOP_STAGES = ("admission", "supplement", "dispatch", "merge", "serialize")
+NESTED_STAGES = ("pad", "execute")
+OBSERVE_SYNTHETIC = 200_000
+
+
+def _get(port: int, path: str, method: str = "GET"):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=b"" if method == "POST" else None)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def _samples(text: str, name: str) -> dict:
+    """{label string: value} of one family's samples in an exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _sp, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def _trace_events(path: str) -> list:
+    with open(path) as f:
+        trace = json.load(f)
+    return trace["traceEvents"] if isinstance(trace, dict) else trace
+
+
+def _launch_tids(events, name: str) -> tuple:
+    """(kernel events whose name holds ``name``, the thread ids of their
+    runtime launches)."""
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and name in e.get("name", "")]
+    corr = {e.get("args", {}).get("correlation") for e in kernels}
+    tids = {e["tid"] for e in events if e.get("cat") == "cuda_runtime"
+            and e.get("args", {}).get("correlation") in corr}
+    return kernels, tids
+
+
+def _live_profile(port: int, api, users, seed: int, dev: torch.device,
+                  attempts: int = 3):
+    """POST /debug/profile?ms=1000 while 32 sequential queries run, with
+    a marker kernel launched from this thread halfway through; the
+    capture must hold B1 and B2 once per flush of the window, launched
+    by one thread, not this one. A capture that recorded no kernel at
+    all (the profiler drops a session now and then) is taken again."""
+    rng = np.random.default_rng(seed + 5)
+    queries = [(users[u], 10) for u in rng.integers(0, len(users), size=32)]
+    for attempt in range(attempts):
+        before = api.handle("GET", "/")[1]["batching"]["batches"]
+        status, _ct, body = _get(port, "/debug/profile?ms=1000", "POST")
+        if status != 202:
+            raise AssertionError(f"POST /debug/profile answered {status}")
+        capture = json.loads(body)["capture"]
+        t0 = time.perf_counter()
+        time.sleep(0.05)        # let the profiler's first buffers arm
+        for i, (u, n) in enumerate(queries):
+            if i == len(queries) // 2:
+                marker = torch.full((1,), 1.0, device=dev).add_(1.0)
+            if _post(port, u, n)[0] != 200:
+                raise AssertionError("a profiled query failed")
+        sent_s = time.perf_counter() - t0
+        flushes = api.handle("GET", "/")[1]["batching"]["batches"] - before
+        float(marker.cpu()[0])
+        done = None
+        deadline = time.perf_counter() + 60
+        while done is None and time.perf_counter() < deadline:
+            time.sleep(0.1)
+            listing = json.loads(_get(port, "/debug/profile")[2])
+            done = next((c for c in listing["captures"]
+                         if c["id"] == capture["id"]), None)
+        if done is None or done["state"] != "done" or not done["bytes"]:
+            raise AssertionError(f"the capture did not finish: {done}")
+        events = _trace_events(os.path.join(done["dir"], "trace.json"))
+        b1, b1_tids = _launch_tids(events, "score_mask_topk")
+        b2, b2_tids = _launch_tids(events, "merge_tile_lists")
+        if not b1 and not b2 and attempt + 1 < attempts:
+            print(f"observe: capture {attempt + 1} recorded no kernel; "
+                  "taking it again", flush=True)
+            continue
+        marks, mark_tids = _launch_tids(events, "elementwise")
+        # every flush of the window, give or take the one at each edge
+        # when the queries outlast the window
+        inside = (abs(len(b1) - flushes) <= 1 if sent_s < 0.9
+                  else 0 < len(b1) <= flushes + 1)
+        problem = None
+        if not inside or abs(len(b2) - len(b1)) > 1:
+            problem = (f"the capture holds B1 {len(b1)} and B2 {len(b2)} "
+                       f"times for {flushes} flushes sent in {sent_s:.3f} s")
+        elif len(b1_tids | b2_tids) != 1 or not mark_tids \
+                or mark_tids & b1_tids:
+            problem = (f"B1/B2 launched from threads {b1_tids | b2_tids}, "
+                       f"the marker from {mark_tids}: want one thread, not "
+                       "this one")
+        if problem:
+            names = {}
+            for e in events:
+                if e.get("cat") == "kernel":
+                    names[e["name"][:70]] = names.get(e["name"][:70], 0) + 1
+            raise AssertionError(f"{problem}; kernels {names}")
+        worker = api._batcher._worker
+        return {"attempts": attempt + 1, "state": done["state"],
+                "files": done["files"], "bytes": done["bytes"],
+                "durationMs": done["durationMs"], "queries": len(queries),
+                "flushes": flushes, "B1_kernels": len(b1),
+                "B2_kernels": len(b2), "launch_tid": sorted(b1_tids)[0],
+                "marker_tid": sorted(mark_tids)[0],
+                "worker_native_id": worker.native_id,
+                "worker_ident": worker.ident, "sent_s": sent_s,
+                "B1_device_us": sum(e["dur"] for e in b1),
+                "B2_device_us": sum(e["dur"] for e in b2)}
+    raise AssertionError("every capture recorded no kernel")
+
+
+def _profiled_train(work: str, seed: int, attempts: int = 3) -> dict:
+    """``pio train --synthetic 200000 --telemetry --profile DIR`` in
+    process, on a store of its own: the Chrome trace must hold gj_solve
+    exactly twice an iteration, with telemetry_phases.json beside it. A
+    trace with no kernel at all is a dropped session and is taken again."""
+    from predictionio_tpu_torch.common import telemetry
+
+    with open(ENGINE_JSON) as f:
+        iters = json.load(f)["algorithms"][0]["params"]["numIterations"]
+    engine_dir = os.path.join(work, "observe_engine")
+    os.makedirs(engine_dir, exist_ok=True)
+    shutil.copy(ENGINE_JSON, engine_dir)
+    saved = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(work, "observe_store")
+    try:
+        for attempt in range(attempts):
+            prof_dir = os.path.join(work, f"train_profile_{attempt}")
+            solve.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "--engine-dir", engine_dir,
+                           "--synthetic", str(OBSERVE_SYNTHETIC),
+                           "--synthetic-seed", str(seed), "--telemetry",
+                           "--profile", prof_dir])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"pio train --profile exited {rc}")
+            events = _trace_events(os.path.join(prof_dir, "trace.json"))
+            gj = [e for e in events if e.get("cat") == "kernel"
+                  and "gj_solve" in e.get("name", "")]
+            if gj or attempt + 1 == attempts:
+                break
+            print(f"observe: profiled train {attempt + 1} recorded no "
+                  "kernel; training again", flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_FS_BASEDIR", None)
+        else:
+            os.environ["PIO_FS_BASEDIR"] = saved
+    if len(gj) != 2 * iters or solve.launches != 2 * iters:
+        raise AssertionError(
+            f"the train's trace holds gj_solve {len(gj)} times and "
+            f"solve_gj launched {solve.launches} times in {iters} "
+            f"iterations (want {2 * iters})")
+    with open(os.path.join(prof_dir, "telemetry_phases.json")) as f:
+        phases = json.load(f)["phaseSeconds"]
+    with open(os.path.join(prof_dir, "capture.json")) as f:
+        capture = json.load(f)
+    if capture["state"] != "done" or "train" not in phases:
+        raise AssertionError(f"capture {capture}, phases {phases}")
+    exposition = telemetry.registry().exposition()
+    if 'pio_train_phase_seconds_count{phase="train"}' not in exposition:
+        raise AssertionError("pio_train_phase_seconds has no train phase")
+    return {"ratings": OBSERVE_SYNTHETIC, "iterations": iters,
+            "attempts": attempt + 1, "gj_solve_kernels": len(gj),
+            "gj_solve_device_us": sum(e["dur"] for e in gj),
+            "wall_s": wall, "phases_s": phases,
+            "trace_bytes": os.path.getsize(
+                os.path.join(prof_dir, "trace.json"))}
+
+
+def _stage_split(records, lat: dict) -> dict:
+    """p50 / p99 in ms of each stage over ``records`` (slow-ring
+    entries), with the total and the transport's share (the client's
+    latency minus the server's total, joined on the trace id)."""
+    out = {}
+    for stage in TOP_STAGES + NESTED_STAGES:
+        p50, p99 = _pct([r["stages"][stage] / 1e3 for r in records])
+        out[stage] = {"p50": p50, "p99": p99}
+    out["total"] = dict(zip(("p50", "p99"), _pct(
+        [r["totalMs"] / 1e3 for r in records])))
+    out["transport"] = dict(zip(("p50", "p99"), _pct(
+        [lat[r["traceId"]] - r["totalMs"] / 1e3 for r in records])))
+    out["client"] = dict(zip(("p50", "p99"), _pct(
+        [lat[r["traceId"]] for r in records])))
+    return out
+
+
+def phase_observe(work: str, store, iid: str, users, seed: int,
+                  served: dict, dev: torch.device) -> dict:
+    """Phase 5's instance deployed again with PIO_TELEMETRY, PIO_TRACE,
+    PIO_WATERFALL and PIO_JOURNAL on: phase 6's traffic must get phase
+    6's bytes, B1 and B2 once per flush, and the telemetry routes must
+    account for every request; then a live /debug/profile capture and a
+    profiled train."""
+    from predictionio_tpu_torch.common import (
+        devicewatch, journal, profiling, tracing, waterfall,
+    )
+
+    seq, burst, _profiled = _path_queries(users, seed)
+    saved = {k: os.environ.get(k) for k in
+             (*OBSERVE_ENV, "PIO_PROFILE_DIR", "PIO_SYNTHETIC_EVENTS",
+              "PIO_SYNTHETIC_SEED")}
+    os.environ.update(OBSERVE_ENV)
+    os.environ["PIO_PROFILE_DIR"] = os.path.join(work, "profiles")
+    for mod in (journal, tracing, waterfall):
+        mod.clear()
+    devicewatch.reset_watchdog()
+    profiling.reset()
+    t_phase = time.perf_counter()
+    try:
+        topk_fused.reset_launches()      # the observed path starts here
+        solve.reset_launches()
+        api = create_server.QueryAPI(
+            create_server.ServerConfig(serve_quant="on",
+                                       engine_instance_id=iid),
+            storage=store)
+        port = _free_port()
+        server = threading.Thread(target=create_server.serve,
+                                  args=(api, "127.0.0.1", port), daemon=True)
+        server.start()
+        _wait_ready(port, server.is_alive, deadline_s=300)
+        tracing.clear()          # the readiness polls' spans
+        lat, answers = {}, {}
+
+        def one(tag, q):
+            status, _payload, dt_s, raw = _post(port, q[0], q[1], trace=tag)
+            lat[tag] = dt_s
+            answers.setdefault(q, []).append((status, raw))
+
+        try:
+            for i, q in enumerate(seq):
+                one(f"seq{i:04d}", q)
+            with ThreadPoolExecutor(max_workers=16) as pool:
+                list(pool.map(lambda iq: one(f"con{iq[0]:04d}", iq[1]),
+                              enumerate(burst)))
+            # read before the profiled queries push these spans out
+            traces = json.loads(_get(port, "/traces.json?limit=1024")[2])
+            live = _live_profile(port, api, users, seed, dev)
+            metrics = _get(port, "/metrics")[2].decode()
+            slow = json.loads(_get(port, "/debug/slow.json?limit=1024")[2])
+            device = json.loads(_get(port, "/debug/device.json")[2])
+            events = json.loads(_get(port, "/debug/events.json")[2])
+            stats = api.handle("GET", "/")[1]
+        finally:
+            api.drain()
+            server.join(timeout=60)
+        launches = topk_fused.launches   # the observed path ends here
+        merge_launches = topk_fused.merge_launches
+        if server.is_alive():
+            raise AssertionError("the server did not stop")
+        if solve.launches:
+            raise AssertionError("the serving path launched solve_gj")
+
+        # the same bytes as phase 6, with the knobs off, for every query
+        for q, got in answers.items():
+            for status, raw in got:
+                if status != 200 or raw != served["raw"][q]:
+                    raise AssertionError(
+                        f"{q} answered differently with the knobs on")
+        flushes = stats["batching"]["batches"]
+        requests = stats["requestCount"]
+        if launches != flushes or merge_launches != flushes:
+            raise AssertionError(
+                f"B1 launched {launches} times and B2 {merge_launches} "
+                f"times for {flushes} flushes")
+
+        # /metrics: one stage observation per request (admission,
+        # serialize) or per flush (the flush-level stages)
+        counts = {k.split('"')[1]: v for k, v in _samples(
+            metrics, "pio_serve_stage_seconds_count").items()}
+        want = {**{s: requests for s in ("admission", "serialize")},
+                **{s: flushes for s in ("supplement", "dispatch", "merge")
+                   + NESTED_STAGES}}
+        if counts != want:
+            raise AssertionError(f"stage counts {counts}, want {want}")
+        served_n = sum(_samples(metrics, "pio_serve_seconds_count").values())
+        if served_n != requests:
+            raise AssertionError(f"pio_serve_seconds counted {served_n} "
+                                 f"of {requests} requests")
+
+        # /debug/slow.json: every request, every stage, within its total
+        recs = slow["requests"]
+        if len(recs) != requests:
+            raise AssertionError(f"slow ring holds {len(recs)} of "
+                                 f"{requests} requests")
+        for r in recs:
+            st = r["stages"]
+            if set(st) != set(TOP_STAGES + NESTED_STAGES):
+                raise AssertionError(f"stages {sorted(st)}")
+            if sum(st[s] for s in TOP_STAGES) > r["totalMs"] + 0.005 \
+                    or st["pad"] + st["execute"] > st["dispatch"] + 0.002:
+                raise AssertionError(f"stages exceed their total: {r}")
+            if r.get("details", {}).get("quant") != "int8":
+                raise AssertionError(f"no int8 note: {r}")
+
+        # /traces.json: server -> admission -> flush -> dispatch, one
+        # trace id across the request and worker threads
+        by_id = {t["traceId"]: t["spans"] for t in traces["traces"]}
+        chains = 0
+        for tag in lat:
+            spans = by_id.get(tag)
+            if spans is None:
+                raise AssertionError(f"trace {tag} missing")
+            named = {s["name"]: s for s in spans}
+            root = named.get("server:/queries.json")
+            if root is None or named.get("admission", {}).get(
+                    "parentId") != root["spanId"]:
+                raise AssertionError(f"trace {tag}: {spans}")
+            if "flush" in named:
+                if named["flush"]["parentId"] != root["spanId"] or \
+                        named["dispatch"]["parentId"] != \
+                        named["flush"]["spanId"]:
+                    raise AssertionError(f"trace {tag}: {spans}")
+                chains += 1
+        if chains < len(seq):
+            raise AssertionError(f"{chains} traces hold a flush chain")
+
+        # /debug/device.json: the card's allocator, no post-warmup build
+        wd = device["watchdog"]
+        (card,) = device["devices"]
+        ms = card["memoryStats"]
+        if not (ms and ms["bytes_in_use"] > 0 and ms["bytes_limit"]
+                == torch.cuda.get_device_properties(0).total_memory
+                and ms["peak_bytes_in_use"] >= ms["bytes_in_use"]):
+            raise AssertionError(f"HBM gauges {card}")
+        hbm = _samples(metrics, "pio_hbm_bytes_in_use")
+        if not wd["servingWarmupDone"] or wd["postWarmupRecompiles"] \
+                or not hbm or sum(_samples(
+                    metrics, "pio_xla_post_warmup_recompiles_total"
+                ).values()):
+            raise AssertionError(f"watchdog {wd}, HBM lines {hbm}")
+
+        # /debug/events.json and the drain: the deploy's lifecycle
+        live_ev = [e["message"] for e in events["events"]]
+        drain_ev = [e["message"] for e in journal.snapshot()["events"]]
+        if not any(iid in m for m in live_ev) or not any(
+                m.startswith("drain complete") for m in drain_ev):
+            raise AssertionError(f"journal {live_ev} / {drain_ev}")
+
+        seq_recs = [r for r in recs if r["traceId"].startswith("seq")]
+        con_recs = [r for r in recs if r["traceId"].startswith("con")]
+        split = {"sequential": _stage_split(seq_recs, lat),
+                 "concurrent": _stage_split(con_recs, lat)}
+        on_seq = _pct([lat[f"seq{i:04d}"] for i in range(len(seq))])
+        on_con = _pct([lat[f"con{i:04d}"] for i in range(len(burst))])
+        off_seq = _pct(served["seq_lat"])
+        off_con = _pct(served["burst_lat"])
+        train = _profiled_train(work, seed)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phase_s = time.perf_counter() - t_phase
+    for (mode, sp), n in zip(split.items(), (len(seq_recs),
+                                             len(con_recs))):
+        print(f"observe: split {mode} ({n} requests, ms p50/p99): "
+              + "; ".join(f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+                          for k, v in sp.items()), flush=True)
+    print("observe: latency sequential knobs on p50 %.3f p99 %.3f ms vs "
+          "phase 6 knobs off p50 %.3f p99 %.3f ms; concurrent on %.3f / "
+          "%.3f vs off %.3f / %.3f ms (reported, not claimed)"
+          % (*on_seq, *off_seq, *on_con, *off_con), flush=True)
+    print(f"observe: {requests} requests in {flushes} flushes, B1 and B2 "
+          f"{launches} / {merge_launches} launches, answers byte-equal to "
+          f"phase 6; stage counts {counts}; {chains} flush chains in "
+          f"/traces.json; HBM in use {ms['bytes_in_use']} of "
+          f"{ms['bytes_limit']} (peak {ms['peak_bytes_in_use']}), "
+          f"post-warmup recompiles 0 after {wd['servingFlushes']} flushes",
+          flush=True)
+    print("observe: live profile " + json.dumps(live), flush=True)
+    print("observe: profiled train " + json.dumps(train), flush=True)
+    print(f"observe: phase {phase_s:.1f} s", flush=True)
+    return {"requests": requests, "flushes": flushes, "launches": launches,
+            "merge_launches": merge_launches, "stage_counts": counts,
+            "split_ms": split,
+            "latency_ms": {"knobs_on": {"sequential": on_seq,
+                                        "concurrent": on_con},
+                           "knobs_off": {"sequential": off_seq,
+                                         "concurrent": off_con}},
+            "hbm": ms, "post_warmup_recompiles": 0,
+            "live_profile": live, "profiled_train": train,
+            "phase_s": phase_s}
 
 
 def _store_env(work: str) -> dict:
@@ -2181,8 +2619,10 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     try:
         store, iid, users, train = phase_train(work, args.seed, dev)
-        launches, merge_launches, split = phase_path(store, iid, users,
-                                                     args.seed)
+        launches, merge_launches, split, served = phase_path(
+            store, iid, users, args.seed)
+        observe = phase_observe(work, store, iid, users, args.seed,
+                                served, dev)
         (qs_solve_launches, qs_launches, qs_merge_launches, n_app_events,
          qs_out) = phase_quickstart(work, args.seed, dev)
         eval_launches, eval_solve_rows, eval_out = phase_eval(
@@ -2226,6 +2666,8 @@ def main(argv=None) -> int:
         "merge_wide": wide,
         "mixed_flush": mixed,
         "serving_device_split": split,
+        "observe": {k: v for k, v in observe.items()
+                    if k != "profiled_train"},
         "card": smi,
     }, {
         "name": "solve_gj",
@@ -2250,6 +2692,7 @@ def main(argv=None) -> int:
         "ecommerce_launches": ecom_launches,
         "implicit_by_side": tpl_solve_rows,
         "templates": tpl_out,
+        "observe": observe["profiled_train"],
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,16 @@ Any object with ``handle(method, path, query, body, headers) ->
 (status, payload[, extra_headers])`` can be served. A dict or list
 payload renders as strict JSON: a NaN or Infinity in it is a server bug,
 answered 500. A ``str`` payload (the dashboard's pages) is served as
-HTML. TLS engages when ``PIO_SSL_CERTFILE`` names a PEM certificate.
+HTML unless the handler names its own ``Content-Type`` (``GET /metrics``
+serves Prometheus text). TLS engages when ``PIO_SSL_CERTFILE`` names a
+PEM certificate.
+
+Request telemetry rides the transport, so every daemon gets it alike:
+an incoming ``X-PIO-Trace`` header is always adopted and a fresh trace
+originates only under ``PIO_TRACE=1``; each request runs in a
+``server:<path>`` span and a devicewatch attribution region;
+``PIO_TELEMETRY=1`` adds the request histogram and counter; a 5xx pins
+its trace. With the knobs unset, the bytes on the wire are unchanged.
 """
 
 from __future__ import annotations
@@ -15,10 +24,12 @@ import json
 import logging
 import signal
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
+from predictionio_tpu_torch.common import devicewatch, telemetry, tracing
 from predictionio_tpu_torch.common.server_security import maybe_wrap_ssl
 
 logger = logging.getLogger("predictionio_tpu_torch.http")
@@ -28,13 +39,23 @@ def dispatch_request(api, method: str, target: str, body: bytes,
                      headers: Dict[str, str]
                      ) -> Tuple[int, bytes, str, Dict[str, str]]:
     """One request through the handler -> (status, body, content type,
-    extra headers)."""
+    extra headers), with trace adoption, compile attribution and request
+    telemetry around it."""
     parsed = urllib.parse.urlsplit(target)
     query = dict(urllib.parse.parse_qsl(parsed.query,
                                         keep_blank_values=True))
     extra: Dict[str, str] = {}
+    ctx = tracing.server_context(headers)
+    service = type(api).__name__
+    t0 = time.perf_counter() if telemetry.on() else None
     try:
-        response = api.handle(method, parsed.path, query, body, headers)
+        with devicewatch.attribution(f"server:{parsed.path}",
+                                     phase="request"):
+            with tracing.activate(ctx):
+                with tracing.span(f"server:{parsed.path}",
+                                  service=service):
+                    response = api.handle(
+                        method, parsed.path, query, body, headers)
         if len(response) == 3:
             status, payload, extra = response
         else:
@@ -42,9 +63,28 @@ def dispatch_request(api, method: str, target: str, body: bytes,
     except Exception as e:  # a handler without its own guard
         logger.exception("handler failed: %s %s", method, parsed.path)
         status, payload = 500, {"message": str(e)}
-    if isinstance(payload, str):  # pre-rendered HTML (dashboard pages)
-        return (status, payload.encode("utf-8"), "text/html; charset=UTF-8",
-                dict(extra))
+    if status >= 500 and ctx is not None:
+        # an errored traced request is a trace worth keeping
+        tracing.pin_trace(ctx.trace_id, "error")
+    if t0 is not None:
+        reg = telemetry.registry()
+        reg.histogram(
+            "pio_http_request_seconds",
+            "HTTP request handling latency by daemon and method",
+            labelnames=("service", "method")).labels(
+                service=service, method=method
+        ).observe(time.perf_counter() - t0)
+        reg.counter(
+            "pio_http_requests_total",
+            "HTTP requests served by daemon and status",
+            labelnames=("service", "status")).labels(
+                service=service, status=str(status)).inc()
+    extra = dict(extra)
+    if isinstance(payload, str):
+        # pre-rendered text: HTML pages, or what the handler names
+        # (GET /metrics serves Prometheus text exposition)
+        ctype = extra.pop("Content-Type", "text/html; charset=UTF-8")
+        return status, payload.encode("utf-8"), ctype, extra
     try:
         data = json.dumps(payload, allow_nan=False).encode("utf-8")
     except ValueError:
@@ -52,7 +92,8 @@ def dispatch_request(api, method: str, target: str, body: bytes,
         data = json.dumps(
             {"message": "response contains non-finite numbers"}
         ).encode("utf-8")
-    return status, data, "application/json; charset=UTF-8", dict(extra)
+    ctype = extra.pop("Content-Type", "application/json; charset=UTF-8")
+    return status, data, ctype, extra
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -6,10 +6,11 @@ on `EventAPI`; `handle()` dispatches (method, path) exactly like the spray
 route tree, returning (status_code, json_payload). Transport lives in
 predictionio_tpu_torch/data/api/http.py.
 
-The reference's telemetry routes (``/metrics``, ``/traces.json``,
-``/debug/*.json``) and the device, SLO and history samplers it installs
-wait for the port's observability slice (ROADMAP queue 1 item 3); until
-then those routes answer 404 like any unknown path. Every other route
+The telemetry routes (``/metrics``, ``/traces.json``, ``/debug/*``) are
+served by ``common/telemetry.handle_route`` as in the reference, and the
+device collector is installed; it reads no card in this host-only
+daemon. The reference's SLO and history samplers wait for a later slice
+(``/debug/history.json`` answers 404 like any unknown path). Every route
 answers byte for byte as the reference does.
 
 Route surface parity:
@@ -40,6 +41,7 @@ import os
 import urllib.parse
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from predictionio_tpu_torch.common import devicewatch, telemetry
 from predictionio_tpu_torch.data.api.plugins import (
     EventInfo, EventServerPluginContext,
 )
@@ -129,6 +131,9 @@ class EventAPI:
         #: SIGTERM) so /readyz steers load balancers away while in-flight
         #: ingests and the final WAL flush complete
         self.draining = False
+        # device gauges on this daemon's /metrics and /debug/device.json
+        # too (the scrape surface is uniform; idempotent)
+        devicewatch.install()
 
     # ------------------------------------------------------------------ auth
     def _authenticate(self, query: Dict[str, str],
@@ -188,6 +193,11 @@ class EventAPI:
             return 200, {"status": "alive"}
         if path == "/healthz" and method == "GET":
             return 200, {"status": "ok"}
+        t = telemetry.handle_route(
+            method, path, query,
+            accept=headers.get("accept") or headers.get("Accept"))
+        if t is not None:   # /metrics, /traces.json, /debug/*
+            return t
         if path == "/readyz" and method == "GET":
             if self.draining:
                 return 503, {"status": "draining"}

@@ -15,6 +15,8 @@ import threading
 from collections import defaultdict
 from typing import Any, Dict, Optional
 
+from predictionio_tpu_torch.common import telemetry
+from predictionio_tpu_torch.common.telemetry import _escape_label
 from predictionio_tpu_torch.data.event import Event, format_event_time, utcnow
 
 
@@ -58,16 +60,43 @@ def _hour_floor(t: _dt.datetime) -> _dt.datetime:
 
 
 class StatsBook:
-    """Hourly-rotating stats (StatsActor.scala:45-79), thread-safe. The
-    reference's book also feeds the telemetry registry's ``GET /metrics``;
-    the port has no telemetry layer yet (ROADMAP queue 1 item 3), so the
-    book serves ``/stats.json`` only."""
+    """Hourly-rotating stats (StatsActor.scala:45-79), thread-safe.
+
+    The book registers itself as a scrape-time collector with the
+    process metrics registry (common/telemetry.py): ``GET /metrics``
+    exposes the long-lived counters as ``pio_events_requests_total`` /
+    ``pio_events_ingested_total`` while the hourly rotation stays here,
+    so ``/stats.json`` keeps its shape. The registry holds the book
+    weakly."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.longlive = Stats()
         self.hourly = Stats(_hour_floor(utcnow()))
         self.prev_hourly: Optional[Stats] = None
+        telemetry.registry().register_collector(self.collect_metrics)
+
+    def collect_metrics(self):
+        """Prometheus exposition lines for the long-lived window."""
+        with self._lock:
+            status = dict(self.longlive.status_code_count)
+            ete = dict(self.longlive.ete_count)
+        if not status and not ete:
+            return []     # idle books add no scrape noise
+        out = ["# TYPE pio_events_requests_total counter"]
+        for (app_id, code), n in sorted(status.items()):
+            out.append(
+                f'pio_events_requests_total{{app_id="{app_id}",'
+                f'status="{code}"}} {n}')
+        out.append("# TYPE pio_events_ingested_total counter")
+        for (app_id, et, tet, ev), n in sorted(
+                ete.items(), key=lambda kv: str(kv[0])):
+            out.append(
+                f'pio_events_ingested_total{{app_id="{app_id}",'
+                f'entity_type="{_escape_label(et or "")}",'
+                f'target_entity_type="{_escape_label(tet or "")}",'
+                f'event="{_escape_label(ev or "")}"}} {n}')
+        return out
 
     def bookkeeping(self, app_id: int, status_code: int, event: Event) -> None:
         with self._lock:

@@ -141,8 +141,8 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SERVE_QUANT_RECALL_MIN": _read("the recall probe's floor"),
     "PIO_SERVE_FUSED": _read("the fused top-k kernel"),
     "PIO_SERVE_FUSED_TILE": _read("the fused top-k kernel's tile"),
-    "PIO_SERVE_WARMUP_FLUSHES": _inert(
-        "the XLA recompile watchdog's warm-up; the port has no XLA"),
+    "PIO_SERVE_WARMUP_FLUSHES": _read(
+        "the serving flushes before devicewatch's post-warmup alarm arms"),
     # fold-in
     "PIO_FOLDIN": _unported("the realtime fold-in speed layer", _Q5),
     "PIO_FOLDIN_TICK_MS": _inert("tunes fold-in"),
@@ -198,26 +198,26 @@ KNOBS: Dict[str, Knob] = {
     "PIO_FAULT_SEED": _inert("seeds PIO_FAULT_SPEC"),
     "PIO_AUTO_RESUME": _read("auto-resume of a crashed pio train"),
     # observability
-    "PIO_TELEMETRY": _unported("hot-path metrics (the telemetry registry)",
-                               _Q3, verbs=ALL_VERBS),
-    "PIO_TRACE": _unported("per-request traces", _Q3, verbs=DAEMONS),
-    "PIO_TRACE_BUFFER": _inert("tunes traces"),
-    "PIO_TRACE_TAIL_MS": _inert("tunes traces"),
-    "PIO_TRACE_TAIL_TRACES": _inert("tunes traces"),
-    "PIO_JOURNAL": _unported("the operational-event journal", _Q3,
-                             verbs=ALL_VERBS),
-    "PIO_JOURNAL_BUFFER": _inert("tunes the journal"),
+    "PIO_TELEMETRY": _read("hot-path metrics (common/telemetry.py)"),
+    "PIO_TRACE": _read("originating per-request traces (common/tracing.py)"),
+    "PIO_TRACE_BUFFER": _read("the span ring's capacity"),
+    "PIO_TRACE_TAIL_MS": _read("the span duration that pins its trace"),
+    "PIO_TRACE_TAIL_TRACES": _read("the tail ring's capacity in traces"),
+    "PIO_JOURNAL": _read(
+        "the operational-event journal (common/journal.py; on unless 0)"),
+    "PIO_JOURNAL_BUFFER": _read("the journal's capacity"),
     "PIO_HISTORY": _unported("the metrics flight recorder", _Q3,
                              verbs=DAEMONS),
     "PIO_HISTORY_TICK_S": _inert("tunes the metrics flight recorder"),
     "PIO_HISTORY_MAX_SERIES": _inert("tunes the metrics flight recorder"),
-    "PIO_WATERFALL": _unported("per-request latency waterfalls", _Q3),
-    "PIO_WATERFALL_SAMPLE": _inert("tunes the latency waterfalls"),
-    "PIO_SLOW_RING": _inert("tunes the latency waterfalls"),
-    "PIO_PROFILE_DIR": _inert("tunes the POST /debug/profile surface"),
-    "PIO_PROFILE_MAX_MS": _inert("tunes the POST /debug/profile surface"),
-    "PIO_PROFILE_ENABLE": _unported("the POST /debug/profile surface", _Q3,
-                                    verbs=DAEMONS),
+    "PIO_WATERFALL": _read(
+        "per-request latency waterfalls (common/waterfall.py)"),
+    "PIO_WATERFALL_SAMPLE": _read("the waterfalls' sampling interval"),
+    "PIO_SLOW_RING": _read("the slow ring's capacity"),
+    "PIO_PROFILE_DIR": _read("where POST /debug/profile captures land"),
+    "PIO_PROFILE_MAX_MS": _read("the longest POST /debug/profile capture"),
+    "PIO_PROFILE_ENABLE": _read(
+        "POST /debug/profile (common/profiling.py; 0 answers 403)"),
     "PIO_SLO_AVAILABILITY": _inert("SLO targets of the telemetry layer"),
     "PIO_SLO_LATENCY_MS": _inert("SLO targets of the telemetry layer"),
     "PIO_SLO_LATENCY_TARGET": _inert("SLO targets of the telemetry layer"),

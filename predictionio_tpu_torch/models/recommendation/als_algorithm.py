@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.common import telemetry, waterfall
 from predictionio_tpu_torch.controller import Algorithm, Params
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.models.recommendation.engine import (
@@ -104,13 +105,28 @@ def host_f32(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
+#: layout-reuse counts: hits = a train (or prepare_layout) served its
+#: layout from the TrainingData cache; builds = prepare_ratings ran.
+#: Registry-backed: ``pio_layout_cache_total{result=...}`` on GET
+#: /metrics, read and bumped like a dict.
+LAYOUT_STATS = telemetry.RegistryDict(
+    telemetry.registry().counter(
+        "pio_layout_cache_total",
+        "Device COO layout requests by outcome (hit = served from a "
+        "cache tier, build = prepare_ratings ran)",
+        labelnames=("result",)),
+    "result", ("hits", "builds"))
+
+
 def _ensure_layout(td, device: torch.device) -> als.ALSData:
     """The sorted COO layout of one TrainingData on ``device``, cached on
     the TrainingData object (the layout is rank-independent)."""
     key = ("als_layout", str(device))
     cached = getattr(td, "_pio_layout_cache", None)
     if cached is not None and cached[0] == key:
+        LAYOUT_STATS["hits"] += 1
         return cached[1]
+    LAYOUT_STATS["builds"] += 1
     data = als.prepare_ratings(
         td.user_idx, td.item_idx, td.rating,
         n_users=len(td.user_vocab), n_items=len(td.item_vocab),
@@ -230,7 +246,11 @@ class ALSAlgorithm(Algorithm):
         """One micro-batch: the known users' rows padded to a serving
         bucket (pad rows reuse index 0, in bounds) and ONE device top-k
         for the batch at the largest k asked; each query keeps its own
-        num. Padding rows are dropped."""
+        num. Padding rows are dropped. Waterfall drill-down inside the
+        server's ``dispatch`` stage: ``pad`` is the host-side bucket
+        prep, ``execute`` the device call ending in the ``.cpu()`` copy
+        of the (bucket, k) result, with the index copy to the card
+        inside it."""
         queries = list(queries)
         out: List[Optional[PredictedResult]] = [None] * len(queries)
         valid = []
@@ -243,15 +263,19 @@ class ALSAlgorithm(Algorithm):
         if not valid:
             return out
         k = min(max(q.num for _qx, q, _ix in valid), len(model.item_vocab))
-        pix = np.zeros(bucket_for(len(valid)), dtype=np.int32)
-        pix[:len(valid)] = [ix for _qx, _q, ix in valid]
+        with waterfall.stage("pad"):
+            pix = np.zeros(bucket_for(len(valid)), dtype=np.int32)
+            pix[:len(valid)] = [ix for _qx, _q, ix in valid]
         quant = model.quant
         if quant is not None:
-            vals, idx = _to_host(*quant.topk(pix, k))
+            with waterfall.stage("execute"):
+                vals, idx = _to_host(*quant.topk(pix, k))
+            waterfall.note("quant", "int8")
         else:
-            ixs = torch.from_numpy(pix).to(model.user_factors.device)
-            vals, idx = _to_host(*topk.topk_for_users(
-                model.user_factors, model.item_factors, ixs, k=k))
+            with waterfall.stage("execute"):
+                ixs = torch.from_numpy(pix).to(model.user_factors.device)
+                vals, idx = _to_host(*topk.topk_for_users(
+                    model.user_factors, model.item_factors, ixs, k=k))
         for r, (qx, q, _ix) in enumerate(valid):
             n = min(q.num, k)
             out[qx] = self._results(model, vals[r, :n], idx[r, :n])

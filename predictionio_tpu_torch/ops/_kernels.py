@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``ctypes``. The build runs on first use (never on import) and again
 whenever the source is newer than the library. The build directory is
 ``PIO_TORCH_KERNEL_DIR``, or ``predictionio_tpu_torch/_build`` inside
-the checkout (listed in ``.gitignore``).
+the checkout (listed in ``.gitignore``). Each build and each load is
+reported to ``common/devicewatch.py``, which counts them (under
+``PIO_TELEMETRY=1``) and raises its alarm for one on the serving path
+after warmup.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+from predictionio_tpu_torch.common import devicewatch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -81,6 +86,7 @@ def build(*names: str) -> Dict[str, float]:
             failed.append(f"{' '.join(cmd)}\n{log}")
         else:
             os.replace(tmp, library_path(name))
+            devicewatch.note_build(name, took[name])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return took
@@ -93,6 +99,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             if _stale(name):
                 build(name)
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(library_path(name)))
+            devicewatch.note_load(name, time.perf_counter() - t0)
             _libs[name] = lib
         return lib

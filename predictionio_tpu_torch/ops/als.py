@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.common import devicewatch
 from predictionio_tpu_torch.ops.solve import solve_factors
 
 __all__ = [
@@ -431,9 +432,14 @@ def _train(data: ALSData, rank, iterations, lambda_, alpha, seed, chunk,
             side.n_self, lambda_, chunk, reg_scaling, plan)
 
     def run(U, V, n_iters):
-        for _ in range(n_iters):
-            U = half(V, bu, pu)
-            V = half(U, bi, pi)
+        # a kernel build or load in the trainer shows up as
+        # pio_xla_compiles_total{fn="als_train_explicit"} (or _implicit)
+        with devicewatch.attribution(
+                "als_train_implicit" if implicit else "als_train_explicit",
+                phase="train"):
+            for _ in range(n_iters):
+                U = half(V, bu, pu)
+                V = half(U, bi, pi)
         return U, V
 
     return _run_segmented(run, u0, v0, iterations, checkpoint_every,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.common import devicewatch, telemetry
 from predictionio_tpu_torch.ops import topk_fused
 from predictionio_tpu_torch.ops.topk import NEG_INF, stable_topk
 
@@ -191,6 +192,41 @@ def serving_enabled(mode: Optional[str] = None) -> bool:
     if m == "on":
         return True
     return scoped_device().type == "cuda"
+
+
+def record_state(summary: Optional[Dict[str, Any]]) -> None:
+    """Publish (or with None, clear) the live quantized-serving state:
+    ``pio_serve_quant_mode``, the ``pio_serve_factor_bytes{dtype}``
+    pair, ``pio_serve_quant_recall{metric}``, and the
+    /debug/device.json quant block."""
+    reg = telemetry.registry()
+    active = bool(summary and summary.get("enabled"))
+    reg.gauge(
+        "pio_serve_quant_mode",
+        "1 while the deployed factor matrices serve quantized (int8 + "
+        "per-row scales); 0 = fp32 serving").labels().set(
+            1.0 if active else 0.0)
+    g_bytes = reg.gauge(
+        "pio_serve_factor_bytes",
+        "Deployed factor-matrix bytes by dtype: the live serving "
+        "footprint (int8 includes the fp32 scale vectors) next to its "
+        "fp32 equivalent", labelnames=("dtype",))
+    g_recall = reg.gauge(
+        "pio_serve_quant_recall",
+        "Most recent deploy-time ranking-parity probe of the quantized "
+        "path vs fp32 (recall@k and exact-match@1)",
+        labelnames=("metric",))
+    if active:
+        g_bytes.labels(dtype="int8").set(float(summary.get("int8Bytes", 0)))
+        g_bytes.labels(dtype="fp32").set(float(summary.get("fp32Bytes", 0)))
+        if summary.get("recall") is not None:
+            g_recall.labels(metric="recall").set(float(summary["recall"]))
+        if summary.get("exact1") is not None:
+            g_recall.labels(metric="exact1").set(float(summary["exact1"]))
+    else:
+        g_bytes.labels(dtype="int8").set(0.0)
+        g_bytes.labels(dtype="fp32").set(0.0)
+    devicewatch.note_quant(summary)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Admin REST API (:7071, experimental in the reference) (port of
-``predictionio_tpu/tools/admin.py``; the reference's telemetry routes
-wait for ROADMAP queue 1 item 3 and answer 404 here).
+``predictionio_tpu/tools/admin.py``). The telemetry routes answer
+before the key check, as on every daemon.
 
 Reference: tools/.../admin/AdminAPI.scala:39-130 and CommandClient.scala —
   GET    /                      -> status
@@ -25,9 +25,11 @@ Response = Tuple[int, Any]
 class AdminAPI:
     def __init__(self, storage: Optional[Storage] = None,
                  server_key: Optional[str] = None):
+        from predictionio_tpu_torch.common import devicewatch
         from predictionio_tpu_torch.common.server_security import KeyAuth
         self.storage = storage if storage is not None else get_storage()
         self.auth = KeyAuth(server_key)
+        devicewatch.install()
 
     def handle(self, method: str, path: str,
                query: Optional[Dict[str, str]] = None,
@@ -35,11 +37,17 @@ class AdminAPI:
                headers: Optional[Dict[str, str]] = None) -> Response:
         method = method.upper()
         path = (path or "/").rstrip("/") or "/"
-        # the probe answers before auth, like every other daemon: a
-        # load balancer holds no key
+        # probes + telemetry surface answer before auth, like every
+        # other daemon: a load balancer or a scraper holds no key
         if path == "/healthz" and method == "GET":
             return 200, {"status": "ok"}
         headers = headers or {}
+        from predictionio_tpu_torch.common import telemetry
+        t = telemetry.handle_route(
+            method, path, query,
+            accept=headers.get("accept") or headers.get("Accept"))
+        if t is not None:   # /metrics, /traces.json, /debug/*
+            return t
         # KeyAuthentication.scala parity: reject before routing
         rejected = self.auth.gate(headers, query)
         if rejected is not None:

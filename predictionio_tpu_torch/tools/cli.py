@@ -7,7 +7,7 @@
         data-delete,channel-new,channel-delete} ...
     python -m predictionio_tpu_torch.tools.cli accesskey {new,list,delete}
     python -m predictionio_tpu_torch.tools.cli eventserver [--ip HOST]
-        [--port PORT] [--stats]
+        [--port PORT] [--stats] [--telemetry] [--trace]
     python -m predictionio_tpu_torch.tools.cli import --appid N
         [--channel NAME] --input events.json
     python -m predictionio_tpu_torch.tools.cli export --appid N
@@ -15,13 +15,17 @@
     python -m predictionio_tpu_torch.tools.cli train [--engine-dir DIR]
         [--variant engine.json] [--synthetic N [--synthetic-seed S]]
         [--resume-from ID] [--no-auto-resume] [--batch LABEL]
+        [--profile DIR] [--telemetry] [--trace]
     python -m predictionio_tpu_torch.tools.cli eval EVALUATION_CLASS
         [ENGINE_PARAMS_GENERATOR_CLASS] [--engine-dir DIR] [--batch LABEL]
         [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
-        [--engine-instance-id ID] [--ip HOST] [--port PORT] ...
+        [--engine-instance-id ID] [--ip HOST] [--port PORT]
+        [--telemetry] [--trace] [--waterfall] [--profile-dir DIR] ...
     python -m predictionio_tpu_torch.tools.cli undeploy [--ip HOST]
         [--port PORT]
+    python -m predictionio_tpu_torch.tools.cli profile [URL] [--ms N]
+        [-o SUBDIR]
     python -m predictionio_tpu_torch.tools.cli {status,dashboard,
         adminserver} ...
 
@@ -30,8 +34,10 @@
 key commands, ``import`` and ``export`` work on the host and never touch
 the card. A reference variable that asks for a feature the port lacks
 (``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_FOLDIN=1``,
-``PIO_TELEMETRY=1``, ...) makes the verb exit 1 with a message naming it,
-before any work. Storage is configured as in the reference (zero
+``PIO_HISTORY=1``, ...) makes the verb exit 1 with a message naming it,
+before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
+``PIO_TELEMETRY``, ``PIO_TRACE`` and ``PIO_WATERFALL`` to 1, as in the
+reference. Storage is configured as in the reference (zero
 configuration: SQLite and model files under ``$PIO_FS_BASEDIR``), so a
 store that either package's ``pio app new`` and ``pio import`` filled
 reads in the other.
@@ -60,6 +66,16 @@ def _error(msg: str) -> None:
     print(f"[ERROR] {msg}", file=sys.stderr)
 
 
+def _apply_telemetry_env(args) -> None:
+    """Map the observability flags onto their env knobs (the library
+    layers read PIO_TELEMETRY / PIO_TRACE, so in-process callers and
+    daemons honor the same switches)."""
+    if getattr(args, "telemetry", False):
+        os.environ["PIO_TELEMETRY"] = "1"
+    if getattr(args, "trace", False):
+        os.environ["PIO_TRACE"] = "1"
+
+
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.workflow.context import (
         WorkflowContext, WorkflowParams,
@@ -76,11 +92,13 @@ def cmd_train(args) -> int:
             os.environ["PIO_SYNTHETIC_SEED"] = str(args.synthetic_seed)
     if args.no_auto_resume:
         os.environ["PIO_AUTO_RESUME"] = "0"
+    _apply_telemetry_env(args)
     engine_dir = os.path.abspath(args.engine_dir)
     variant = read_engine_variant(engine_dir, args.variant)
     engine = get_engine(variant["engineFactory"], base_dir=engine_dir)
     engine_params = engine.engine_params_from_json(variant)
-    ctx = WorkflowContext(workflow_params=WorkflowParams(batch=args.batch))
+    ctx = WorkflowContext(workflow_params=WorkflowParams(
+        batch=args.batch, profile_dir=args.profile or None))
     instance_id = run_train(
         ctx, engine, engine_params,
         engine_id=variant.get("id", "default"),
@@ -132,6 +150,13 @@ def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.workflow.workflow_utils import (
         read_engine_variant,
     )
+    _apply_telemetry_env(args)
+    if args.waterfall:
+        # per-request latency waterfalls + /debug/slow.json
+        os.environ["PIO_WATERFALL"] = "1"
+    if args.profile_dir:
+        # where POST /debug/profile captures land
+        os.environ["PIO_PROFILE_DIR"] = args.profile_dir
     engine_dir = os.path.abspath(args.engine_dir)
     variant = read_engine_variant(engine_dir, args.variant)
     config = ServerConfig(
@@ -162,9 +187,20 @@ def cmd_undeploy(args) -> int:
     return 1
 
 
+def cmd_profile(args) -> int:
+    """Bounded on-demand profile capture from a LIVE daemon
+    (tools/profile.py -> POST /debug/profile). Exit 0 non-empty artifact
+    / 1 failed / 2 unreachable."""
+    from predictionio_tpu_torch.tools.profile import run_profile
+    url = args.url or f"http://{args.ip}:{args.port}"
+    return run_profile(url, ms=args.ms, out_dir=args.out or None,
+                       timeout=args.timeout)
+
+
 def cmd_eventserver(args) -> int:
     from predictionio_tpu_torch.data.api import EventAPI, EventServerConfig
     from predictionio_tpu_torch.data.api.http import serve_forever
+    _apply_telemetry_env(args)
     api = EventAPI(config=EventServerConfig(
         ip=args.ip, port=args.port, stats=args.stats))
     _info(f"Event Server is started at {args.ip}:{args.port}.")
@@ -314,6 +350,16 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("version", help="show version")
     sub.add_parser("status", help="verify installation and storage")
 
+    def telemetry_flags(sp):
+        sp.add_argument("--telemetry", action="store_true",
+                        help="record hot-path metrics (sets "
+                             "PIO_TELEMETRY=1; GET /metrics serves "
+                             "Prometheus text either way)")
+        sp.add_argument("--trace", action="store_true",
+                        help="originate request traces (sets PIO_TRACE=1; "
+                             "propagated X-PIO-Trace headers are always "
+                             "honored); GET /traces.json")
+
     def engine_flags(sp):
         sp.add_argument("--engine-dir", default=".",
                         help="engine directory (default: cwd)")
@@ -336,6 +382,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--synthetic-seed", type=int, default=None,
                     help="seed for --synthetic (default 7; sets "
                          "PIO_SYNTHETIC_SEED)")
+    sp.add_argument("--profile", default="",
+                    help="write a torch.profiler Chrome trace of the "
+                         "train (and telemetry_phases.json) to this "
+                         "directory")
+    telemetry_flags(sp)
 
     sp = sub.add_parser("eval", help="run an evaluation")
     sp.add_argument("evaluation_class")
@@ -367,15 +418,43 @@ def build_parser() -> argparse.ArgumentParser:
                          "scales through the fused kernel (auto = on the "
                          "card, gated by the ranking-parity probe; "
                          "PIO_SERVE_QUANT overrides)")
+    sp.add_argument("--waterfall", action="store_true",
+                    help="sample per-request latency waterfalls "
+                         "(GET /debug/slow.json + per-stage histograms; "
+                         "sets PIO_WATERFALL=1)")
+    sp.add_argument("--profile-dir", default="",
+                    help="directory for POST /debug/profile capture "
+                         "artifacts (sets PIO_PROFILE_DIR)")
+    telemetry_flags(sp)
 
     sp = sub.add_parser("undeploy", help="stop a deployed engine server")
     sp.add_argument("--ip", default="localhost")
     sp.add_argument("--port", type=int, default=8000)
 
+    sp = sub.add_parser(
+        "profile",
+        help="capture a bounded profile from a running daemon (POST "
+             "/debug/profile; a Chrome trace on the server; exit 0 "
+             "non-empty / 1 failed / 2 unreachable)")
+    sp.add_argument("url", nargs="?", default="",
+                    help="daemon base URL (default http://<ip>:<port>)")
+    sp.add_argument("--ip", default="localhost")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--ms", type=int, default=2000,
+                    help="capture length in ms (server clamps to its "
+                         "PIO_PROFILE_MAX_MS, default 10000)")
+    sp.add_argument("-o", "--out", default="",
+                    help="server-side subdirectory (under the server's "
+                         "PIO_PROFILE_DIR) for the artifact; paths "
+                         "escaping the base are refused (400)")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-request timeout in seconds")
+
     sp = sub.add_parser("eventserver", help="start the event server")
     sp.add_argument("--ip", default="0.0.0.0")
     sp.add_argument("--port", type=int, default=7070)
     sp.add_argument("--stats", action="store_true")
+    telemetry_flags(sp)
 
     sp = sub.add_parser("dashboard", help="start the evaluation dashboard")
     sp.add_argument("--ip", default="127.0.0.1")
@@ -444,6 +523,7 @@ _DISPATCH = {
     "eval": cmd_eval,
     "deploy": cmd_deploy,
     "undeploy": cmd_undeploy,
+    "profile": cmd_profile,
     "eventserver": cmd_eventserver,
     "dashboard": cmd_dashboard,
     "adminserver": cmd_adminserver,

@@ -19,14 +19,18 @@ from typing import Dict, Optional
 import torch
 
 from predictionio_tpu_torch import device as device_mod
+from predictionio_tpu_torch.common import devicewatch, telemetry
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 
 
 @dataclasses.dataclass
 class WorkflowParams:
-    """WorkflowParams.scala's batch label; its verbosity, sanity-check
-    skip and stop-after flags have no caller in the port yet."""
+    """WorkflowParams.scala's batch label, and ``profile_dir`` (``pio
+    train --profile DIR``: a torch.profiler capture of the train); its
+    verbosity, sanity-check skip and stop-after flags have no caller in
+    the port yet."""
     batch: str = ""
+    profile_dir: Optional[str] = None
 
 
 class WorkflowContext:
@@ -47,10 +51,13 @@ class WorkflowContext:
     def phase(self, name: str):
         """Accumulate one named phase's wall-clock. On the card the clock
         stops after a synchronize, so a phase owns the device work it
-        queued."""
+        queued. A kernel build or load inside the phase is attributed to
+        it (``pio_xla_compiles_total{fn="train:<phase>"}``) unless a
+        narrower region, a trainer's, claims it first."""
         t0 = time.perf_counter()
         try:
-            yield
+            with devicewatch.attribution(f"train:{name}", phase="train"):
+                yield
         finally:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -58,8 +65,19 @@ class WorkflowContext:
 
     def note_phase(self, name: str, seconds: float) -> None:
         """Accumulate an externally timed (sub-)phase, e.g. the read's
-        read_io / read_encode split."""
+        read_io / read_encode split, into the phase table and, under
+        ``PIO_TELEMETRY=1``, ``pio_train_phase_seconds{phase}``."""
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + seconds
+        if telemetry.on():
+            telemetry.registry().histogram(
+                "pio_train_phase_seconds",
+                "Train/eval phase wall-clock (read/layout/train/persist "
+                "+ read_io/read_encode sub-phases; on the card each ends "
+                "after a synchronize)",
+                labelnames=("phase",),
+                buckets=(0.01, 0.05, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0,
+                         30.0, 60.0, 300.0)).labels(
+                phase=name).observe(seconds)
 
     @property
     def storage(self) -> Storage:

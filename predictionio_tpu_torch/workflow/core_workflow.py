@@ -9,6 +9,11 @@ keeps its iteration snapshots, which the next run of the same
 engine/variant resumes from (auto-resume). Single process: the
 reference's multi-host branches have no counterpart yet.
 
+``WorkflowParams.profile_dir`` (``pio train --profile DIR``) wraps the
+train in a ``common/profiling.trace`` capture, a Chrome trace of the
+run's CPU operators and kernels, and writes the phase table beside it as
+``telemetry_phases.json``.
+
 An eval run: insert EvaluationInstance(INIT), evaluate every EngineParams
 variant through the prefix-memoized FastEvalEngineWorkflow, score with
 the evaluation's MetricEvaluator, store the results and mark
@@ -25,6 +30,7 @@ import traceback
 from typing import Optional, Sequence
 
 from predictionio_tpu_torch import knobs
+from predictionio_tpu_torch.common import profiling
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.controller.evaluation import (
     Evaluation, MetricEvaluatorResult,
@@ -106,7 +112,12 @@ def run_train(
     # are the ones consulted
     ctx.checkpoint_dir = run_checkpoint_dir(resume_from or instance_id)
     try:
-        models = engine.train(ctx, engine_params)
+        profile_dir = ctx.workflow_params.profile_dir
+        if profile_dir:
+            with profiling.trace(profile_dir, label="train"):
+                models = engine.train(ctx, engine_params)
+        else:
+            models = engine.train(ctx, engine_params)
         with ctx.phase("persist"):
             blob = model_io.serialize_models(
                 models,
@@ -114,6 +125,19 @@ def run_train(
             ctx.storage.get_model_data_models().insert(
                 Model(id=instance_id, models=blob))
         phases = dict(ctx.phase_seconds)
+        if profile_dir:
+            # the host-side phase split lands next to the trace, so one
+            # directory holds both views of the run
+            try:
+                with open(os.path.join(profile_dir,
+                                       "telemetry_phases.json"), "w") as f:
+                    json.dump({"engineInstanceId": instance_id,
+                               "phaseSeconds": {k: round(v, 6)
+                                                for k, v in phases.items()}},
+                              f, indent=2, sort_keys=True)
+            except OSError:
+                logger.warning("could not write telemetry phase table to "
+                               "%s", profile_dir, exc_info=True)
         row = instances.get(instance_id)
         instances.update(EngineInstance(
             **{**row.__dict__, "status": "COMPLETED", "end_time": _now(),

@@ -19,6 +19,17 @@ carries ``"degraded": true``; ``GET /`` counts them in ``degradedCount``
 (batch-granular on the batched path: a tainted flush flags every answer
 in it, so the count is an upper bound on the queries affected).
 
+Observability (``common/``): after the probes, ``telemetry.handle_route``
+answers ``/metrics``, ``/traces.json``, ``/debug/{device,slow,events}.json``
+and ``/debug/profile``, as on every daemon. A sampled
+query (``PIO_WATERFALL=1``) records its stages: ``admission`` (the
+batcher's queue wait), ``supplement``, ``dispatch`` (with ``pad`` and
+``execute`` nested inside it by the algorithm), ``merge`` and
+``serialize``; the flush runs in a ``dispatch`` span under the
+request's trace. The deploy's load and drain are journal events.
+``PIO_TELEMETRY=1`` adds ``pio_serve_seconds``. With every knob unset
+the answers are byte-identical to a server without them.
+
 Multi-tenancy, fold-in, partitions, plugins, feedback, AOT, SLOs and the
 metrics history of the JAX server arrive in later slices.
 """
@@ -37,7 +48,9 @@ from typing import Any, Dict, Optional, Tuple
 
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch import knobs
-from predictionio_tpu_torch.common import resilience
+from predictionio_tpu_torch.common import (
+    devicewatch, journal, resilience, telemetry, tracing, waterfall,
+)
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.ops import quant as serve_quant
@@ -172,6 +185,9 @@ class QueryAPI:
         #: wall-clock from load start to servable (blob read, quantize,
         #: device layout)
         self.time_to_ready_s: Optional[float] = None
+        # device observability: kernel-build watchdog + HBM gauges on
+        # this daemon's /metrics and /debug/device.json (idempotent)
+        devicewatch.install()
         self._load_single()
 
     # ------------------------------------------------------------- loading
@@ -198,6 +214,7 @@ class QueryAPI:
              if getattr(m, "quant", None) is not None), None)
         if quant_state is None and quant_requested:
             quant_state = {"enabled": False, "fellBack": True}
+        serve_quant.record_state(quant_state)
         batcher = self._make_batcher(algorithms, models, serving)
         with self._lock:
             self.engine_instance = instance
@@ -216,6 +233,13 @@ class QueryAPI:
                     "batching %s) in %.2fs", instance.id, self.device,
                     len(algorithms), "on" if batcher is not None else "off",
                     self.time_to_ready_s)
+        journal.emit(
+            "lifecycle",
+            (f"model generation {self.generation} live (initial deploy: "
+             f"instance {instance.id})"),
+            level=journal.INFO,
+            generation=self.generation, instanceId=instance.id,
+            reload=False, timeToReadyS=round(self.time_to_ready_s, 3))
 
     def _make_batcher(self, algorithms, models, serving
                       ) -> Optional[MicroBatcher]:
@@ -234,11 +258,17 @@ class QueryAPI:
             # a failed side-channel lookup anywhere in the flush taints
             # every answer of it: predict_batch does not say which query
             resilience.reset_degraded()
-            supplemented = [serving.supplement(q) for q in queries]
-            per_algo = [protocol.predict_batch(a, m, supplemented)
-                        for a, m in zip(algorithms, models)]
-            served = [serving.serve(q, [col[j] for col in per_algo])
-                      for j, q in enumerate(queries)]
+            with waterfall.stage("supplement"):
+                supplemented = [serving.supplement(q) for q in queries]
+            # the batched dispatch ends in the .cpu() copy of the top-k;
+            # the algorithm refines `dispatch` with nested pad/execute
+            with tracing.span("dispatch", service="query-server"):
+                with waterfall.stage("dispatch"):
+                    per_algo = [protocol.predict_batch(a, m, supplemented)
+                                for a, m in zip(algorithms, models)]
+            with waterfall.stage("merge"):
+                served = [serving.serve(q, [col[j] for col in per_algo])
+                          for j, q in enumerate(queries)]
             degraded = bool(resilience.pop_degraded())
             return [(p, degraded) for p in served]
 
@@ -263,12 +293,20 @@ class QueryAPI:
         if self._draining.is_set():
             return
         self._draining.set()
+        journal.emit("lifecycle", "drain begin: stopped admitting "
+                     "queries; flushing admitted batches",
+                     level=journal.INFO, generation=self.generation)
+        t0 = time.perf_counter()
         with self._lock:
             batcher = self._batcher
         if batcher is not None:
             batcher.close(timeout=(grace_s if grace_s is not None
                                    else self.config.drain_grace_s))
         self._stop_requested.set()
+        journal.emit("lifecycle", "drain complete: every admitted "
+                     "in-flight request answered",
+                     level=journal.INFO, generation=self.generation,
+                     drainS=round(time.perf_counter() - t0, 3))
 
     def close(self) -> None:
         """Retire the batcher (server shutdown)."""
@@ -291,6 +329,12 @@ class QueryAPI:
                 return 200, {"status": "ok"}
             if path == "/readyz" and method == "GET":
                 return self._readyz()
+            t = telemetry.handle_route(
+                method, path, query,
+                accept=(headers or {}).get("accept")
+                or (headers or {}).get("Accept"))
+            if t is not None:    # /metrics, /traces.json, /debug/*
+                return t
             if path == "/queries.json" and method == "POST":
                 return self._queries(body)
             if path == "/stop" and method == "POST":
@@ -362,9 +406,15 @@ class QueryAPI:
                 getattr(algorithms[0], "query_class", None), body)
         except (ValueError, UnicodeDecodeError) as e:
             return 400, {"message": str(e)}
+        # latency waterfall (PIO_WATERFALL=1): this request's stage
+        # breakdown; rec is None when sampling is off and every waterfall
+        # call below is a cheap no-op
+        rec = waterfall.begin("batched" if batcher is not None
+                              else "inline")
         if batcher is not None:
             try:
-                prediction, degraded = batcher.submit(query)
+                with waterfall.activate((rec,)):
+                    prediction, degraded = batcher.submit(query)
             except ServerSaturated as e:
                 return 503, {"message": (
                     "serving queue is saturated (admission control); "
@@ -375,15 +425,26 @@ class QueryAPI:
                     {"Retry-After": "1"}
         else:
             resilience.reset_degraded()
-            supplemented = serving.supplement(query)
-            predictions = [a.predict(m, supplemented)
-                           for a, m in zip(algorithms, models)]
-            prediction = serving.serve(query, predictions)
+            with devicewatch.serving_region("serve_inline",
+                                            signature="inline"):
+                with waterfall.activate((rec,)):
+                    with waterfall.stage("supplement"):
+                        supplemented = serving.supplement(query)
+                    with waterfall.stage("dispatch"):
+                        predictions = [a.predict(m, supplemented)
+                                       for a, m in zip(algorithms, models)]
+                    with waterfall.stage("merge"):
+                        prediction = serving.serve(query, predictions)
             degraded = bool(resilience.pop_degraded())
-        result = json_extractor.to_json_obj(prediction)
+            devicewatch.note_serving_flush()
+        with waterfall.activate((rec,)):
+            with waterfall.stage("serialize"):
+                result = json_extractor.to_json_obj(prediction)
         if degraded:
             with self._lock:
                 self.degraded_count += 1
+            # a degraded answer is a trace worth keeping
+            tracing.pin_current("degraded")
             if isinstance(result, dict):
                 result = {**result, "degraded": True}
         if _has_non_finite(result):
@@ -394,6 +455,16 @@ class QueryAPI:
                          "deployed model is numerically invalid); retrain "
                          "and redeploy"}
         dt = time.perf_counter() - t0
+        waterfall.end(rec)   # close the breakdown; offer to /debug/slow.json
+        if telemetry.on():
+            # end-to-end serve latency (parse -> predict -> serialize);
+            # the predict path ends in the .cpu() copy of its result
+            telemetry.registry().histogram(
+                "pio_serve_seconds",
+                "POST /queries.json end-to-end serve latency",
+                labelnames=("mode", "tenant")).labels(
+                    mode="batched" if batcher is not None else "inline",
+                    tenant="default").observe(dt)
         with self._lock:
             self.last_serving_sec = dt
             self.avg_serving_sec = (

@@ -8,9 +8,9 @@ byte-identical (status, body and content type) and the stored rows equal.
 Requests carry ``eventId``, ``eventTime`` and ``creationTime`` wherever the
 server would otherwise mint them; the webhook cases, whose connectors
 build the event, compare with only ``eventId`` and ``creationTime``
-masked. The telemetry routes are the one documented difference: the
-reference answers them and the port, which has no telemetry layer yet,
-answers 404.
+masked. The telemetry routes answer as the reference's; its
+``/debug/history.json`` (the metrics flight recorder, not ported yet)
+answers 404 like any unknown path.
 """
 
 import base64
@@ -411,14 +411,37 @@ def test_same_answers_and_rows_as_the_reference(name, monkeypatch):
 
 @pytest.mark.parametrize("route", ["/metrics", "/traces.json"])
 def test_telemetry_routes_are_the_documented_difference(route):
-    """The reference serves its telemetry registry here; the port has none
-    yet (ROADMAP queue 1 item 3) and answers as for any unknown path."""
+    """The event server's telemetry routes, which answered 404 before the
+    port had a telemetry layer, now answer as the reference's: the same
+    status and content type, the stats book's exposition lines byte for
+    byte after the same ingest, and the same empty span ring."""
+    from predictionio_tpu.common import tracing as ref_tracing
+    from predictionio_tpu_torch.common import tracing
+
     p = Pair()
-    assert ref_dispatch(p.ref, "GET", route, b"", {}).status == 200
-    unknown = ref_dispatch(p.ref, "GET", "/nope.json", b"", {})
-    assert dispatch_request(p.port, "GET", route, b"", {})[:3] == (
-        unknown.status, unknown.data, unknown.ctype) == (
-        404, b'{"message": "Not Found"}', "application/json; charset=UTF-8")
+    p.build(stats_on=True)
+    assert p.send("POST", q("/events.json"), ev(eid="m1"))[0] == 201
+    assert p.send("POST", q("/events.json"), b"{not json")[0] == 400
+    ref_tracing.clear()
+    tracing.clear()
+    ref = ref_dispatch(p.ref, "GET", route, b"", {})
+    status, data, ctype, _extra = dispatch_request(p.port, "GET", route,
+                                                   b"", {})
+    assert (status, ctype) == (ref.status, ref.ctype)
+    assert status == 200
+    if route == "/traces.json":
+        assert data == ref.data
+        assert json.loads(data)["traces"] == []
+    else:
+        book = p.port.stats.collect_metrics()
+        assert book == p.ref.stats.collect_metrics()
+        assert 'pio_events_ingested_total{app_id="' in book[-1]
+        lines = data.decode().splitlines()
+        assert all(line in lines for line in book)
+    unknown = dispatch_request(p.port, "GET", "/debug/history.json", b"",
+                               {})
+    assert unknown[:3] == dispatch_request(p.port, "GET", "/nope.json",
+                                           b"", {})[:3]
 
 
 def _wire(port, method, target, body=None):

@@ -97,6 +97,20 @@ TEMPLATE_SLICE = [
 ]
 
 
+#: the observability slice: the metrics registry, traces, the journal,
+#: latency waterfalls, the device watch, on-demand profiling and `pio
+#: profile`
+OBSERVABILITY_SLICE = [
+    "predictionio_tpu_torch.common.devicewatch",
+    "predictionio_tpu_torch.common.journal",
+    "predictionio_tpu_torch.common.profiling",
+    "predictionio_tpu_torch.common.telemetry",
+    "predictionio_tpu_torch.common.tracing",
+    "predictionio_tpu_torch.common.waterfall",
+    "predictionio_tpu_torch.tools.profile",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -110,9 +124,10 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 83
+    assert int(names[-1]) == len(names) - 1 >= 90
     assert set(EVENT_SLICE) <= set(names[:-1])
     assert set(TEMPLATE_SLICE) <= set(names[:-1])
+    assert set(OBSERVABILITY_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

@@ -36,12 +36,7 @@ REFUSED = {
     "PIO_TENANT_HBM_BUDGET_MB": ["512"],
     "PIO_TENANT_HBM_HARD_CAP_MB": ["4096"],
     "PIO_FAULT_SPEC": ["drop@server:0.5"],
-    "PIO_TELEMETRY": ["1"],
-    "PIO_TRACE": ["1"],
-    "PIO_JOURNAL": ["1"],
     "PIO_HISTORY": ["1"],
-    "PIO_WATERFALL": ["1"],
-    "PIO_PROFILE_ENABLE": ["1"],
 }
 
 UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
@@ -167,3 +162,56 @@ def test_event_server_and_daemon_variables_are_read(monkeypatch, name):
         monkeypatch.setenv("PIO_SSL_CERTFILE", NOW_READ["PIO_SSL_CERTFILE"])
         with pytest.raises(OSError):
             server_security.ssl_context_from_env()
+
+
+#: the observability variables the port reads since its telemetry,
+#: tracing, journal, waterfall, devicewatch and profiling modules
+#: landed, each with a value that changes what the module does, and the
+#: function that shows it
+def _observability_reads():
+    from predictionio_tpu_torch.common import (
+        devicewatch, journal, profiling, telemetry, tracing, waterfall,
+    )
+    return {
+        "PIO_TELEMETRY": ("1", telemetry.on, True),
+        "PIO_TRACE": ("1", tracing.enabled, True),
+        "PIO_TRACE_BUFFER": ("64", tracing._buffer_cap, 64),
+        "PIO_TRACE_TAIL_MS": ("5", tracing._tail_ms, 5.0),
+        "PIO_TRACE_TAIL_TRACES": ("8", tracing._tail_cap, 8),
+        "PIO_JOURNAL": ("0", journal.enabled, False),
+        "PIO_JOURNAL_BUFFER": ("32", journal._buffer_cap, 32),
+        "PIO_WATERFALL": ("1", waterfall.enabled, True),
+        "PIO_WATERFALL_SAMPLE": ("3", waterfall._sample_every, 3),
+        "PIO_SLOW_RING": ("5", waterfall._ring_cap, 5),
+        "PIO_PROFILE_DIR": ("/srv/prof", profiling.base_dir, "/srv/prof"),
+        "PIO_PROFILE_MAX_MS": ("250", profiling.max_ms, 250),
+        "PIO_PROFILE_ENABLE": ("0", profiling.post_enabled, False),
+        "PIO_SERVE_WARMUP_FLUSHES": ("4", devicewatch._warmup_flush_count,
+                                     4),
+    }
+
+
+OBSERVABILITY = sorted(_observability_reads())
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY)
+def test_observability_variables_are_read(monkeypatch, name):
+    """The five switches and their tuning knobs are read with the
+    reference's meaning and refused nowhere; PIO_HISTORY (the metrics
+    flight recorder, not ported yet) stays refused at every daemon."""
+    from predictionio_tpu_torch.common import (
+        journal, telemetry, tracing, waterfall,
+    )
+    _clear(monkeypatch)
+    for mod in (telemetry, tracing, journal, waterfall):
+        monkeypatch.setattr(mod, "_override", None)
+    value, read, want = _observability_reads()[name]
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    assert read() == want
+    monkeypatch.setenv("PIO_HISTORY", "1")
+    for verb in knobs.DAEMONS:
+        with pytest.raises(ValueError, match="PIO_HISTORY=1"):
+            knobs.refuse_unported(verb)

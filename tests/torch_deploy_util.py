@@ -1,0 +1,87 @@
+"""Shared set-up for the port's observability tests: the same small ALS
+model (dyadic-grid factors, so every product is exact) deployed in the
+JAX package's QueryAPI and in the port's, each on its own in-memory
+store, plus the other daemons of both packages."""
+
+import datetime as dt
+import json
+
+import numpy as np
+
+from predictionio_tpu.data.bimap import BiMap as JBiMap
+from predictionio_tpu.data.storage import EngineInstance as JEngineInstance
+from predictionio_tpu.data.storage import Model as JModel
+from predictionio_tpu.data.storage import Storage as JStorage
+from predictionio_tpu.models.recommendation.als_algorithm import (
+    ALSModel as JALSModel,
+)
+from predictionio_tpu.workflow import create_server as jserver
+from predictionio_tpu.workflow import model_io as jmodel_io
+from predictionio_tpu_torch.data.storage import EngineInstance, Model, Storage
+from predictionio_tpu_torch.workflow import create_server as tserver
+
+N_USERS, N_ITEMS, RANK = 24, 40, 4
+MEM = {
+    "PIO_STORAGE_SOURCES_M_TYPE": "memory",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+}
+PARAMS = {
+    "datasource": json.dumps({"params": {"appName": "ObsApp"}}),
+    "algorithms": json.dumps([{"name": "als", "params": {
+        "rank": RANK, "numIterations": 2, "lambda": 0.01, "seed": 3}}]),
+}
+#: the variables that switch the port's observability on; the tests
+#: clear them first so the process environment cannot leak in
+KNOBS = ("PIO_TELEMETRY", "PIO_TRACE", "PIO_WATERFALL", "PIO_JOURNAL",
+         "PIO_PROFILE_ENABLE", "PIO_PROFILE_DIR", "PIO_WATERFALL_SAMPLE",
+         "PIO_SLOW_RING", "PIO_SERVE_WARMUP_FLUSHES")
+
+
+def dyadic_blob(seed: int = 11) -> bytes:
+    """A serialized ALS model whose factors lie on a 1/8 grid."""
+    rng = np.random.default_rng(seed)
+    U = rng.integers(-8, 9, size=(N_USERS, RANK)).astype(np.float32) / 8
+    V = rng.integers(-8, 9, size=(N_ITEMS, RANK)).astype(np.float32) / 8
+    return jmodel_io.serialize_models([JALSModel(
+        rank=RANK, user_factors=U, item_factors=V,
+        user_vocab=JBiMap.string_int(f"u{i}" for i in range(N_USERS)),
+        item_vocab=JBiMap.string_int(f"i{i}" for i in range(N_ITEMS)))])
+
+
+def _instance(cls, factory):
+    now = dt.datetime(2024, 5, 6, tzinfo=dt.timezone.utc)
+    return cls(id="", status="COMPLETED", start_time=now, end_time=now,
+               engine_id="default", engine_version="NOT_USED",
+               engine_variant="default", engine_factory=factory,
+               data_source_params=PARAMS["datasource"],
+               algorithms_params=PARAMS["algorithms"])
+
+
+def deploy_both(blob: bytes, batching: str = "on"):
+    """(reference QueryAPI, port QueryAPI) serving ``blob`` quantized on
+    the CPU through the plain int8 path; the caller closes both. Set
+    PIO_SERVE_QUANT=on and PIO_SERVE_FUSED=off first."""
+    js = JStorage(env=MEM)
+    jid = js.get_meta_data_engine_instances().insert(_instance(
+        JEngineInstance,
+        "predictionio_tpu.models.recommendation.engine:"
+        "RecommendationEngine"))
+    js.get_model_data_models().insert(JModel(jid, blob))
+    ts = Storage(env=MEM)
+    tid = ts.get_meta_data_engine_instances().insert(_instance(
+        EngineInstance,
+        "predictionio_tpu_torch.models.recommendation.engine:"
+        "RecommendationEngine"))
+    ts.get_model_data_models().insert(Model(tid, blob))
+    cfg = dict(batching=batching, batch_max_delay_ms=1.0)
+    japi = jserver.QueryAPI(storage=js, config=jserver.ServerConfig(
+        serve_quant="on", aot="off", **cfg))
+    tapi = tserver.QueryAPI(storage=ts, config=tserver.ServerConfig(
+        device="cpu", serve_quant="on", **cfg))
+    return japi, tapi
+
+
+def query(user: str, num: int) -> bytes:
+    return json.dumps({"user": user, "num": num}).encode()
