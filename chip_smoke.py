@@ -37,11 +37,13 @@ Phases (any failure raises and the script exits non-zero):
              and ``torch.linalg.solve``, beside the bound.
 5. train   — ``pio train --synthetic 20000263`` through the port's CLI, in
              process, on SQLite under a temporary ``PIO_FS_BASEDIR``, at
-             the engine.json's rank 10 and 10 iterations: phase seconds,
-             ms per iteration, RMSE before and after (finite, falling),
-             kernel A's launches (2 per iteration), the device idle share
-             over one profiled iteration, and a second train from the
-             same seed that must give bit-identical factors.
+             the engine.json's rank 10 and 10 iterations (the synthetic
+             chunks stream to the card: PIO_TRAIN_STREAM's default auto),
+             phase seconds, ms per iteration, RMSE before and after
+             (finite, falling), kernel A's launches (2 per iteration), the
+             device idle share over one profiled iteration, and a second
+             train from the same seed, in-core (PIO_TRAIN_STREAM=off) with
+             no cached layout, that must give bit-identical factors.
 6. path    — the instance the train phase stored is deployed: ``QueryAPI``
              quantizes it on the card and ``serve()`` answers POST
              /queries.json on 127.0.0.1 (sequential and concurrent
@@ -61,7 +63,10 @@ Phases (any failure raises and the script exits non-zero):
              dispatch under one trace id; /debug/device.json's HBM
              gauges are the card's and no kernel build ran after
              warmup; /debug/events.json holds the deploy, the journal
-             its drain. Then POST /debug/profile?ms=1000 while 32
+             its drain; /metrics carries the SLO engine's pio_slo_*
+             families and the flight recorder's pio_history_*, and
+             /debug/history.json counts 8 further queries in its
+             served-latency series. Then POST /debug/profile?ms=1000 while 32
              sequential queries run: the Chrome trace must hold B1 and
              B2 once per flush, launched by one thread other than the
              client's. Then ``pio train --synthetic 200000 --telemetry
@@ -128,6 +133,27 @@ Phases (any failure raises and the script exits non-zero):
              the card): ``pi`` and ``theta`` within 1e-5 relative of a
              CPU train, and 1,000 held-out points answered at least 90%
              right.
+10. store  — the eventlog store through the port's CLI, in process (events
+             in an eventlog directory, metadata on SQLite, models as files):
+             ``pio app new``; ``synthetic.write_events`` fills 20,000,263
+             ML-20M-shaped events from ``--seed`` (138,493 users x 26,744
+             items) through ``append_encoded``; ``read_columns`` with one
+             decode thread against the pool (byte-identical), and
+             ``find_columnar`` streamed to the card against in-core (the
+             same columns and digest), each timed; ``pio train`` under
+             PIO_TRAIN_STREAM=on, then off (each building its layout),
+             then unset (the warm train: one layout-cache hit, no staged
+             copy), each under torch.profiler with kernel A 20 times, the
+             three models bit-identical, their phases and the device's
+             idle share printed beside phase 5's and the quickstart's;
+             ``pio import`` of the quickstart's 1,000,000-event file into
+             an eventlog app (events/s beside the SQLite import's) and
+             ``pio train`` from it (kernel A 20 times, read_io beside
+             SQLite's); ``head_cursor``, 1,000 events through the event
+             server, ``cursor_lag`` 1,000 and ``read_columns_since``
+             exactly those rows; ``pio deploy`` of the warm train's model,
+             16 queries equal to the plain int8 path, B1 and B2 once per
+             flush, ``pio undeploy``.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -184,8 +210,9 @@ from predictionio_tpu_torch.models.recommendation.engine import (
 from predictionio_tpu_torch.models.similarproduct.engine import (
     SimilarProductEngine,
 )
+from predictionio_tpu_torch.models.recommendation import als_algorithm
 from predictionio_tpu_torch.ops import (
-    _kernels, als, naive_bayes, quant, solve, topk, topk_fused,
+    _kernels, als, naive_bayes, quant, solve, staging, topk, topk_fused,
 )
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow import (
@@ -820,18 +847,27 @@ def phase_train(work: str, seed: int, dev: torch.device):
               if k.startswith("phase_")}
     n_users, n_items = len(model.user_vocab), len(model.item_vocab)
 
-    if cli.main(argv) != 0:              # the same seed, again
-        raise AssertionError("the second pio train failed")
+    # the same seed again, in-core (PIO_TRAIN_STREAM=off) and with no
+    # cached layout: the streamed train's model, bit for bit
+    als_algorithm._BIG_LAYOUT_CACHE.clear()
+    os.environ["PIO_TRAIN_STREAM"] = "off"
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError("the second pio train failed")
+    finally:
+        os.environ.pop("PIO_TRAIN_STREAM", None)
     (row2,) = [r for r in instances.get_all() if r.id != row.id]
     (model2,) = model_io.deserialize_models(
         store.get_model_data_models().get(row2.id).models)
     for a, b in ((model.user_factors, model2.user_factors),
                  (model.item_factors, model2.item_factors)):
         if a.tobytes() != b.tobytes():
-            raise AssertionError("two trains from one seed differ")
+            raise AssertionError("two trains from one seed, streamed and "
+                                 "in-core, differ")
 
     # RMSE, ms per iteration and idle share on the same synthetic data
-    td = synthetic.training_data(N_RATINGS, seed=seed)
+    td = synthetic.training_data(N_RATINGS, seed=seed, stream=False,
+                                 device=dev)
     rmse0, rmse1, ms_iter, per, pwall = _rmse_and_iterations(
         td, model, params, dev)
     busy_ms = sum(us for us, _n in per.values()) / 1e3
@@ -851,7 +887,7 @@ def phase_train(work: str, seed: int, dev: torch.device):
           + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
           + f"; {ms_iter:.1f} ms per iteration; RMSE {rmse0:.4f} -> "
           f"{rmse1:.4f}; solve_gj launched {launches} times; the second "
-          "train from the seed is bit-identical", flush=True)
+          "train from the seed, in-core, is bit-identical", flush=True)
     idle_s = (f"{idle:.4f}" if idle is not None
               else "not measured (no device events recorded)")
     print(f"train: one profiled iteration, wall {pwall * 1e3:.1f} ms, "
@@ -1050,6 +1086,8 @@ OBSERVE_ENV = {"PIO_TELEMETRY": "1", "PIO_TRACE": "1", "PIO_WATERFALL": "1",
 TOP_STAGES = ("admission", "supplement", "dispatch", "merge", "serialize")
 NESTED_STAGES = ("pad", "execute")
 OBSERVE_SYNTHETIC = 200_000
+OBSERVE_TICK_S = 0.25           # the flight recorder's tick in the phase
+HISTORY_QUERIES = 8             # serves the recorder's deltas must count
 
 
 def _get(port: int, path: str, method: str = "GET"):
@@ -1239,6 +1277,62 @@ def _stage_split(records, lat: dict) -> dict:
     return out
 
 
+def _history_serves(port: int, users, deadline_s: float = 15.0) -> dict:
+    """Serves the flight recorder must see: once two sampler ticks have
+    passed since the traffic created ``pio_serve_seconds`` (so a tick
+    holds its baseline), HISTORY_QUERIES more queries, then poll
+    /debug/history.json until its served-latency deltas count them (the
+    sampler runs on its own clock)."""
+    def history_json():
+        return json.loads(_get(
+            port, "/debug/history.json?series=pio_serve_seconds")[2])
+
+    t0 = time.perf_counter()
+    start = history_json()["ticksTotal"]
+    while history_json()["ticksTotal"] < start + 2:
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError("the flight recorder stopped ticking")
+        time.sleep(0.05)
+    for u in users[:HISTORY_QUERIES]:
+        if _post(port, u, 10)[0] != 200:
+            raise AssertionError("a history query failed")
+    while True:
+        hist = history_json()
+        seen = sum(v["count"] for e in hist["samples"]
+                   for k, v in e["series"].items()
+                   if k.startswith("pio_serve_seconds"))
+        if seen >= HISTORY_QUERIES:
+            return hist
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"/debug/history.json counted {seen} of "
+                                 f"{HISTORY_QUERIES} serves")
+        time.sleep(0.05)
+
+
+def _slo_history_check(metrics: str, hist: dict) -> dict:
+    """The SLO families on /metrics, the recorder's, and served-latency
+    series on /debug/history.json."""
+    families = ("pio_slo_latency_threshold_ms", "pio_slo_target",
+                "pio_slo_error_budget_remaining", "pio_slo_burn_rate",
+                "pio_history_ticks_total", "pio_history_series")
+    missing = [f for f in families if not _samples(metrics, f)]
+    observed = sum(v["count"] for e in hist.get("samples", ())
+                   for k, v in e["series"].items()
+                   if k.startswith("pio_serve_seconds"))
+    if missing or not hist.get("enabled") or not hist.get("samples") \
+            or observed <= 0:
+        raise AssertionError(f"SLO / history: missing {missing}, history "
+                             f"enabled {hist.get('enabled')}, "
+                             f"{len(hist.get('samples', ()))} samples, "
+                             f"{observed} serves in them")
+    return {"families": list(families),
+            "budget_remaining": _samples(
+                metrics, "pio_slo_error_budget_remaining"),
+            "history_samples": len(hist["samples"]),
+            "history_ticks": hist["ticksTotal"],
+            "serves_in_history": observed}
+
+
 def phase_observe(work: str, store, iid: str, users, seed: int,
                   served: dict, dev: torch.device) -> dict:
     """Phase 5's instance deployed again with PIO_TELEMETRY, PIO_TRACE,
@@ -1247,10 +1341,15 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
     account for every request; then a live /debug/profile capture and a
     profiled train."""
     from predictionio_tpu_torch.common import (
-        devicewatch, journal, profiling, tracing, waterfall,
+        devicewatch, history, journal, profiling, tracing, waterfall,
     )
 
     seq, burst, _profiled = _path_queries(users, seed)
+    # a fresh flight recorder whose sampler ticks every OBSERVE_TICK_S
+    # while the phase runs, so /metrics and /debug/history.json have its
+    # series to show
+    history.reset()
+    history.install(history.HistoryConfig(tick_s=OBSERVE_TICK_S))
     saved = {k: os.environ.get(k) for k in
              (*OBSERVE_ENV, "PIO_PROFILE_DIR", "PIO_SYNTHETIC_EVENTS",
               "PIO_SYNTHETIC_SEED")}
@@ -1290,6 +1389,7 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
             # read before the profiled queries push these spans out
             traces = json.loads(_get(port, "/traces.json?limit=1024")[2])
             live = _live_profile(port, api, users, seed, dev)
+            hist = _history_serves(port, users)
             metrics = _get(port, "/metrics")[2].decode()
             slow = json.loads(_get(port, "/debug/slow.json?limit=1024")[2])
             device = json.loads(_get(port, "/debug/device.json")[2])
@@ -1384,6 +1484,10 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
                 ).values()):
             raise AssertionError(f"watchdog {wd}, HBM lines {hbm}")
 
+        # the SLO engine and the flight recorder on /metrics, and series
+        # on /debug/history.json
+        slo_history = _slo_history_check(metrics, hist)
+
         # /debug/events.json and the drain: the deploy's lifecycle
         live_ev = [e["message"] for e in events["events"]]
         drain_ev = [e["message"] for e in journal.snapshot()["events"]]
@@ -1406,6 +1510,8 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        history.reset()
+        history.install(history.HistoryConfig.from_env())
     phase_s = time.perf_counter() - t_phase
     for (mode, sp), n in zip(split.items(), (len(seq_recs),
                                              len(con_recs))):
@@ -1423,6 +1529,7 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
           f"{ms['bytes_limit']} (peak {ms['peak_bytes_in_use']}), "
           f"post-warmup recompiles 0 after {wd['servingFlushes']} flushes",
           flush=True)
+    print("observe: SLO and history " + json.dumps(slo_history), flush=True)
     print("observe: live profile " + json.dumps(live), flush=True)
     print("observe: profiled train " + json.dumps(train), flush=True)
     print(f"observe: phase {phase_s:.1f} s", flush=True)
@@ -1434,6 +1541,7 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
                            "knobs_off": {"sequential": off_seq,
                                          "concurrent": off_con}},
             "hbm": ms, "post_warmup_recompiles": 0,
+            "slo_history": slo_history,
             "live_profile": live, "profiled_train": train,
             "phase_s": phase_s}
 
@@ -1732,67 +1840,14 @@ def phase_quickstart(work: str, seed: int, dev: torch.device):
           flush=True)
 
     # pio deploy of that instance, the quickstart's query, pio undeploy
-    apis = []
-
-    class Recorded(create_server.QueryAPI):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            apis.append(self)
-
-    q_port, rcs = _free_port(), []
-    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
-        topk_fused.reset_launches()      # the quickstart deploy starts here
-        solve.reset_launches()
-        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
-            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
-            row.id, "--ip", "127.0.0.1", "--port", str(q_port),
-            "--serve-quant", "on"])), daemon=True)
-        deploy.start()
-        ready_s = _wait_ready(q_port, deploy.is_alive)
-        c = _Client(q_port)
-        try:
-            answers = [c.call("POST", "/queries.json",
-                              {"user": "1", "num": 4})
-                       for _ in range(1 + QS_QUERIES)]
-        finally:
-            c.close()
-        (api,) = apis
-        stats = api.handle("GET", "/")[1]
-        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
-                     str(q_port)]) != 0:
-            raise AssertionError("pio undeploy failed")
-        deploy.join(timeout=60)
-    launches = topk_fused.launches       # the quickstart deploy ends here
-    merge_launches = topk_fused.merge_launches
-    if rcs != [0] or deploy.is_alive():
-        raise AssertionError(f"pio deploy exited {rcs}")
-    if solve.launches:
-        raise AssertionError("the serving path launched solve_gj")
-    flushes = stats["batching"]["batches"]
-    if stats["quant"] is None or not stats["quant"].get("fused"):
-        raise AssertionError(f"deploy did not take the fused path: {stats}")
-    if flushes == 0 or launches != flushes or merge_launches != flushes:
-        raise AssertionError(
-            f"B1 launched {launches} times and B2 {merge_launches} times "
-            f"for {flushes} flushes (want one each per flush)")
-    m = api.models[0]
-    qs = m.quant
-    vals, idx = quant.topk_for_users_quant(
-        qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale,
-        torch.tensor([m.user_vocab("1")], dtype=torch.int32,
-                     device=qs.device), k=4, n_items=len(m.item_vocab))
-    inv = m.item_vocab.inverse()
-    want = {"itemScores": [{"item": inv(int(i)), "score": float(v)}
-                           for v, i in zip(vals[0].cpu().numpy(),
-                                           idx[0].cpu().numpy())]}
-    if len(want["itemScores"]) != 4:
-        raise AssertionError(f"the plain int8 path gave {want}")
-    for status, payload, _t in answers:
-        if status != 200 or payload != want:
-            raise AssertionError(f"the quickstart query answered {status} "
-                                 f"{payload}, the plain int8 path {want}")
-    first_ms = answers[0][2] * 1e3
-    q_p50, q_p99 = _pct([t for _s, _p, t in answers[1:]])
+    dep = _deploy_checked(engine_dir, row.id,
+                          [("1", 4)] * (1 + QS_QUERIES))
+    if len(dep["answers"][0]["itemScores"]) != 4:
+        raise AssertionError(f"the quickstart query gave {dep['answers']}")
+    ready_s, flushes = dep["ready_s"], dep["flushes"]
+    launches, merge_launches = dep["B1_launches"], dep["B2_launches"]
+    first_ms = dep["query_s"][0] * 1e3
+    q_p50, q_p99 = _pct(dep["query_s"][1:])
     print(f"quickstart: pio deploy ready in {ready_s:.3f} s; "
           f"{{\"user\": \"1\", \"num\": 4}} -> 200 with 4 itemScores equal "
           f"to the plain int8 path, {1 + QS_QUERIES} times; first "
@@ -2579,6 +2634,393 @@ def phase_templates(work: str, seed: int, dev: torch.device):
             ecom_out["train"]["solve_gj_launches"], rows, out)
 
 
+# the store phase: ML-20M's shape in an eventlog store (events in the
+# eventlog directory, metadata on SQLite, models as files beside them)
+STORE_APP, STORE_IMPORT_APP = "SmokeEventlog", "SmokeEventlogImport"
+STORE_KEY = "smoke-eventlog-key"
+STORE_CURSOR_BATCHES = 20                   # x 50 = 1,000 events
+STORE_QUERIES = 16
+STORE_KW = dict(entity_type="user", event_names=["rate", "buy"],
+                target_entity_type="item")
+#: the encoded columns of ColumnarEvents a read must reproduce
+STORE_COLS = ("entity_idx", "target_idx", "event_name_idx", "rating")
+
+
+def _eventlog_env(work: str) -> dict:
+    root = os.path.join(work, "eventlog_store")
+    return {
+        "PIO_STORAGE_SOURCES_META_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_META_PATH": os.path.join(root, "meta.sqlite"),
+        "PIO_STORAGE_SOURCES_EL_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_EL_PATH": os.path.join(root, "eventlog"),
+        "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_FS_PATH": os.path.join(root, "models"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "META",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EL",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "FS",
+    }
+
+
+def _engine_dir(work: str, name: str, app: str) -> str:
+    """An engine directory holding the template's engine.json pointed at
+    ``app``."""
+    path = os.path.join(work, name)
+    os.makedirs(path)
+    with open(ENGINE_JSON) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"]["appName"] = app
+    with open(os.path.join(path, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    return path
+
+
+def _store_train(engine_dir: str, store, iters: int, mode) -> dict:
+    """One ``pio train`` from an eventlog app with PIO_TRAIN_STREAM set to
+    ``mode`` (None: unset, the default auto), under torch.profiler: its
+    phases, kernel A's launches, the staged copies and layout-cache
+    outcomes it caused, and the device's idle share over the whole train;
+    and the stored model."""
+    if mode is None:
+        os.environ.pop("PIO_TRAIN_STREAM", None)
+    else:
+        os.environ["PIO_TRAIN_STREAM"] = mode
+    instances = store.get_meta_data_engine_instances()
+    before = {r.id for r in instances.get_all()}
+    stats = als_algorithm.LAYOUT_STATS
+    hits, builds, copies = stats["hits"], stats["builds"], staging.copies
+    rcs = []
+    solve.reset_launches()               # this train's path starts here
+    per, wall = _device_profile(
+        lambda: rcs.append(cli.main(["train", "--engine-dir", engine_dir])),
+        attempts=1)
+    launches = solve.launches            # and ends here
+    if rcs != [0]:
+        raise AssertionError(f"pio train ({mode}) exited {rcs}")
+    if launches != 2 * iters:
+        raise AssertionError(f"solve_gj launched {launches} times in "
+                             f"{iters} iterations (mode {mode})")
+    (row,) = [r for r in instances.get_all() if r.id not in before]
+    if row.status != "COMPLETED":
+        raise AssertionError(f"train left the instance {row.status}")
+    (model,) = model_io.deserialize_models(
+        store.get_model_data_models().get(row.id).models)
+    busy_ms = sum(us for us, _n in per.values()) / 1e3
+    return {"mode": mode or "auto (unset)", "instance": row.id,
+            "wall_s": wall,
+            "phases_s": {k[len("phase_"):-len("_s")]: float(v)
+                         for k, v in row.runtime_conf.items()
+                         if k.startswith("phase_")},
+            "solve_gj_launches": launches,
+            "staged_chunks": staging.copies - copies,
+            "layout_hits": stats["hits"] - hits,
+            "layout_builds": stats["builds"] - builds,
+            "device_busy_ms": busy_ms if per else None,
+            "idle_share": 1 - busy_ms / (wall * 1e3) if per else None}, \
+        model
+
+
+def _same_factors(a, b) -> bool:
+    return (a.user_factors.tobytes() == b.user_factors.tobytes()
+            and a.item_factors.tobytes() == b.item_factors.tobytes())
+
+
+def _cursor_check(store, app_id: int) -> dict:
+    """head_cursor, then 1,000 events in batches of 50 through the event
+    server over HTTP; cursor_lag must read 1,000 and read_columns_since
+    must return exactly those rows, in order."""
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+
+    ev = store.get_events()
+    head = ev.head_cursor(app_id)
+    server, port = http_mod.serve_background(
+        service.EventAPI(storage=store), "127.0.0.1", 0)
+    sent = []
+    c = _Client(port)
+    try:
+        t0 = time.perf_counter()
+        for b in range(STORE_CURSOR_BATCHES):
+            batch = [_rate(f"cur{b}", f"i{(b * 50 + k) % N_ITEMS}",
+                           float(k % 10 + 1) / 2) for k in range(50)]
+            status, results, _t = c.call(
+                "POST", f"/batch/events.json?accessKey={STORE_KEY}", batch)
+            if status != 200 or [r["status"] for r in results] != [201] * 50:
+                raise AssertionError(f"cursor batch {b}: {status}")
+            sent += batch
+        post_s = time.perf_counter() - t0
+    finally:
+        c.close()
+        server.shutdown()
+        server.server_close()
+    lag = ev.cursor_lag(app_id, cursor=head)
+    new_cursor, cols = ev.read_columns_since(app_id, cursor=head)
+    pool = cols["pool"]
+    got = [(pool[e], pool[t], float(r)) for e, t, r in zip(
+        cols["entity_code"].tolist(), cols["target_code"].tolist(),
+        cols["rating"].tolist())]
+    want = [(x["entityId"], x["targetEntityId"], x["properties"]["rating"])
+            for x in sent]
+    if lag != len(sent) or got != want:
+        raise AssertionError(f"cursor_lag {lag}, read_columns_since "
+                             f"returned {len(got)} rows, want {len(sent)}")
+    if ev.cursor_lag(app_id, cursor=new_cursor) != 0:
+        raise AssertionError("the advanced cursor still lags")
+    return {"head": head, "after": new_cursor, "lag": lag,
+            "rows": len(got), "post_s": post_s}
+
+
+def _deploy_checked(engine_dir: str, iid: str, queries) -> dict:
+    """``pio deploy`` of ``iid`` in a thread, the ``(user, num)`` queries in
+    order over one keep-alive connection, ``pio undeploy``. Every answer
+    must equal the plain int8 path on the deployed layout, B1 and B2 must
+    launch once per flush and kernel A never. Returns the seconds to
+    ready, the answers, each query's seconds, the flushes and the
+    launches."""
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    port, rcs = _free_port(), []
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        topk_fused.reset_launches()      # the deploy path starts here
+        solve.reset_launches()
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            iid, "--ip", "127.0.0.1", "--port", str(port),
+            "--serve-quant", "on"])), daemon=True)
+        deploy.start()
+        ready_s = _wait_ready(port, deploy.is_alive)
+        c = _Client(port)
+        try:
+            answers = [c.call("POST", "/queries.json",
+                              {"user": u, "num": n}) for u, n in queries]
+        finally:
+            c.close()
+        (api,) = apis
+        stats = api.handle("GET", "/")[1]
+        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                     str(port)]) != 0:
+            raise AssertionError("pio undeploy failed")
+        deploy.join(timeout=60)
+    launches = topk_fused.launches       # the deploy path ends here
+    merge_launches = topk_fused.merge_launches
+    if rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}")
+    if solve.launches:
+        raise AssertionError("the serving path launched solve_gj")
+    flushes = stats["batching"]["batches"]
+    if stats["quant"] is None or not stats["quant"].get("fused"):
+        raise AssertionError(f"deploy did not take the fused path: {stats}")
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
+        raise AssertionError(
+            f"B1 launched {launches} times and B2 {merge_launches} times "
+            f"for {flushes} flushes (want one each per flush)")
+    m = api.models[0]
+    qs = m.quant
+    inv = m.item_vocab.inverse()
+    for (u, n), (status, payload, _t) in zip(queries, answers):
+        vals, idx = quant.topk_for_users_quant(
+            qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale,
+            torch.tensor([m.user_vocab(u)], dtype=torch.int32,
+                         device=qs.device), k=n, n_items=len(m.item_vocab))
+        want = {"itemScores": [{"item": inv(int(i)), "score": float(v)}
+                               for v, i in zip(vals[0].cpu().numpy(),
+                                               idx[0].cpu().numpy())]}
+        if status != 200 or payload != want:
+            raise AssertionError(f"{u} answered {status} {payload}, the "
+                                 f"plain int8 path {want}")
+    return {"ready_s": ready_s, "answers": [a[1] for a in answers],
+            "query_s": [a[2] for a in answers], "flushes": flushes,
+            "B1_launches": launches, "B2_launches": merge_launches}
+
+
+def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
+                qs_out: dict) -> dict:
+    """The eventlog store on the card's path: the 20M fill and reads, the
+    streamed / in-core / warm trains through kernel A, ``pio import`` and
+    its train, the cursor check through the event server, and ``pio
+    deploy`` through B1 + B2. ``synth`` and ``qs_out`` are phase 5's and
+    the quickstart's numbers, printed beside this phase's."""
+    env = _eventlog_env(work)
+    saved = {k: os.environ.get(k) for k in
+             (*env, "PIO_TRAIN_STREAM", "PIO_SYNTHETIC_EVENTS",
+              "PIO_SYNTHETIC_SEED")}
+    for name in ("PIO_SYNTHETIC_EVENTS", "PIO_SYNTHETIC_SEED"):
+        os.environ.pop(name, None)
+    os.environ.update(env)
+    storage_mod.reset_storage()
+    t_phase = time.perf_counter()
+    try:
+        out = _phase_store(work, seed, dev, synth, qs_out)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("store: " + json.dumps(out), flush=True)
+    return out
+
+
+def _phase_store(work, seed, dev, synth, qs_out) -> dict:
+    for argv in (["app", "new", STORE_APP],
+                 ["app", "new", STORE_IMPORT_APP, "--access-key",
+                  STORE_KEY]):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"pio {' '.join(argv)} failed")
+    store = storage_mod.get_storage()
+    apps = store.get_meta_data_apps()
+    app_id = apps.get_by_name(STORE_APP).id
+    ev = store.get_events()
+
+    # 1. fill and read
+    src = synthetic.chunk_source(N_RATINGS, seed=seed, n_users=N_USERS,
+                                 n_items=N_ITEMS)
+    t0 = time.perf_counter()
+    n = synthetic.write_events(src, store, app_id)
+    fill_s = time.perf_counter() - t0
+    read_s, reads = {}, {}
+    for name, threads in (("serial", 1), ("pool", None)):
+        t0 = time.perf_counter()
+        reads[name] = ev.read_columns(app_id, read_threads=threads,
+                                      **STORE_KW)
+        read_s[name] = time.perf_counter() - t0
+    serial, pool = reads.pop("serial"), reads.pop("pool")
+    if serial["pool"] != pool["pool"] or any(
+            serial[k].tobytes() != pool[k].tobytes() for k in (
+                "entity_code", "target_code", "event_code", "rating",
+                "time_ms")) or serial["entity_code"].shape[0] != n:
+        raise AssertionError("read_columns: one thread and the pool differ")
+    del serial, pool
+    t0 = time.perf_counter()
+    in_core = store_mod.find_columnar(STORE_APP, storage=store, **STORE_KW)
+    in_core_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = store_mod.find_columnar(STORE_APP, storage=store, stream=True,
+                                       device=dev, **STORE_KW)
+    torch.cuda.synchronize()
+    streamed_s = time.perf_counter() - t0
+    mirror = streamed.staged
+    if (streamed.entity_idx is not None or mirror is None
+            or streamed.stream_digest != in_core.stream_digest
+            or streamed.entity_ids.to_dict() != in_core.entity_ids.to_dict()
+            or streamed.target_ids.to_dict() != in_core.target_ids.to_dict()
+            or any(getattr(mirror, f).cpu().numpy().tobytes()
+                   != getattr(in_core, f).tobytes() for f in STORE_COLS)):
+        raise AssertionError("the streamed read differs from the in-core "
+                             "read")
+    mirror.release()
+    del streamed, mirror, in_core
+    torch.cuda.empty_cache()
+    print(f"store: fill of {n} events ({N_USERS} users x {N_ITEMS} items) "
+          f"through append_encoded in {fill_s:.3f} s ({n / fill_s:.0f} "
+          f"events/s); read_columns one thread "
+          f"{read_s['serial']:.3f} s, pool {read_s['pool']:.3f} s, "
+          "byte-identical; find_columnar in-core "
+          f"{in_core_s:.3f} s, streamed to the card {streamed_s:.3f} s, "
+          "the same columns and digest", flush=True)
+
+    # 2. train: streamed, in-core, then warm, from one seed
+    with open(ENGINE_JSON) as f:
+        iters = json.load(f)["algorithms"][0]["params"]["numIterations"]
+    engine_dir = _engine_dir(work, "eventlog_engine", STORE_APP)
+    als_algorithm._BIG_LAYOUT_CACHE.clear()     # phase 5's layout
+    on, on_model = _store_train(engine_dir, store, iters, "on")
+    als_algorithm._BIG_LAYOUT_CACHE.clear()     # the off train builds too
+    off, off_model = _store_train(engine_dir, store, iters, "off")
+    warm, model = _store_train(engine_dir, store, iters, None)
+    if not (on["staged_chunks"] > 0 and on["layout_builds"] == 1
+            and off["layout_builds"] == 1):
+        raise AssertionError(f"the on / off trains: {on} {off}")
+    if (warm["layout_hits"], warm["layout_builds"],
+            warm["staged_chunks"]) != (1, 0, 0):
+        raise AssertionError(f"the warm train: {warm}")
+    if not (_same_factors(on_model, off_model)
+            and _same_factors(on_model, model)):
+        raise AssertionError("streamed, in-core and warm trains differ")
+    trains = [on, off, warm]
+    for t in trains:
+        idle = ("not measured (no device events recorded)"
+                if t["idle_share"] is None else f"{t['idle_share']:.4f}")
+        print(f"store: pio train PIO_TRAIN_STREAM={t['mode']}: wall "
+              f"{t['wall_s']:.3f} s (under torch.profiler); phases "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in t["phases_s"].items())
+              + f"; solve_gj {t['solve_gj_launches']} launches; "
+              f"{t['staged_chunks']} chunks staged; layout cache "
+              f"{t['layout_hits']} hit / {t['layout_builds']} build; device "
+              f"idle share over the train {idle}", flush=True)
+    print("store: beside phase 5's synthetic train phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in synth["phases_s"].items())
+          + f" (idle share of one iteration {synth['idle_share']}) and the "
+          "quickstart's SQLite train phases " + ", ".join(
+              f"{k} {v:.3f} s"
+              for k, v in qs_out["train"]["phases_s"].items()), flush=True)
+    iid = warm["instance"]
+
+    # 3. pio import into the eventlog, and a train from it
+    import_id = store.get_meta_data_apps().get_by_name(STORE_IMPORT_APP).id
+    path = os.path.join(work, "eventlog_import.json")
+    n_file = _write_import_file(path, seed)
+    t0 = time.perf_counter()
+    rc = cli.main(["import", "--appid", str(import_id), "--input", path])
+    import_s = time.perf_counter() - t0
+    os.remove(path)
+    if rc != 0:
+        raise AssertionError(f"pio import exited {rc}")
+    n_stored = ev.read_columns(import_id)["entity_code"].shape[0]
+    if n_stored != n_file:
+        raise AssertionError(f"imported {n_stored} of {n_file} events")
+    import_dir = _engine_dir(work, "eventlog_import_engine",
+                             STORE_IMPORT_APP)
+    imported, _model = _store_train(import_dir, store, iters, None)
+    qs_eps = qs_out["import_events_per_s"]
+    print(f"store: pio import of {n_file} events into the eventlog in "
+          f"{import_s:.3f} s ({n_file / import_s:.0f} events/s; the "
+          f"quickstart's SQLite import {qs_eps:.0f} events/s); its train: "
+          f"read_io {imported['phases_s'].get('read_io', 0):.3f} s (SQLite "
+          f"{qs_out['train']['phases_s'].get('read_io', 0):.3f} s), "
+          f"solve_gj {imported['solve_gj_launches']} launches", flush=True)
+
+    # 4. cursors through the event server
+    cursors = _cursor_check(store, import_id)
+    print(f"store: head_cursor {cursors['head']}, {cursors['rows']} events "
+          f"through the event server in {cursors['post_s']:.3f} s; "
+          f"cursor_lag {cursors['lag']}; read_columns_since returned "
+          f"exactly those rows; cursor now {cursors['after']}", flush=True)
+
+    # 5. deploy the eventlog-trained model
+    rng = np.random.default_rng(seed + 11)
+    users = list(model.user_vocab.to_dict())
+    dep = _deploy_checked(engine_dir, iid, [
+        (users[u], 10) for u in rng.integers(0, len(users),
+                                             size=STORE_QUERIES)])
+    p50, p99 = _pct(dep["query_s"])
+    deploy = {"ready_s": dep["ready_s"], "queries": STORE_QUERIES,
+              "query_ms": {"p50": p50, "p99": p99},
+              "flushes": dep["flushes"], "B1_launches": dep["B1_launches"],
+              "B2_launches": dep["B2_launches"]}
+    ev.close()          # the buffered tails into chunks, before cleanup
+    print(f"store: pio deploy ready in {deploy['ready_s']:.3f} s; "
+          f"{deploy['queries']} queries equal to the plain int8 path, p50 "
+          f"{deploy['query_ms']['p50']:.3f} ms p99 "
+          f"{deploy['query_ms']['p99']:.3f} ms; B1 {deploy['B1_launches']} "
+          f"and B2 {deploy['B2_launches']} launches for "
+          f"{deploy['flushes']} flushes", flush=True)
+    return {"events": n, "users": N_USERS, "items": N_ITEMS,
+            "fill_s": fill_s, "fill_events_per_s": n / fill_s,
+            "read_columns_s": read_s, "find_columnar_in_core_s": in_core_s,
+            "find_columnar_streamed_s": streamed_s, "trains": trains,
+            "import": {"events": n_file, "import_s": import_s,
+                       "events_per_s": n_file / import_s,
+                       "sqlite_events_per_s": qs_eps, "train": imported},
+            "cursors": cursors, "deploy": deploy}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2629,6 +3071,7 @@ def main(argv=None) -> int:
             work, args.seed, dev, n_app_events)
         (sim_launches, ecom_launches, tpl_solve_rows,
          tpl_out) = phase_templates(work, args.seed, dev)
+        store_out = phase_store(work, args.seed, dev, train, qs_out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2659,6 +3102,8 @@ def main(argv=None) -> int:
         "merge_library_ms": main_row["merge_library_ms"],
         "quickstart_launches": qs_launches,
         "quickstart_merge_launches": qs_merge_launches,
+        "store_launches": store_out["deploy"]["B1_launches"],
+        "store_merge_launches": store_out["deploy"]["B2_launches"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
@@ -2692,6 +3137,11 @@ def main(argv=None) -> int:
         "ecommerce_launches": ecom_launches,
         "implicit_by_side": tpl_solve_rows,
         "templates": tpl_out,
+        "store_launches": [t["solve_gj_launches"]
+                           for t in store_out["trains"]],
+        "store_import_launches":
+            store_out["import"]["train"]["solve_gj_launches"],
+        "store": store_out,
         "observe": observe["profiled_train"],
         "card": smi,
     }]}), flush=True)

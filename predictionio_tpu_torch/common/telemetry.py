@@ -531,12 +531,15 @@ _TRACES_LIMIT_DEFAULT = 64
 _TRACES_LIMIT_MAX = 1024
 
 #: every /debug/* surface this module serves for the daemons; all four
-#: of the port's daemons answer each one. The reference's
-#: ``/debug/history.json`` (the metrics flight recorder) is not ported
-#: yet and answers 404 like any unknown path.
+#: of the port's daemons answer each one
 DEBUG_PATHS: Tuple[str, ...] = (
     "/debug/device.json", "/debug/slow.json", "/debug/profile",
-    "/debug/events.json")
+    "/debug/events.json", "/debug/history.json")
+
+#: /debug/history.json?limit= bounds: the slow ring holds 1440 slots,
+#: so its ceiling is higher than the trace ring's
+_HISTORY_LIMIT_DEFAULT = 720
+_HISTORY_LIMIT_MAX = 1440
 
 
 def handle_route(method: str, path: str,
@@ -544,7 +547,7 @@ def handle_route(method: str, path: str,
                  accept: Optional[str] = None):
     """Serve ``GET /metrics`` / ``GET /traces.json`` / the ``/debug/*``
     surfaces (``device.json``, ``slow.json``, ``profile``,
-    ``events.json``) for any daemon's route handler;
+    ``events.json``, ``history.json``) for any daemon's route handler;
     returns None when the request is not a telemetry route (the handler
     continues with its own table).
     The read surfaces are unauthenticated by design, like ``/healthz``
@@ -605,6 +608,40 @@ def handle_route(method: str, path: str,
         return 200, journal.snapshot(since_seq=since_seq,
                                      category=category, level=level,
                                      limit=limit)
+    if path == "/debug/history.json":
+        # the metrics flight recorder (common/history.py): bounded
+        # in-process time-series rings — series narrows to a comma-
+        # separated family list, since_ms is a wall-clock cursor, res
+        # picks the fast (per-tick) or slow (downsampled) tier
+        from predictionio_tpu_torch.common import history
+        series = None
+        since_ms = 0
+        res = "fast"
+        limit = _HISTORY_LIMIT_DEFAULT
+        if query:
+            series = query.get("series") or None
+            raw = query.get("since_ms")
+            if raw:
+                try:
+                    since_ms = int(raw)
+                except ValueError:
+                    return 400, {"message": "since_ms must be an "
+                                 f"integer, got {raw!r}"}
+            raw = query.get("res")
+            if raw:
+                if raw not in ("fast", "slow"):
+                    return 400, {"message": "res must be fast or slow, "
+                                 f"got {raw!r}"}
+                res = raw
+            raw = query.get("limit")
+            if raw:
+                try:
+                    limit = max(1, min(int(raw), _HISTORY_LIMIT_MAX))
+                except ValueError:
+                    return 400, {"message": "limit must be an integer, "
+                                 f"got {raw!r}"}
+        return 200, history.snapshot(series=series, since_ms=since_ms,
+                                     res=res, limit=limit)
     if path == "/debug/slow.json":
         from predictionio_tpu_torch.common import waterfall
         limit = _TRACES_LIMIT_DEFAULT

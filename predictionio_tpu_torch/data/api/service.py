@@ -8,10 +8,9 @@ predictionio_tpu_torch/data/api/http.py.
 
 The telemetry routes (``/metrics``, ``/traces.json``, ``/debug/*``) are
 served by ``common/telemetry.handle_route`` as in the reference, and the
-device collector is installed; it reads no card in this host-only
-daemon. The reference's SLO and history samplers wait for a later slice
-(``/debug/history.json`` answers 404 like any unknown path). Every route
-answers byte for byte as the reference does.
+device collector, the SLO engine and the metrics history recorder are
+installed; the collector reads no card in this host-only daemon. Every
+route answers byte for byte as the reference does.
 
 Route surface parity:
   GET    /                          -> {"status": "alive"}
@@ -41,7 +40,9 @@ import os
 import urllib.parse
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from predictionio_tpu_torch.common import devicewatch, telemetry
+from predictionio_tpu_torch.common import (
+    devicewatch, history, slo, telemetry,
+)
 from predictionio_tpu_torch.data.api.plugins import (
     EventInfo, EventServerPluginContext,
 )
@@ -134,6 +135,11 @@ class EventAPI:
         # device gauges on this daemon's /metrics and /debug/device.json
         # too (the scrape surface is uniform; idempotent)
         devicewatch.install()
+        # SLO burn-rate gauges on /metrics (no-op until telemetry is on)
+        slo.install()
+        # metrics flight recorder: /debug/history.json rings (one
+        # sampler thread per process)
+        history.install()
 
     # ------------------------------------------------------------------ auth
     def _authenticate(self, query: Dict[str, str],

@@ -7,7 +7,9 @@
   ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE``;
 - a source of type ``<type>`` is the module
   ``predictionio_tpu_torch.data.storage.<type>`` (memory, sqlite,
-  localfs), whose DAO classes are named ``<Prefix><Entity>``;
+  localfs, eventlog), whose DAO classes are named ``<Prefix><Entity>``
+  (the eventlog store has events only: metadata stays on SQLite or
+  memory, as in the reference);
 - with no configuration, as in the reference, metadata and events live in
   one SQLite file ``$PIO_FS_BASEDIR/pio.sqlite`` and model blobs in
   ``$PIO_FS_BASEDIR/models`` (``PIO_FS_BASEDIR`` defaults to
@@ -33,14 +35,17 @@ __all__ = [
     "AccessKey", "AccessKeys", "App", "Apps", "Channel", "Channels",
     "EngineInstance", "EngineInstances", "EvaluationInstance",
     "EvaluationInstances", "Events", "Model", "Models", "NONE_FILTER",
-    "StorageClientConfig", "Storage", "get_storage",
+    "StorageClientConfig", "Storage", "get_storage", "reset_storage",
 ]
 
 MetaData = "METADATA"
 EventData = "EVENTDATA"
 ModelData = "MODELDATA"
 
-_CLASS_PREFIX = {"sqlite": "Sqlite", "memory": "Memory", "localfs": "LocalFS"}
+#: the ported backends and their DAO class prefixes (the reference's
+#: ``capitalize()`` rule, LocalFS excepted)
+_CLASS_PREFIX = {"sqlite": "Sqlite", "memory": "Memory", "localfs": "LocalFS",
+                 "eventlog": "Eventlog"}
 
 
 @dataclass
@@ -196,3 +201,10 @@ def get_storage() -> Storage:
             _storage = Storage()
         return _storage
 
+
+def reset_storage() -> None:
+    """Drop the singleton so the next :func:`get_storage` re-reads the
+    environment (a process that switches stores between runs)."""
+    global _storage
+    with _storage_lock:
+        _storage = None

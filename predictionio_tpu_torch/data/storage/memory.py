@@ -1,7 +1,7 @@
 """In-memory storage backend (port of the events, apps, access-key,
 channel, engine-instance, evaluation-instance and model DAOs of
-``predictionio_tpu/data/storage/memory.py``; the fold-in cursor methods
-wait for the fold-in slice)."""
+``predictionio_tpu/data/storage/memory.py``, with the events' cursor
+methods that fold-in tails)."""
 
 from __future__ import annotations
 
@@ -24,16 +24,23 @@ _ChannelKey = Tuple[int, Optional[int]]
 class MemoryEvents(base.Events):
     def __init__(self, client=None, config=None, namespace: str = ""):
         self._store: Dict[_ChannelKey, Dict[str, Event]] = {}
+        #: append-only arrival log per (app, channel), the cursor surface:
+        #: deletes drop events from _store but never rewrite the log, so
+        #: integer cursors stay stable (the in-memory analogue of the
+        #: eventlog's (seq, row))
+        self._log: Dict[_ChannelKey, List[Event]] = {}
         self._lock = threading.RLock()
 
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
             self._store.setdefault((app_id, channel_id), {})
+            self._log.setdefault((app_id, channel_id), [])
         return True
 
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self._lock:
             self._store.pop((app_id, channel_id), None)
+            self._log.pop((app_id, channel_id), None)
         return True
 
     def close(self) -> None:
@@ -44,8 +51,37 @@ class MemoryEvents(base.Events):
         event_id = event.event_id or uuid.uuid4().hex
         with self._lock:
             table = self._store.setdefault((app_id, channel_id), {})
-            table[event_id] = event.with_event_id(event_id)
+            stamped = event.with_event_id(event_id)
+            table[event_id] = stamped
+            self._log.setdefault((app_id, channel_id), []).append(stamped)
         return event_id
+
+    # -- incremental cursor read (the in-memory twin of the eventlog's
+    # read_columns_since, object-shaped: this backend has no columns) ----
+    def head_cursor(self, app_id: int,
+                    channel_id: Optional[int] = None) -> int:
+        with self._lock:
+            return len(self._log.get((app_id, channel_id), ()))
+
+    def cursor_lag(self, app_id: int, channel_id: Optional[int] = None,
+                   cursor: Optional[int] = None) -> int:
+        with self._lock:
+            return max(len(self._log.get((app_id, channel_id), ()))
+                       - int(cursor or 0), 0)
+
+    def read_events_since(self, app_id: int,
+                          channel_id: Optional[int] = None,
+                          cursor: Optional[int] = None
+                          ) -> Tuple[int, List[Event]]:
+        """``(new_cursor, events)``: every event inserted at or after the
+        integer ``cursor``, in arrival order. Deleted events keep their
+        log position (cursor stability) but leave the result."""
+        at = int(cursor or 0)
+        with self._lock:
+            log = self._log.get((app_id, channel_id), [])
+            table = self._store.get((app_id, channel_id), {})
+            out = [e for e in log[at:] if e.event_id in table]
+            return len(log), out
 
     def get(self, event_id: str, app_id: int,
             channel_id: Optional[int] = None) -> Optional[Event]:

@@ -1,7 +1,8 @@
 """SQLite storage backend — the file-backed default (port of
 ``predictionio_tpu/data/storage/sqlite.py``: events, apps, access keys,
-channels, engine instances, evaluation instances and model blobs; the
-fold-in cursor and tail reads wait for the fold-in slice).
+channels, engine instances, evaluation instances and model blobs, and
+the cursor reads ``head_cursor`` / ``cursor_lag`` / ``read_columns_since``
+that fold-in tails).
 
 The schema is the reference's, table for table, so a store that the JAX
 package's ``pio app new``/``pio import``/``pio train`` filled reads here,
@@ -332,6 +333,121 @@ class SqliteEvents(_Sqlite, base.Events):
                 (code[r[2]] for r in rows), np.int32, n),
             "rating": rat,
             "time_ms": tms,
+        }
+
+    # -- incremental cursor read (the realtime fold-in tail) -----------------
+    #
+    # The sqlite twin of eventlog's cursor surface (eventlog.py's head_cursor / cursor_lag / read_columns_since),
+    # over the table's implicit monotonic ``rowid``: a cursor is
+    # ``{"seq": 0, "row": r}`` meaning every row with rowid <= r has been
+    # consumed (``seq`` is fixed at 0 — sqlite has no chunk generations —
+    # so the cursor shape matches the eventlog contract and persists
+    # through the same fold-in CursorStore JSON unchanged). The cursor
+    # advances over EVERY inserted row past it — filters narrow the
+    # returned columns, never the consumed range — and a cursor past the
+    # live head (a reset/re-created database) clamps to the head.
+    # Caveat: sqlite may reuse
+    # the HIGHEST rowid after that exact row is deleted, so a follower
+    # can miss an event inserted immediately after a delete of the
+    # newest event. Deletes are tombstone-rare on the ingest path; the
+    # eventlog backend remains the recommended store where this window
+    # matters.
+
+    def head_cursor(self, app_id: int,
+                    channel_id: Optional[int] = None) -> Dict[str, int]:
+        """The cursor at the current end of the log (max rowid; global
+        across apps — per-app filters narrow reads, not positions)."""
+        rows = self._query("SELECT COALESCE(MAX(rowid), 0) FROM events")
+        return {"seq": 0, "row": int(rows[0][0])}
+
+    @staticmethod
+    def _cursor_row(cursor) -> int:
+        if not cursor:
+            return 0
+        return max(int(cursor.get("row", 0)), 0)
+
+    def cursor_lag(self, app_id: int, channel_id: Optional[int] = None,
+                   cursor=None) -> int:
+        """Events of this (app, channel) past ``cursor`` that a
+        :meth:`read_columns_since` would consume."""
+        at = self._cursor_row(cursor)
+        rows = self._query(
+            "SELECT COUNT(*) FROM events WHERE rowid > ? AND app_id=? "
+            "AND channel_id=?", (at, app_id, _ck(channel_id)))
+        return int(rows[0][0])
+
+    def read_columns_since(
+        self,
+        app_id: int,
+        channel_id: Optional[int] = None,
+        cursor=None,
+        event_names: Optional[Sequence[str]] = None,
+        entity_type: Optional[str] = None,
+        target_entity_type: Optional[str] = None,
+        rating_property: str = "rating",
+    ):
+        """Incremental twin of :meth:`read_columns`: only rows with
+        rowid past ``cursor``, plus the advanced cursor. Returns the
+        bulk-read keys plus ``creation_ms`` (the fold-in freshness
+        clock, parsed from each row's stored document — the window is
+        bounded by the tick interval, so the per-row JSON parse is not
+        a scan-scale cost)."""
+        at = self._cursor_row(cursor)
+        head = self.head_cursor(app_id, channel_id)["row"]
+        at = min(at, head)   # cursor past a reset head clamps
+        raw = self._query(
+            "SELECT rowid, entity_id, target_entity_id, event, "
+            "event_time_ms, doc FROM events WHERE rowid > ? AND app_id=? "
+            "AND channel_id=? ORDER BY rowid", (at, app_id, _ck(channel_id)))
+        rows = []
+        for _rid, ent, tgt, evt, tms, doc in raw:
+            if event_names is not None and evt not in event_names:
+                continue
+            try:
+                d = json.loads(doc)
+            except ValueError:
+                continue
+            if entity_type is not None and \
+                    d.get("entityType") != entity_type:
+                continue
+            if target_entity_type is not None and \
+                    d.get("targetEntityType") != target_entity_type:
+                continue
+            v = (d.get("properties") or {}).get(rating_property)
+            ct = d.get("creationTime")
+            try:
+                cms = _to_epoch_ms(_iso_to_dt(ct)) if ct else int(tms)
+            except ValueError:
+                cms = int(tms)
+            rows.append((ent, tgt, evt, int(tms), v, cms))
+        n = len(rows)
+        rat = np.full(n, np.nan, np.float32)
+        strings = set()
+        for j, (ent, tgt, evt, _t, v, _c) in enumerate(rows):
+            strings.add(ent)
+            strings.add(evt)
+            if tgt is not None:
+                strings.add(tgt)
+            if v is not None:
+                try:
+                    rat[j] = float(v)
+                except (TypeError, ValueError):
+                    pass
+        pool = sorted(strings)
+        code = {s: c for c, s in enumerate(pool)}
+        new_cursor = {"seq": 0, "row": int(max(head, at))}
+        return new_cursor, {
+            "pool": pool,
+            "entity_code": np.fromiter(
+                (code[r[0]] for r in rows), np.int32, n),
+            "target_code": np.fromiter(
+                (code[r[1]] if r[1] is not None else -1 for r in rows),
+                np.int32, n),
+            "event_code": np.fromiter(
+                (code[r[2]] for r in rows), np.int32, n),
+            "rating": rat,
+            "time_ms": np.fromiter((r[3] for r in rows), np.int64, n),
+            "creation_ms": np.fromiter((r[5] for r in rows), np.int64, n),
         }
 
 

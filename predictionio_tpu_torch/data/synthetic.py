@@ -13,7 +13,8 @@
 
 Surfaces: :func:`chunk_source` (the re-iterable chunk stream),
 :func:`training_data` (synthetic events to a recommendation
-``TrainingData`` through the in-core columnar encode),
+``TrainingData`` through the store's columnar encode, streamed or
+in-core), :func:`write_events` (the config into a real event store),
 :func:`env_config` (the ``PIO_SYNTHETIC_EVENTS`` / ``_SEED`` contract that
 ``pio train --synthetic N`` sets).
 """
@@ -139,11 +140,17 @@ def chunk_source(n_events: int, seed: int = 7, n_users: int = 0,
 
 def training_data(n_events: int, seed: int = 7, n_users: int = 0,
                   n_items: int = 0, chunk: int = 1 << 20,
-                  timings: Optional[Dict[str, float]] = None):
+                  stream: Optional[bool] = None,
+                  timings: Optional[Dict[str, float]] = None,
+                  device=None):
     """Synthetic events -> recommendation ``TrainingData`` through the
-    same columnar encode the event-store read uses (vocab assignment and
-    the buy mapping behave identically). In-core: the streamed read waits
-    for a later slice (``knobs.refuse_unported``)."""
+    same columnar encode the event-store read uses (vocab assignment, the
+    buy mapping and device staging behave identically).
+
+    ``stream=None`` resolves ``PIO_TRAIN_STREAM`` (store.py); True takes
+    the O(chunk)-host streamed path (the host COO never exists), False
+    the in-core path (host arrays kept). ``device`` is where the staged
+    columns go (the device policy's choice by default)."""
     from predictionio_tpu_torch.data import store
     from predictionio_tpu_torch.models.recommendation.data_source import (
         training_data_from_columnar,
@@ -151,10 +158,66 @@ def training_data(n_events: int, seed: int = 7, n_users: int = 0,
 
     src = chunk_source(n_events, seed=seed, n_users=n_users,
                        n_items=n_items, chunk=chunk)
+    if stream is None:
+        stream = store.resolve_train_stream(src)
     col = store.columnar_from_stream(
         src.pool(), src.chunks(), event_names=["rate", "buy"],
-        timings=timings)
+        stream=bool(stream), timings=timings, device=device)
     return training_data_from_columnar(col)
+
+
+def write_events(src: ChunkSource, storage, app_id: int,
+                 channel_id: Optional[int] = None,
+                 batch: int = 4096) -> int:
+    """Materialize the config into a real event store. Uses the bulk
+    columnar append when the backend has one (eventlog: one chunk per
+    generated chunk); every other backend takes ``insert_batch`` calls of
+    at most ``batch`` Event objects, so host memory stays O(batch).
+    Returns the number of events written."""
+    ev = storage.get_events()
+    ev.init(app_id, channel_id)
+    pool = src.pool()
+    total = 0
+    if hasattr(ev, "append_encoded"):
+        for ch in src.chunks():
+            n = ch["entity_code"].shape[0]
+            ev.append_encoded(
+                app_id, channel_id, pool,
+                event=ch["event_code"],
+                entity_type=np.full(n, 1, np.int32),
+                entity_id=ch["entity_code"],
+                time_ms=ch["time_ms"],
+                target_type=np.full(n, 2, np.int32),
+                target_id=ch["target_code"],
+                numeric={"rating": ch["rating"]},
+            )
+            total += n
+        return total
+    import datetime as _dt
+
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+
+    batch = max(1, int(batch))
+    for ch in src.chunks():
+        n = ch["entity_code"].shape[0]
+        for lo in range(0, n, batch):
+            hi = min(lo + batch, n)
+            evs = [Event(
+                event="rate", entity_type="user", entity_id=pool[ent],
+                target_entity_type="item", target_entity_id=pool[tgt],
+                properties=DataMap({"rating": float(r)}),
+                event_time=_dt.datetime.fromtimestamp(
+                    t / 1000.0, tz=_dt.timezone.utc))
+                for ent, tgt, t, r in zip(
+                    ch["entity_code"][lo:hi].tolist(),
+                    ch["target_code"][lo:hi].tolist(),
+                    ch["time_ms"][lo:hi].tolist(),
+                    ch["rating"][lo:hi].tolist())]
+            ev.insert_batch(evs, app_id, channel_id)
+            total += len(evs)
+            del evs   # the slice's Event objects never outlive the insert
+    return total
 
 
 def env_config() -> Optional[SyntheticConfig]:

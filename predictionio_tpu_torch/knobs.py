@@ -69,15 +69,11 @@ def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
     return Knob(UNPORTED, what, tuple(verbs), roadmap, also_off)
 
 
-_EVENTLOG = "the eventlog store, whose storage type the port refuses"
 _REMOTE = "the remote storage client, whose storage type the port refuses"
 _NO_VERB = "a daemon the port has no verb for"
 _TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
-_READS = ("read parallelism and staging; the port's in-core read is serial "
-          "and gives the same columns")
-_Q3 = "queue 1 item 3 (observability)"
 _Q4 = "queue 1 item 4 (the read and ingest path)"
 _Q5 = "queue 1 item 5 (fold-in, hot reload and warm start)"
 _Q6 = "queue 1 item 6 (distributed training and sharded serving)"
@@ -94,9 +90,10 @@ KNOBS: Dict[str, Knob] = {
         "the shared key of the dashboard and admin daemons"),
     "PIO_SSL_CERTFILE": _read(_TLS + ": the PEM certificate"),
     "PIO_SSL_KEYFILE": _read(_TLS + ": the PEM key"),
-    "PIO_EVENTLOG_CACHE_MB": _inert(_EVENTLOG),
-    "PIO_WAL_GROUP_MS": _inert(_EVENTLOG),
-    "PIO_WAL_FSYNC": _inert(_EVENTLOG),
+    "PIO_EVENTLOG_CACHE_MB": _read(
+        "the eventlog store's chunk-column cache budget"),
+    "PIO_WAL_GROUP_MS": _read("the eventlog WAL's group-commit window"),
+    "PIO_WAL_FSYNC": _read("the eventlog WAL's fsync mode"),
     # transport and event server
     "PIO_TRANSPORT": _unported("the async HTTP transport", _Q4,
                                verbs=DAEMONS, also_off=("threaded",)),
@@ -109,12 +106,13 @@ KNOBS: Dict[str, Knob] = {
     # the training read
     "PIO_DISABLE_NATIVE": _inert(
         "the reference's native counting sort; the port sorts with torch"),
-    "PIO_READ_THREADS": _inert(_READS),
-    "PIO_READ_OVERLAP": _inert(_READS),
-    "PIO_READ_STAGE": _inert(_READS),
-    "PIO_TRAIN_STREAM": _unported(
-        "the streamed (out-of-core) training read", _Q4, verbs=(TRAIN,),
-        also_off=("auto",)),
+    "PIO_READ_THREADS": _read("the eventlog bulk read's decode workers"),
+    "PIO_READ_OVERLAP": _read(
+        "the streamed read (chunk decode overlapping the encode)"),
+    "PIO_READ_STAGE": _read(
+        "device staging of the read's chunks (ops/staging.py)"),
+    "PIO_TRAIN_STREAM": _read(
+        "the streamed (out-of-core) training read: auto / on / off"),
     "PIO_SYNTHETIC_EVENTS": _read("pio train --synthetic N"),
     "PIO_SYNTHETIC_SEED": _read("the synthetic generator's seed"),
     # ALS
@@ -124,10 +122,11 @@ KNOBS: Dict[str, Knob] = {
     "PIO_ALS_HOT_K": _inert(_GRAM),
     "PIO_ALS_DENSE_MIN_COUNT": _inert(_GRAM),
     "PIO_ALS_XPAD": _inert(_GRAM),
-    "PIO_ALS_LAYOUT_CACHE": _inert(
-        "the process-wide layout cache; the port caches a layout on its "
-        "TrainingData, and 0 would only cost time"),
-    "PIO_ALS_BIG_LAYOUT_MIN": _inert(_GRAM),
+    "PIO_ALS_LAYOUT_CACHE": _read(
+        "the process-wide fingerprinted layout cache (0 disables it)"),
+    "PIO_ALS_BIG_LAYOUT_MIN": _read(
+        "the rating count above which a layout goes to the process-wide "
+        "cache"),
     "PIO_NNZ_BUCKETING": _read("bucketed nnz padding"),
     "PIO_FINITE_CHECK": _read("the post-train non-finite check"),
     # serving
@@ -206,10 +205,10 @@ KNOBS: Dict[str, Knob] = {
     "PIO_JOURNAL": _read(
         "the operational-event journal (common/journal.py; on unless 0)"),
     "PIO_JOURNAL_BUFFER": _read("the journal's capacity"),
-    "PIO_HISTORY": _unported("the metrics flight recorder", _Q3,
-                             verbs=DAEMONS),
-    "PIO_HISTORY_TICK_S": _inert("tunes the metrics flight recorder"),
-    "PIO_HISTORY_MAX_SERIES": _inert("tunes the metrics flight recorder"),
+    "PIO_HISTORY": _read(
+        "the metrics flight recorder (common/history.py; on unless 0)"),
+    "PIO_HISTORY_TICK_S": _read("the flight recorder's sampling tick"),
+    "PIO_HISTORY_MAX_SERIES": _read("the flight recorder's series cap"),
     "PIO_WATERFALL": _read(
         "per-request latency waterfalls (common/waterfall.py)"),
     "PIO_WATERFALL_SAMPLE": _read("the waterfalls' sampling interval"),
@@ -218,11 +217,11 @@ KNOBS: Dict[str, Knob] = {
     "PIO_PROFILE_MAX_MS": _read("the longest POST /debug/profile capture"),
     "PIO_PROFILE_ENABLE": _read(
         "POST /debug/profile (common/profiling.py; 0 answers 403)"),
-    "PIO_SLO_AVAILABILITY": _inert("SLO targets of the telemetry layer"),
-    "PIO_SLO_LATENCY_MS": _inert("SLO targets of the telemetry layer"),
-    "PIO_SLO_LATENCY_TARGET": _inert("SLO targets of the telemetry layer"),
-    "PIO_SLO_FAST_WINDOW_S": _inert("SLO targets of the telemetry layer"),
-    "PIO_SLO_SLOW_WINDOW_S": _inert("SLO targets of the telemetry layer"),
+    "PIO_SLO_AVAILABILITY": _read("the availability SLO (common/slo.py)"),
+    "PIO_SLO_LATENCY_MS": _read("the latency SLO's threshold"),
+    "PIO_SLO_LATENCY_TARGET": _read("the latency SLO's target"),
+    "PIO_SLO_FAST_WINDOW_S": _read("the SLO burn rate's fast window"),
+    "PIO_SLO_SLOW_WINDOW_S": _read("the SLO burn rate's slow window"),
     # autopilot and autotrain
     **{f"PIO_AUTOPILOT_{k}": _inert("the autopilot: " + _NO_VERB)
        for k in ("POLL_MS", "COOLDOWN_S", "UTIL_LOW", "UTIL_HIGH",

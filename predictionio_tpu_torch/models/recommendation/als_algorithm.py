@@ -3,11 +3,14 @@
 
 Training lays the ratings out on the context's device (the card unless
 the caller asks for the CPU) and runs ``ops.als.train_explicit``, whose
-half-steps each end in kernel A. The layout is cached on the
-TrainingData object, so a second train of the same data (another rank,
-a resume, the next variant of an eval grid after ``prepare_layout``)
-skips it; the reference's process-wide fingerprinted layout cache,
-device staging and streamed read wait for a later slice.
+half-steps each end in kernel A. The layout has two cache tiers: a small
+TrainingData's layout rides the object (another rank, a resume, the next
+variant of an eval grid after ``prepare_layout``), and a large one
+(more than ``PIO_ALS_BIG_LAYOUT_MIN`` ratings) takes the one process-wide
+entry keyed by a blake2b content fingerprint, so a retrain over an
+unchanged event store skips the layout (and the read's device staging).
+A streamed read's staged COO is the layout's only input and is freed
+once the layout is built.
 
 Evaluation scores with ``batch_predict``: the known users' rows are
 gathered on the factors' device (a trained model's, or the device policy's
@@ -25,7 +28,9 @@ why.
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Tuple
 
@@ -35,13 +40,14 @@ import torch
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch.common import telemetry, waterfall
 from predictionio_tpu_torch.controller import Algorithm, Params
+from predictionio_tpu_torch.data import store
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.models.recommendation.engine import (
     ItemScore, PredictedResult, Query,
 )
 from predictionio_tpu_torch.ops import als
 from predictionio_tpu_torch.ops import quant as quant_mod
-from predictionio_tpu_torch.ops import topk
+from predictionio_tpu_torch.ops import staging, topk
 from predictionio_tpu_torch.serving.protocol import bucket_for
 from predictionio_tpu_torch.workflow.checkpoint import FactorCheckpointer
 
@@ -106,7 +112,7 @@ def host_f32(x) -> np.ndarray:
 
 
 #: layout-reuse counts: hits = a train (or prepare_layout) served its
-#: layout from the TrainingData cache; builds = prepare_ratings ran.
+#: layout from either cache tier; builds = prepare_ratings ran.
 #: Registry-backed: ``pio_layout_cache_total{result=...}`` on GET
 #: /metrics, read and bumped like a dict.
 LAYOUT_STATS = telemetry.RegistryDict(
@@ -118,20 +124,137 @@ LAYOUT_STATS = telemetry.RegistryDict(
     "result", ("hits", "builds"))
 
 
+#: one-entry process-wide layout cache for large trains:
+#: [(meta, digest, ALSData)]. Keyed on a content fingerprint (a cheap
+#: meta tuple, then a 128-bit blake2b digest), so a changed event store
+#: never reuses a stale layout; the digest runs only when the meta
+#: already matches, at most once per train.
+_BIG_LAYOUT_CACHE: list = []
+
+
+def _layout_cache_enabled() -> bool:
+    """``PIO_ALS_LAYOUT_CACHE=0`` turns the process-wide tier off."""
+    return os.environ.get("PIO_ALS_LAYOUT_CACHE", "1") != "0"
+
+
+def _layout_meta(td, device: torch.device):
+    # "raw" fingerprints hash the raw chunk columns (streamed AND in-core
+    # reads of a chunked source, so the two share entries); "enc" hashes
+    # the encoded host arrays (reads with no chunk stream). The kind keeps
+    # the two digest keyspaces from ever comparing.
+    kind = "raw" if getattr(td, "_stream_digest", None) else "enc"
+    return (str(device), kind, td.n, len(td.user_vocab), len(td.item_vocab))
+
+
+def _layout_crc(td) -> bytes:
+    digest = getattr(td, "_stream_digest", None)
+    if digest:
+        # the incremental digest of the raw chunk columns, taken during
+        # the read in both retention modes; under the streamed read the
+        # host COO never existed, so it is the only fingerprint there
+        return digest
+    h = hashlib.blake2b(digest_size=16)
+    for a in (td.user_idx, td.item_idx, td.rating):
+        h.update(np.ascontiguousarray(a).view(np.uint8))
+    return h.digest()
+
+
+def _big_layout_cached(td, device: torch.device):
+    """-> (data or None, digest or None); the digest comes back when it
+    was computed, so the store that follows a miss never hashes twice."""
+    if not _layout_cache_enabled() or not _BIG_LAYOUT_CACHE:
+        return None, None
+    meta, crc, data = _BIG_LAYOUT_CACHE[0]
+    if meta != _layout_meta(td, device):
+        return None, None
+    got = _layout_crc(td)
+    return (data, got) if got == crc else (None, got)
+
+
+def _big_layout_store(td, device: torch.device, data, crc=None) -> None:
+    if _layout_cache_enabled():
+        if crc is None:
+            crc = _layout_crc(td)
+        _BIG_LAYOUT_CACHE[:] = [(_layout_meta(td, device), crc, data)]
+
+
+def staging_wanted() -> bool:
+    """Should the bulk read copy its COO chunks to the device while it
+    decodes? Yes unless a process-wide layout entry exists that an
+    unchanged event store would hit: a warm retrain skips the copy
+    (``PIO_READ_STAGE=0`` turns staging off outright)."""
+    if not staging.staging_available():
+        return False
+    return not (_layout_cache_enabled() and _BIG_LAYOUT_CACHE)
+
+
+def stream_wanted() -> bool:
+    """Should the training read stream (``PIO_TRAIN_STREAM``)? ``auto``
+    streams wherever staging would engage and declines a warm retrain
+    (a populated layout cache: the in-core read's fingerprint hits
+    without any copy); ``on`` streams always (the digest-keyed cache
+    still hits, after the copy); ``off`` never."""
+    mode = store.train_stream_mode()
+    if mode == "off" or not store.resolve_train_stream():
+        return False
+    return mode == "on" or staging_wanted()
+
+
 def _ensure_layout(td, device: torch.device) -> als.ALSData:
-    """The sorted COO layout of one TrainingData on ``device``, cached on
-    the TrainingData object (the layout is rank-independent)."""
+    """The sorted COO layout of one TrainingData on ``device``, through
+    both cache tiers (the train's ``layout`` phase body, shared with
+    ``prepare_layout``; the layout is rank-independent).
+
+    A TrainingData of at most ``PIO_ALS_BIG_LAYOUT_MIN`` ratings (default
+    2,000,000; an eval fold) caches its layout on the object. A larger
+    one takes the one process-wide entry, keyed on its content
+    fingerprint, so repeat trains over an unchanged event store skip the
+    layout. The retained device memory (about 0.5 GB at 20M ratings) is
+    bounded at one entry, evicted before a replacement is built;
+    ``PIO_ALS_LAYOUT_CACHE=0`` retains nothing."""
+    cacheable = td.n <= int(os.environ.get("PIO_ALS_BIG_LAYOUT_MIN",
+                                           2_000_000))
     key = ("als_layout", str(device))
-    cached = getattr(td, "_pio_layout_cache", None)
+    cached = getattr(td, "_pio_layout_cache", None) if cacheable else None
+    big_crc = None
     if cached is not None and cached[0] == key:
+        data = cached[1]
+    else:
+        data, big_crc = _big_layout_cached(td, device)
+    if data is not None:
         LAYOUT_STATS["hits"] += 1
-        return cached[1]
+        return data
     LAYOUT_STATS["builds"] += 1
+    if not cacheable:
+        # evict BEFORE building the replacement: the old layout held
+        # across the rebuild would double the retained device memory
+        _BIG_LAYOUT_CACHE.clear()
+    staged = getattr(td, "_staged_coo", None)
+    if td.streamed:
+        # the device mirrors are the only copy of the COO
+        u_in, i_in, r_in = staged
+    elif staged is not None and int(staged[0].shape[0]) == td.n:
+        # the read staged the encoded COO already (value-identical to
+        # the host columns): the layout skips its own host-to-device copy
+        u_in, i_in, r_in = staged
+    else:
+        u_in, i_in, r_in = td.user_idx, td.item_idx, td.rating
     data = als.prepare_ratings(
-        td.user_idx, td.item_idx, td.rating,
+        u_in, i_in, r_in,
         n_users=len(td.user_vocab), n_items=len(td.item_vocab),
         on_device=True, device=device)
-    td._pio_layout_cache = (key, data)
+    del u_in, i_in, r_in
+    # the staged mirrors are dead once the layout exists: free them (the
+    # pinned host buffers after their copies land)
+    td._staged_coo = None
+    held = getattr(td, "_staged", None)
+    if held is not None:
+        held.release()
+        td._staged = None
+    if cacheable:
+        td._pio_layout_cache = (key, data)
+    else:
+        _big_layout_store(td, device, data, crc=big_crc)
     return data
 
 

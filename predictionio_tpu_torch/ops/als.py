@@ -135,14 +135,23 @@ def prepare_ratings(
     ``on_device=False`` lays out on the host with numpy (arrays stay
     numpy); ``on_device=True`` ships the raw COO to ``device`` (the card
     unless the caller asks for the CPU) once and sorts there with
-    ``torch.sort(stable=True)``. Both give the same layout bit for bit."""
+    ``torch.sort(stable=True)``. Both give the same layout bit for bit.
+    With ``on_device``, the COO may already be torch tensors (the staged
+    read's device mirrors): they move only if they lie elsewhere, and the
+    layout is the one their host twins would give."""
     nnz = int(len(user_idx))
     nnz_pad = declared_nnz_pad(nnz, chunk)
     if on_device:
         dev = device_mod.resolve(device)
-        u = torch.as_tensor(np.asarray(user_idx, np.int32), device=dev)
-        i = torch.as_tensor(np.asarray(item_idx, np.int32), device=dev)
-        r = torch.as_tensor(np.asarray(rating, np.float32), device=dev)
+
+        def put(a, np_dtype, dtype):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=dev, dtype=dtype)
+            return torch.as_tensor(np.asarray(a, np_dtype), device=dev)
+
+        u = put(user_idx, np.int32, torch.int32)
+        i = put(item_idx, np.int32, torch.int32)
+        r = put(rating, np.float32, torch.float32)
 
         def side_dev(a, b, n_a, n_b) -> COOSide:
             s, order = torch.sort(a, stable=True)

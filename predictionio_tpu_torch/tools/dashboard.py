@@ -22,11 +22,16 @@ Response = Tuple[int, Any]
 class DashboardAPI:
     def __init__(self, storage: Optional[Storage] = None,
                  server_key: Optional[str] = None):
-        from predictionio_tpu_torch.common import devicewatch
+        from predictionio_tpu_torch.common import (
+            devicewatch, history, slo,
+        )
         from predictionio_tpu_torch.common.server_security import KeyAuth
         self.storage = storage if storage is not None else get_storage()
         self.auth = KeyAuth(server_key)
         devicewatch.install()
+        slo.install()
+        # /debug/history.json rings (one sampler thread per process)
+        history.install()
 
     def handle(self, method: str, path: str,
                query: Optional[Dict[str, str]] = None,

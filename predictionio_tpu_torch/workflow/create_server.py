@@ -20,8 +20,9 @@ carries ``"degraded": true``; ``GET /`` counts them in ``degradedCount``
 in it, so the count is an upper bound on the queries affected).
 
 Observability (``common/``): after the probes, ``telemetry.handle_route``
-answers ``/metrics``, ``/traces.json``, ``/debug/{device,slow,events}.json``
-and ``/debug/profile``, as on every daemon. A sampled
+answers ``/metrics``, ``/traces.json``,
+``/debug/{device,slow,events,history}.json`` and ``/debug/profile``, as on
+every daemon; the SLO engine's burn-rate gauges ride ``/metrics``. A sampled
 query (``PIO_WATERFALL=1``) records its stages: ``admission`` (the
 batcher's queue wait), ``supplement``, ``dispatch`` (with ``pad`` and
 ``execute`` nested inside it by the algorithm), ``merge`` and
@@ -30,14 +31,15 @@ request's trace. The deploy's load and drain are journal events.
 ``PIO_TELEMETRY=1`` adds ``pio_serve_seconds``. With every knob unset
 the answers are byte-identical to a server without them.
 
-Multi-tenancy, fold-in, partitions, plugins, feedback, AOT, SLOs and the
-metrics history of the JAX server arrive in later slices.
+Multi-tenancy, fold-in, partitions, plugins, feedback and AOT of the JAX
+server arrive in later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
+import itertools
 import json
 import logging
 import math
@@ -49,7 +51,8 @@ from typing import Any, Dict, Optional, Tuple
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch import knobs
 from predictionio_tpu_torch.common import (
-    devicewatch, journal, resilience, telemetry, tracing, waterfall,
+    devicewatch, history, journal, resilience, slo, telemetry, tracing,
+    waterfall,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
@@ -76,6 +79,10 @@ def _format_time(t: _dt.datetime) -> str:
         t = t.replace(tzinfo=_dt.timezone.utc)
     return (t.astimezone(_dt.timezone.utc).isoformat(timespec="milliseconds")
             .replace("+00:00", "Z"))
+
+
+#: per-process QueryAPI sequence: the ``server`` label of its metrics
+_query_api_seq = itertools.count()
 
 
 def _has_non_finite(obj) -> bool:
@@ -175,9 +182,6 @@ class QueryAPI:
         self._batcher: Optional[MicroBatcher] = None
         self._quant_state: Optional[Dict[str, Any]] = None
         self.request_count = 0
-        #: responses flagged degraded (an upper bound on the queries
-        #: affected when batching is on)
-        self.degraded_count = 0
         self.avg_serving_sec = 0.0
         self.last_serving_sec = 0.0
         self.start_time = _utcnow()
@@ -188,7 +192,43 @@ class QueryAPI:
         # device observability: kernel-build watchdog + HBM gauges on
         # this daemon's /metrics and /debug/device.json (idempotent)
         devicewatch.install()
+        # SLO engine (targets from PIO_SLO_*): the query server's
+        # install reconfigures one a sibling daemon in the process made
+        slo.install(slo.SLOConfig.from_env())
+        # metrics flight recorder: bounded time-series rings behind
+        # /debug/history.json (one sampler thread per process)
+        history.install()
+        # degraded accounting and time to ready are registry-backed (one
+        # source for GET / and GET /metrics), labeled per instance so a
+        # fresh server starts at zero. Two degraded counts, because the
+        # batched path's flag is batch-granular: a failed side-channel
+        # lookup taints every answer of its flush, so the per-answer
+        # count is an upper bound; pio_degraded_batches_total counts the
+        # tainted flushes
+        inst = {"server": f"query#{next(_query_api_seq)}"}
+        reg = telemetry.registry()
+        self._m_time_to_ready = reg.gauge(
+            "pio_time_to_ready_seconds",
+            "Deploy wall-clock until servable: model load + device "
+            "placement",
+            labelnames=("server",)).labels(**inst)
+        self._m_degraded_queries = reg.counter(
+            "pio_degraded_queries_upper_bound",
+            "Responses flagged degraded; batch-granular taint makes this "
+            "an UPPER BOUND on truly affected queries",
+            labelnames=("server",)).labels(**inst)
+        self._m_degraded_batches = reg.counter(
+            "pio_degraded_batches_total",
+            "Batched flushes tainted by a failed side-channel lookup "
+            "(each taints up to batch_max_size responses)",
+            labelnames=("server",)).labels(**inst)
         self._load_single()
+
+    @property
+    def degraded_count(self) -> int:
+        """Responses flagged degraded (the ``GET /`` degradedCount; an
+        upper bound on the queries affected when batching is on)."""
+        return int(self._m_degraded_queries.value)
 
     # ------------------------------------------------------------- loading
     def _load_single(self) -> None:
@@ -228,6 +268,13 @@ class QueryAPI:
         if old_batcher is not None:
             old_batcher.close()
         self.time_to_ready_s = time.perf_counter() - t_load
+        self._m_time_to_ready.set(self.time_to_ready_s)
+        # the port serves replicated: the sharded-serving gauge reads 0
+        reg = telemetry.registry()
+        reg.gauge(
+            "pio_serve_shards",
+            "Serving shards the deployed factor matrices are split over "
+            "(0 = replicated single-device serving)").labels().set(0.0)
         self.generation += 1
         logger.info("Engine instance %s deployed on %s (%d algorithm(s), "
                     "batching %s) in %.2fs", instance.id, self.device,
@@ -270,6 +317,9 @@ class QueryAPI:
                 served = [serving.serve(q, [col[j] for col in per_algo])
                           for j, q in enumerate(queries)]
             degraded = bool(resilience.pop_degraded())
+            if degraded:
+                # ONE tainted flush, up to len(queries) flagged responses
+                self._m_degraded_batches.inc()
             return [(p, degraded) for p in served]
 
         return MicroBatcher(
@@ -441,10 +491,12 @@ class QueryAPI:
             with waterfall.stage("serialize"):
                 result = json_extractor.to_json_obj(prediction)
         if degraded:
-            with self._lock:
-                self.degraded_count += 1
+            self._m_degraded_queries.inc()
             # a degraded answer is a trace worth keeping
             tracing.pin_current("degraded")
+            if batcher is None:
+                # inline path: a degraded query IS a degraded "batch" of 1
+                self._m_degraded_batches.inc()
             if isinstance(result, dict):
                 result = {**result, "degraded": True}
         if _has_non_finite(result):

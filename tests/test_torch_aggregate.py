@@ -83,11 +83,30 @@ def _props(result):
             for k, v in result.items()}
 
 
-@pytest.fixture(params=["memory", "sqlite"])
+def _eventlog_env(root):
+    """Events in an eventlog directory, metadata on SQLite (the
+    reference's layout for the eventlog store)."""
+    return {
+        "PIO_STORAGE_SOURCES_L_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_L_PATH": str(root / "meta.sqlite"),
+        "PIO_STORAGE_SOURCES_E_TYPE": "eventlog",
+        "PIO_STORAGE_SOURCES_E_PATH": str(root / "eventlog"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "L",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "E",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "L",
+    }
+
+
+@pytest.fixture(params=["memory", "sqlite", "eventlog"])
 def stores(request, tmp_path):
     """The same events in a fresh store of each package."""
     if request.param == "memory":
         jst, st = JStorage(env=MEM), Storage(env=MEM)
+    elif request.param == "eventlog":
+        (tmp_path / "jax").mkdir()
+        (tmp_path / "port").mkdir()
+        jst = JStorage(env=_eventlog_env(tmp_path / "jax"))
+        st = Storage(env=_eventlog_env(tmp_path / "port"))
     else:
         jst = JStorage(env={"PIO_FS_BASEDIR": str(tmp_path / "jax")})
         st = Storage(env={"PIO_FS_BASEDIR": str(tmp_path / "port")})

@@ -270,11 +270,12 @@ def test_admin_api(port_store):
     assert api.handle("DELETE", "/cmd/app/AdminApp")[0] == 200
     assert api.handle("GET", "/cmd/app")[1] == []
     # the telemetry routes answer before the key check, as the
-    # reference's; the metrics history is not ported and stays unknown
+    # reference's, the metrics history among them
     status, text, headers = api.handle("GET", "/metrics")
     assert status == 200 and headers["Content-Type"].startswith(
         "text/plain; version=0.0.4")
-    assert api.handle("GET", "/debug/history.json")[0] == 404
+    status, body = api.handle("GET", "/debug/history.json")[:2]
+    assert status == 200 and "samples" in body
 
 
 def test_dashboard_lists_completed_evaluations(port_store):

@@ -438,10 +438,13 @@ def test_telemetry_routes_are_the_documented_difference(route):
         assert 'pio_events_ingested_total{app_id="' in book[-1]
         lines = data.decode().splitlines()
         assert all(line in lines for line in book)
-    unknown = dispatch_request(p.port, "GET", "/debug/history.json", b"",
-                               {})
-    assert unknown[:3] == dispatch_request(p.port, "GET", "/nope.json",
-                                           b"", {})[:3]
+    # the metrics history answers as the reference's: the same status,
+    # content type and keys
+    ref = ref_dispatch(p.ref, "GET", "/debug/history.json", b"", {})
+    got = dispatch_request(p.port, "GET", "/debug/history.json", b"", {})
+    assert (got[0], got[2]) == (ref.status, ref.ctype)
+    assert got[0] == 200
+    assert sorted(json.loads(got[1])) == sorted(json.loads(ref.data))
 
 
 def _wire(port, method, target, body=None):

@@ -111,6 +111,16 @@ OBSERVABILITY_SLICE = [
 ]
 
 
+#: the storage and read path at scale, with the SLO engine and the
+#: metrics history every daemon installs
+STORE_SLICE = [
+    "predictionio_tpu_torch.common.history",
+    "predictionio_tpu_torch.common.slo",
+    "predictionio_tpu_torch.data.storage.eventlog",
+    "predictionio_tpu_torch.ops.staging",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -124,10 +134,11 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 90
+    assert int(names[-1]) == len(names) - 1 >= 94
     assert set(EVENT_SLICE) <= set(names[:-1])
     assert set(TEMPLATE_SLICE) <= set(names[:-1])
     assert set(OBSERVABILITY_SLICE) <= set(names[:-1])
+    assert set(STORE_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

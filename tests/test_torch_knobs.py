@@ -26,7 +26,6 @@ MEM = {
 #: values that turn each unported feature on, as an operator would set them
 REFUSED = {
     "PIO_TRANSPORT": ["async"],
-    "PIO_TRAIN_STREAM": ["on"],
     "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
     "PIO_SERVE_SHARD": ["1", "on"],
     "PIO_FOLDIN": ["1"],
@@ -36,7 +35,6 @@ REFUSED = {
     "PIO_TENANT_HBM_BUDGET_MB": ["512"],
     "PIO_TENANT_HBM_HARD_CAP_MB": ["4096"],
     "PIO_FAULT_SPEC": ["drop@server:0.5"],
-    "PIO_HISTORY": ["1"],
 }
 
 UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
@@ -197,8 +195,8 @@ OBSERVABILITY = sorted(_observability_reads())
 @pytest.mark.parametrize("name", OBSERVABILITY)
 def test_observability_variables_are_read(monkeypatch, name):
     """The five switches and their tuning knobs are read with the
-    reference's meaning and refused nowhere; PIO_HISTORY (the metrics
-    flight recorder, not ported yet) stays refused at every daemon."""
+    reference's meaning and refused nowhere, and neither is PIO_HISTORY
+    (the metrics flight recorder) at any daemon."""
     from predictionio_tpu_torch.common import (
         journal, telemetry, tracing, waterfall,
     )
@@ -213,5 +211,97 @@ def test_observability_variables_are_read(monkeypatch, name):
     assert read() == want
     monkeypatch.setenv("PIO_HISTORY", "1")
     for verb in knobs.DAEMONS:
-        with pytest.raises(ValueError, match="PIO_HISTORY=1"):
-            knobs.refuse_unported(verb)
+        knobs.refuse_unported(verb)
+
+
+#: the rows read since the metrics history, the SLO engine, the eventlog
+#: store and the streamed training read landed, each with a value that
+#: changes what the port does, and the function that shows it
+def _store_and_history_reads():
+    from predictionio_tpu_torch.common import history, slo
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import eventlog
+    from predictionio_tpu_torch.models.recommendation import als_algorithm
+    from predictionio_tpu_torch.ops import staging
+
+    def slo_cfg(field):
+        return lambda: getattr(slo.SLOConfig.from_env(), field)
+
+    return {
+        "PIO_HISTORY": ("0", history.on, False),
+        "PIO_HISTORY_TICK_S": (
+            "2.5", lambda: history.HistoryConfig.from_env().tick_s, 2.5),
+        "PIO_HISTORY_MAX_SERIES": (
+            "7", lambda: history.HistoryConfig.from_env().max_series, 7),
+        "PIO_SLO_AVAILABILITY": ("0.95", slo_cfg("availability"), 0.95),
+        "PIO_SLO_LATENCY_MS": ("40", slo_cfg("latency_ms"), 40.0),
+        "PIO_SLO_LATENCY_TARGET": ("0.9", slo_cfg("latency_target"), 0.9),
+        "PIO_SLO_FAST_WINDOW_S": ("60", slo_cfg("fast_window_s"), 60.0),
+        "PIO_SLO_SLOW_WINDOW_S": ("600", slo_cfg("slow_window_s"), 600.0),
+        "PIO_TRAIN_STREAM": ("on", store.train_stream_mode, "on"),
+        "PIO_READ_THREADS": ("3", eventlog._read_thread_count, 3),
+        "PIO_READ_OVERLAP": ("0", store._overlap_enabled, False),
+        "PIO_READ_STAGE": ("0", staging.staging_available, False),
+        "PIO_WAL_GROUP_MS": ("0", eventlog._wal_group_ms, 0.0),
+        "PIO_WAL_FSYNC": ("always", eventlog._wal_fsync_mode, "always"),
+        "PIO_ALS_LAYOUT_CACHE": (
+            "0", als_algorithm._layout_cache_enabled, False),
+    }
+
+
+STORE_AND_HISTORY = sorted(_store_and_history_reads())
+
+
+@pytest.mark.parametrize("name", STORE_AND_HISTORY)
+def test_store_and_history_variables_are_read(monkeypatch, name):
+    """The rows that turned from refused or inert to read: refused by no
+    verb, and read with the reference's meaning."""
+    from predictionio_tpu_torch.common import history
+    _clear(monkeypatch)
+    monkeypatch.setattr(history, "_override", None)
+    value, read, want = _store_and_history_reads()[name]
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    assert read() == want
+
+
+def test_eventlog_cache_and_big_layout_min_are_read(monkeypatch, tmp_path):
+    """PIO_EVENTLOG_CACHE_MB bounds the eventlog's chunk-column cache and
+    PIO_ALS_BIG_LAYOUT_MIN moves a train's layout between the cache
+    tiers."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.storage import eventlog
+    from predictionio_tpu_torch.models.recommendation import als_algorithm
+    from predictionio_tpu_torch.models.recommendation.data_source import (
+        TrainingData,
+    )
+    from predictionio_tpu_torch.data.bimap import BiMap
+
+    for name in ("PIO_EVENTLOG_CACHE_MB", "PIO_ALS_BIG_LAYOUT_MIN"):
+        assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv("PIO_EVENTLOG_CACHE_MB", "0")
+    sh = eventlog._Shard(str(tmp_path / "shard"))
+    for seq in range(3):
+        path = sh.chunk_path(seq)
+        with open(path, "wb") as f:
+            np.savez(f, event=np.zeros(4, np.int32),
+                     extra_len=np.zeros(4, np.int32),
+                     extra_blob=np.asarray(""))
+        sh.chunk_data(seq)
+    # a zero budget keeps only the newest chunk's columns
+    assert list(sh.col_cache) == [2]
+    td = TrainingData(
+        user_idx=np.array([0, 1, 1], np.int32),
+        item_idx=np.array([1, 0, 1], np.int32),
+        rating=np.array([1.0, 2.0, 3.0], np.float32),
+        user_vocab=BiMap({"a": 0, "b": 1}), item_vocab=BiMap({"x": 0,
+                                                              "y": 1}))
+    monkeypatch.setattr(als_algorithm, "_BIG_LAYOUT_CACHE", [])
+    monkeypatch.setenv("PIO_ALS_BIG_LAYOUT_MIN", "2")
+    als_algorithm._ensure_layout(td, torch.device("cpu"))
+    assert len(als_algorithm._BIG_LAYOUT_CACHE) == 1
+    assert getattr(td, "_pio_layout_cache", None) is None

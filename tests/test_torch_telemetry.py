@@ -8,8 +8,8 @@ byte-identical (float formatting, label escaping, family order, the
 Then the route table: ``handle_route`` itself, and the telemetry routes
 of all four of the port's daemons (event server, engine server, admin,
 dashboard) against the reference's, with the knobs off and on — the
-same status, content type and body shape; ``/debug/history.json``
-(not ported yet) answers as an unknown path. With the knobs on, the
+same status, content type and body shape, ``/debug/history.json``
+included. With the knobs on, the
 answers to ``/queries.json`` and ``/events.json`` keep their bytes, and
 a scrape of the event server never touches the card.
 """
@@ -193,6 +193,9 @@ ROUTES = [
     ("GET", "/debug/events.json", {"level": "loud"}),
     ("GET", "/debug/events.json", {"limit": "?"}),
     ("GET", "/debug/device.json", None),
+    ("GET", "/debug/history.json", {"since_ms": "x"}),
+    ("GET", "/debug/history.json", {"res": "medium"}),
+    ("GET", "/debug/history.json", {"limit": "?"}),
     ("POST", "/metrics", None),
     ("GET", "/nope", None),
 ]
@@ -230,11 +233,16 @@ def test_metrics_route_content_types(accept):
 
 
 def test_history_route_is_not_ported():
-    assert ref_telemetry.handle_route("GET", "/debug/history.json")[0] == 200
-    assert telemetry.handle_route("GET", "/debug/history.json") is None
-    assert "/debug/history.json" not in telemetry.DEBUG_PATHS
-    assert set(telemetry.DEBUG_PATHS) == \
-        set(ref_telemetry.DEBUG_PATHS) - {"/debug/history.json"}
+    """The metrics history, once the one unported debug surface, now
+    answers as the reference's: the same status and keys, and the same
+    debug paths on every daemon."""
+    want = ref_telemetry.handle_route("GET", "/debug/history.json")
+    got = telemetry.handle_route("GET", "/debug/history.json")
+    assert got[0] == want[0] == 200
+    assert sorted(got[1]) == sorted(want[1])
+    assert got[1]["retention"] == want[1]["retention"]
+    assert "/debug/history.json" in telemetry.DEBUG_PATHS
+    assert set(telemetry.DEBUG_PATHS) == set(ref_telemetry.DEBUG_PATHS)
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +306,6 @@ def test_daemon_telemetry_routes_match_the_reference(daemons, monkeypatch,
         want = ref_dispatch(ref_api, method, target, b"", {})
         status, data, ctype, _extra = dispatch_request(api, method, target,
                                                        b"", {})
-        if target == "/debug/history.json":
-            unknown = dispatch_request(api, "GET", "/nope.json", b"", {})
-            assert (status, data, ctype) == unknown[:3], daemon
-            continue
         assert (status, ctype) == (want.status, want.ctype), (daemon, target)
         if target == "/metrics":
             lines = data.decode().splitlines()

@@ -206,7 +206,7 @@ def test_sqlite_store_of_the_jax_package_reads_and_trains_here(
 
 def test_synthetic_training_data_equals_the_reference():
     jtd = jsynthetic.training_data(5000, seed=11, stream=False)
-    ttd = synthetic.training_data(5000, seed=11)
+    ttd = synthetic.training_data(5000, seed=11, stream=False, device="cpu")
     assert ttd.user_vocab.to_dict() == jtd.user_vocab.to_dict()
     assert ttd.item_vocab.to_dict() == jtd.item_vocab.to_dict()
     for f in ("user_idx", "item_idx", "rating"):
@@ -280,19 +280,6 @@ def test_auto_resume_from_a_crashed_run(monkeypatch, tmp_path):
     np.testing.assert_array_equal(got.item_factors, want.item_factors)
     assert FactorCheckpointer(run_checkpoint_dir(crashed_id)).latest() \
         is None
-
-
-def test_stream_on_is_refused(monkeypatch):
-    monkeypatch.setenv("PIO_TRAIN_STREAM", "on")
-    storage = Storage(env=MEM)
-    engine = RecommendationEngine()
-    variant = _variant("predictionio_tpu_torch.models.recommendation."
-                       "engine:RecommendationEngine")
-    with pytest.raises(ValueError, match="PIO_TRAIN_STREAM=on"):
-        run_train(WorkflowContext(storage=storage, device="cpu"), engine,
-                  engine.engine_params_from_json(variant),
-                  params_json=variant)
-    assert storage.get_meta_data_engine_instances().get_all() == []
 
 
 def test_trained_model_keeps_tensors_until_persisted(monkeypatch):
