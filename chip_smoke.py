@@ -153,7 +153,23 @@ Phases (any failure raises and the script exits non-zero):
              server, ``cursor_lag`` 1,000 and ``read_columns_since``
              exactly those rows; ``pio deploy`` of the warm train's model,
              16 queries equal to the plain int8 path, B1 and B2 once per
-             flush, ``pio undeploy``.
+             flush, ``pio undeploy``. Then fold-in on that model: kernel A
+             against its plain version bit for bit at the fold-in buckets
+             (n = 1 / 8 / 64, 256 slots a row), timed; a deploy with
+             fold-in and without the warm-up, then one with it, each from
+             unloaded kernel libraries (time to ready each; no build or
+             load after ready); under a steady query stream, 64 unseen
+             users (20 ratings each) and 8 trained users (5 more) posted
+             through the event server, then 4 unseen items rated by 30 of
+             the folded users: every tick's kernel A call == plain bit
+             for bit, the published rows those outputs and their int8
+             rows ``quantize_rows`` of them, every answer equal to the
+             plain int8 path, B1 and B2 once per flush, no query dropped,
+             freshness and tick times, one row's history read timed and
+             profiled; then a redeploy with PIO_FOLDIN_HEADROOM=8 and 16
+             unseen users (the reload fallback: generation + 1, all
+             folded, none dropped) and ``POST /reload`` under 256
+             concurrent queries (generation + 1, none dropped).
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -186,6 +202,7 @@ import numpy as np
 import torch
 
 import predictionio_tpu_torch
+from predictionio_tpu_torch.common import devicewatch
 from predictionio_tpu_torch.controller.evaluation import MetricEvaluator
 from predictionio_tpu_torch.data import storage as storage_mod
 from predictionio_tpu_torch.data import store as store_mod
@@ -214,6 +231,7 @@ from predictionio_tpu_torch.models.recommendation import als_algorithm
 from predictionio_tpu_torch.ops import (
     _kernels, als, naive_bayes, quant, solve, staging, topk, topk_fused,
 )
+from predictionio_tpu_torch.realtime import foldin
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow import (
     core_workflow, create_server, model_io,
@@ -963,8 +981,6 @@ def phase_path(store, iid: str, users, seed: int):
     with the client latencies, which the observe phase is held to."""
     seq, burst, profiled = _path_queries(users, seed)
 
-    topk_fused.reset_launches()          # the serving path starts here
-    solve.reset_launches()
     t0 = time.perf_counter()
     api = create_server.QueryAPI(
         create_server.ServerConfig(serve_quant="on", engine_instance_id=iid),
@@ -975,6 +991,10 @@ def phase_path(store, iid: str, users, seed: int):
     server.start()
     _wait_ready(port, server.is_alive, deadline_s=300)
     ready_s = time.perf_counter() - t0
+    # the deploy's warm-up launched B1 + B2 once per bucket before
+    # ready; the serving path starts here
+    topk_fused.reset_launches()
+    solve.reset_launches()
     answers = {}
     seq_lat, burst_lat = [], []
 
@@ -1361,8 +1381,6 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
     profiling.reset()
     t_phase = time.perf_counter()
     try:
-        topk_fused.reset_launches()      # the observed path starts here
-        solve.reset_launches()
         api = create_server.QueryAPI(
             create_server.ServerConfig(serve_quant="on",
                                        engine_instance_id=iid),
@@ -1372,6 +1390,8 @@ def phase_observe(work: str, store, iid: str, users, seed: int,
                                   args=(api, "127.0.0.1", port), daemon=True)
         server.start()
         _wait_ready(port, server.is_alive, deadline_s=300)
+        topk_fused.reset_launches()      # the observed path starts here,
+        solve.reset_launches()           # after the deploy's warm-up
         tracing.clear()          # the readiness polls' spans
         lat, answers = {}, {}
 
@@ -2785,14 +2805,14 @@ def _deploy_checked(engine_dir: str, iid: str, queries) -> dict:
 
     port, rcs = _free_port(), []
     with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
-        topk_fused.reset_launches()      # the deploy path starts here
-        solve.reset_launches()
         deploy = threading.Thread(target=lambda: rcs.append(cli.main([
             "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
             iid, "--ip", "127.0.0.1", "--port", str(port),
             "--serve-quant", "on"])), daemon=True)
         deploy.start()
         ready_s = _wait_ready(port, deploy.is_alive)
+        topk_fused.reset_launches()      # the serving path starts here,
+        solve.reset_launches()           # after the deploy's warm-up
         c = _Client(port)
         try:
             answers = [c.call("POST", "/queries.json",
@@ -2835,6 +2855,535 @@ def _deploy_checked(engine_dir: str, iid: str, queries) -> dict:
     return {"ready_s": ready_s, "answers": [a[1] for a in answers],
             "query_s": [a[2] for a in answers], "flushes": flushes,
             "B1_launches": launches, "B2_launches": merge_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: realtime fold-in, the headroom reload and a reload under burst
+# ---------------------------------------------------------------------------
+
+FOLD_KEY = "smoke-foldin-key"
+FOLD_NEW_USERS, FOLD_RATINGS = 64, 20          # unseen users, ratings each
+FOLD_TRAINED_USERS, FOLD_TRAINED_RATINGS = 8, 5
+FOLD_NEW_ITEMS, FOLD_ITEM_RATERS = 4, 30       # unseen items, their raters
+FOLD_HEADROOM, FOLD_HEADROOM_USERS = 8, 16     # the exhausted deploy
+FOLD_BURST = 256                               # queries around a /reload
+FOLD_DEADLINE_S = 120.0
+
+
+def _fold_systems(V: np.ndarray, bucket: int, seed: int, dev):
+    """Kernel A's inputs at one fold-in bucket, as a tick builds them: a
+    full bucket of users with FOLD_RATINGS ratings each on the trained
+    items, 256 slots a row (foldin.max_events_per_user)."""
+    rng = np.random.default_rng(seed + bucket)
+    me = foldin.max_events_per_user()
+    nnz_pad = bucket * me
+    item_rows = np.zeros((nnz_pad, V.shape[1]), np.float32)
+    self_idx = np.full((nnz_pad,), bucket, np.int64)
+    rating = np.zeros((nnz_pad,), np.float32)
+    n = bucket * FOLD_RATINGS
+    item_rows[:n] = V[rng.integers(0, V.shape[0], size=n)]
+    self_idx[:n] = np.repeat(np.arange(bucket), FOLD_RATINGS)
+    rating[:n] = rng.integers(1, 11, size=n) / 2
+    counts = np.full((bucket,), FOLD_RATINGS, np.int32)
+    t = [torch.from_numpy(a).to(dev)
+         for a in (item_rows, self_idx, rating, counts)]
+    A, b = als.gram_rhs(t[0], t[1], torch.arange(nnz_pad, device=dev),
+                        (t[1] < bucket).to(torch.float32), t[2], bucket,
+                        nnz_pad)
+    return A.contiguous(), b.contiguous(), als._reg_vec(t[3], bucket, 0.01,
+                                                        "count")
+
+
+def _foldin_plain(item_rows, self_idx, rating, counts, lambda_, n_self,
+                  chunk, reg_scaling):
+    """``foldin.foldin_solve`` with kernel A's plain version on the same
+    device: the Gram, the floor and the sweep of the tick."""
+    dev = item_rows.device
+    present = (self_idx < n_self).to(torch.float32)
+    A, b = als.gram_rhs(item_rows, self_idx,
+                        torch.arange(item_rows.shape[0], device=dev),
+                        present, rating, n_self, chunk)
+    reg = als._reg_vec(counts, n_self, lambda_, reg_scaling)
+    return solve.solve_gj_plain(A.contiguous(), b.contiguous(), reg)
+
+
+class _Stream:
+    """A steady query stream: one keep-alive client posting trained
+    users' queries back to back until closed; every answer that is not
+    a 200 (or a connection error) is a dropped query."""
+
+    def __init__(self, port: int, users, seed: int):
+        self.statuses, self.errors = [], []
+        self._stop = threading.Event()
+        rng = np.random.default_rng(seed)
+        self._users = [users[u] for u in rng.integers(0, len(users),
+                                                      size=1024)]
+        self._port = port
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        c = _Client(self._port)
+        try:
+            i = 0
+            while not self._stop.is_set():
+                status, _body, _t = c.call(
+                    "POST", "/queries.json",
+                    {"user": self._users[i % len(self._users)], "num": 10})
+                self.statuses.append(status)
+                i += 1
+        except Exception as e:     # a lost connection is a drop too
+            self.errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            c.close()
+
+    def close(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            raise AssertionError("the query stream did not stop")
+        dropped = sum(s != 200 for s in self.statuses) + len(self.errors)
+        return {"queries": len(self.statuses), "dropped": dropped,
+                "errors": self.errors[:3]}
+
+
+def _post_events(port: int, events) -> None:
+    c = _Client(port)
+    try:
+        for at in range(0, len(events), 50):
+            batch = events[at:at + 50]
+            status, results, _t = c.call(
+                "POST", f"/batch/events.json?accessKey={FOLD_KEY}", batch)
+            if status != 200 or [r["status"] for r in results] \
+                    != [201] * len(batch):
+                raise AssertionError(f"event batch at {at}: {status}")
+    finally:
+        c.close()
+
+
+def _fold_deploy(store, iid: str, work: str, name: str, aot: str):
+    """QueryAPI + serve() with fold-in on, its cursors in a fresh
+    directory; returns (api, port, server thread)."""
+    os.environ["PIO_FOLDIN_CURSOR_DIR"] = os.path.join(work, "cur_" + name)
+    api = create_server.QueryAPI(create_server.ServerConfig(
+        serve_quant="on", engine_instance_id=iid, aot=aot, foldin="on"),
+        storage=store)
+    port = _free_port()
+    server = threading.Thread(target=create_server.serve,
+                              args=(api, "127.0.0.1", port), daemon=True)
+    server.start()
+    _wait_ready(port, server.is_alive, deadline_s=300)
+    if api._foldin_worker is None:
+        raise AssertionError("the fold-in worker did not start (see the "
+                             "journal's foldin WARN)")
+    return api, port, server
+
+
+def _undeploy(port: int, server) -> None:
+    urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{port}/stop", data=b"", method="POST"),
+        timeout=30).close()
+    server.join(timeout=60)
+    if server.is_alive():
+        raise AssertionError("the fold-in deploy did not stop")
+
+
+def _wait_worker(api, done, what: str) -> float:
+    """Poll the worker's state until ``done(state)``; the seconds."""
+    t0 = time.perf_counter()
+    while not done(api._foldin_worker.state()):
+        if time.perf_counter() - t0 > FOLD_DEADLINE_S:
+            raise AssertionError(f"fold-in: {what} not reached in "
+                                 f"{FOLD_DEADLINE_S} s: "
+                                 f"{api._foldin_worker.state()}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _served(model, user: str, k: int):
+    """The answer the server gives ``user`` at ``num`` k, from the plain
+    int8 path on the live layout: the padded catalog ranked, hits past
+    the item vocab dropped (predict_batch's semantics)."""
+    qs = model.quant
+    k = min(k, len(model.item_vocab))
+    vals, idx = quant.topk_for_users_quant(
+        qs.u_q, qs.u_scale, qs.vt_q, qs.v_scale,
+        torch.tensor([model.user_vocab(user)], dtype=torch.int32,
+                     device=qs.device), k=k, n_items=qs.n_items)
+    inv = model.item_vocab.inverse()
+    n_real = len(model.item_vocab)
+    return {"itemScores": [{"item": inv(int(i)), "score": float(v)}
+                           for v, i in zip(vals[0].cpu().numpy(),
+                                           idx[0].cpu().numpy())
+                           if int(i) < n_real]}
+
+
+def phase_foldin(work: str, store, iid: str, model, seed: int, dev) -> dict:
+    """Fold-in on the eventlog app's ML-20M model: kernel A at the fold-in
+    buckets against its plain version; time to ready without and with
+    the warm-up; then, under a steady query stream, 64 unseen users, 8
+    trained users and 4 unseen items through the event server into the
+    live deploy; then the headroom-exhausted reload and a reload under a
+    burst of queries."""
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+    from predictionio_tpu_torch.tools import apps as app_cmds
+
+    out = {"card": _smi()}
+    t_phase = time.perf_counter()
+    app_cmds.accesskey_new(STORE_APP, key=FOLD_KEY, storage=store)
+
+    # 1. kernel A at the fold-in buckets, bit for bit, then timed
+    V = model.item_factors
+    rows = []
+    for bucket in foldin.user_buckets():
+        A, b, reg = _fold_systems(V, bucket, seed, dev)
+        x = solve.solve_factors(A, b, reg)
+        p = solve.solve_gj_plain(A, b, reg)
+        torch.cuda.synchronize()
+        if not bool(_bitwise_same(x, p).all()):
+            raise AssertionError(f"kernel A != plain at fold-in bucket "
+                                 f"{bucket}")
+        rows.append({**_solve_row(f"foldin n={bucket}", A, b, reg),
+                     "max_abs_err": float((x - p).abs().max())})
+    out["kernel_a"] = rows
+
+    # 2. time to ready, without the warm-up and with it, each from an
+    # unloaded kernel library (loads and builds are counted from here)
+    compiles = []
+    note = (lambda kind: lambda orig: lambda name, s: (
+        compiles.append((kind, name, time.perf_counter())), orig(name, s)))
+    users = list(model.user_vocab.to_dict())
+    with _wrapped((devicewatch, "note_build", note("build")),
+                  (devicewatch, "note_load", note("load"))):
+        ready = {}
+        for aot in ("off", "on"):
+            _kernels._libs.clear()
+            topk_fused._lib = None
+            topk_fused.reset_launches()
+            solve.reset_launches()
+            t0 = time.perf_counter()
+            api, port, server = _fold_deploy(store, iid, work, aot, aot)
+            ready[aot] = {"time_to_ready_s": api.time_to_ready_s,
+                          "wall_to_ready_s": time.perf_counter() - t0,
+                          "warmup_B1_launches": topk_fused.launches,
+                          "warmup_B2_launches": topk_fused.merge_launches,
+                          "warmup_A_launches": solve.launches}
+            topk_fused.reset_launches()
+            solve.reset_launches()
+            if aot == "off":
+                _undeploy(port, server)
+        out["ready"] = ready
+        t_ready = time.perf_counter()
+        if api._aot_state is None:
+            raise AssertionError("the deploy did not warm up")
+        out["aot"] = api._aot_state
+        main = _fold_traffic(api, port, store, users, model, seed)
+        late = [c for c in compiles if c[2] > t_ready]
+        if late:
+            raise AssertionError(f"kernel library builds or loads after "
+                                 f"ready: {late}")
+        out.update(main)
+        _undeploy(port, server)
+
+    # 3. the headroom runs out: the /reload fallback, then a burst reload
+    os.environ["PIO_FOLDIN_HEADROOM"] = str(FOLD_HEADROOM)
+    try:
+        api, port, server = _fold_deploy(store, iid, work, "headroom",
+                                         "auto")
+        out["headroom"] = _fold_headroom(api, port, store, users, seed)
+        _undeploy(port, server)
+    finally:
+        os.environ.pop("PIO_FOLDIN_HEADROOM", None)
+    os.environ.pop("PIO_FOLDIN_CURSOR_DIR", None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _fold_traffic(api, port, store, users, model, seed) -> dict:
+    """The main fold-in run on a live, warmed deploy."""
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+
+    rng = np.random.default_rng(seed + 23)
+    items = list(model.item_vocab.to_dict())
+    new_users = [f"fold_u{j}" for j in range(FOLD_NEW_USERS)]
+    trained = [users[u] for u in rng.choice(len(users),
+                                            size=FOLD_TRAINED_USERS,
+                                            replace=False)]
+    new_items = [f"fold_i{j}" for j in range(FOLD_NEW_ITEMS)]
+    # the unseen items' raters are the unseen users, once folded: an
+    # item solve reads only raters the model knows (and a trained user's
+    # whole history is the expensive read, timed below)
+    raters = {it: [new_users[u] for u in rng.choice(
+        FOLD_NEW_USERS, size=FOLD_ITEM_RATERS, replace=False)]
+        for it in new_items}
+    wave1 = []
+    for u in new_users:
+        for i in rng.choice(len(items), size=FOLD_RATINGS, replace=False):
+            wave1.append(_rate(u, items[i], float(rng.integers(1, 11)) / 2))
+    for u in trained:
+        for i in rng.choice(len(items), size=FOLD_TRAINED_RATINGS,
+                            replace=False):
+            wave1.append(_rate(u, items[i], float(rng.integers(1, 11)) / 2))
+    wave1 = [wave1[i] for i in rng.permutation(len(wave1))]
+    wave2 = [_rate(u, it, 5.0) for it, who in raters.items() for u in who]
+    events = wave1 + wave2
+
+    # every tick: its time, kernel A's launches and their shapes
+    ticks, shapes, solves, published, published_items = [], [], [], [], []
+
+    def wrap_solve(orig):
+        def f(item_rows, self_idx, rating, counts, lambda_, *, n_self,
+              chunk, reg_scaling="count"):
+            x = orig(item_rows, self_idx, rating, counts, lambda_,
+                     n_self=n_self, chunk=chunk, reg_scaling=reg_scaling)
+            shapes.append((n_self, chunk))
+            solves.append((item_rows, self_idx, rating, counts, lambda_,
+                           n_self, chunk, reg_scaling, x))
+            return x
+        return f
+
+    def wrap_tick(orig):
+        def tick(self):
+            a0, s0 = solve.launches, len(shapes)
+            t0 = time.perf_counter()
+            res = orig(self)
+            if res.get("events") or s0 != len(shapes):
+                ticks.append({"ms": (time.perf_counter() - t0) * 1e3,
+                              "events": res.get("events"),
+                              "A_launches": solve.launches - a0,
+                              "buckets": [n for n, _c in shapes[s0:]]})
+            return res
+        return tick
+
+    def wrap_publish(into):
+        def wrap(orig):
+            def publish(self, model_, ixs, rows_):
+                into.append((ixs.copy(), np.array(rows_, np.float32)))
+                return orig(self, model_, ixs, rows_)
+            return publish
+        return wrap
+
+    es, es_port = http_mod.serve_background(
+        service.EventAPI(storage=store), "127.0.0.1", 0)
+    with _wrapped((foldin, "foldin_solve", wrap_solve),
+                  (foldin.FoldinWorker, "tick", wrap_tick),
+                  (foldin.FoldinWorker, "_publish", wrap_publish(published)),
+                  (foldin.FoldinWorker, "_publish_items",
+                   wrap_publish(published_items))):
+        stream = _Stream(port, users, seed + 24)
+        try:
+            t0 = time.perf_counter()
+            _post_events(es_port, wave1)
+            post_s = time.perf_counter() - t0
+            converge_s = [_wait_worker(
+                api, lambda st: (
+                    st["usersFolded"] >= FOLD_NEW_USERS
+                    + FOLD_TRAINED_USERS and st["cursorLag"] == 0
+                    and not st["usersPending"]), "the users' folds")]
+            _post_events(es_port, wave2)
+            converge_s.append(_wait_worker(
+                api, lambda st: (
+                    st["itemsFolded"] >= FOLD_NEW_ITEMS
+                    and st["cursorLag"] == 0 and not st["usersPending"]
+                    and not st["itemsPending"]), "the items' folds"))
+            # one more quiet tick: nothing left in flight
+            time.sleep(2 * api._foldin_worker.config.tick_ms / 1e3)
+        finally:
+            stream_out = stream.close()
+            es.shutdown()
+            es.server_close()
+        worker = api._foldin_worker
+        m = api.models[0]
+        state = worker.state()
+        c = _Client(port)
+        try:
+            answers = {u: c.call("POST", "/queries.json",
+                                 {"user": u, "num": 10})
+                       for u in new_users + trained}
+            item_answers = {
+                it: c.call("POST", "/queries.json",
+                           {"user": raters[it][0],
+                            "num": len(m.item_vocab)})
+                for it in new_items}
+            stats = c.call("GET", "/")[1]
+        finally:
+            c.close()
+    flushes = stats["batching"]["batches"]
+    b1, b2 = topk_fused.launches, topk_fused.merge_launches
+    if stream_out["dropped"]:
+        raise AssertionError(f"fold-in dropped queries: {stream_out}")
+    if flushes == 0 or b1 != flushes or b2 != flushes:
+        raise AssertionError(f"B1 {b1} / B2 {b2} launches for {flushes} "
+                             "flushes")
+    # every kernel A call of the ticks == its plain version, bit for bit
+    for args in solves:
+        x = args[-1]
+        p = _foldin_plain(*args[:-1])
+        if not bool(_bitwise_same(x, p).all()):
+            raise AssertionError(f"a tick's kernel A != plain at "
+                                 f"n={args[5]}")
+    outputs = {row.tobytes() for *_a, x in solves
+               for row in x.cpu().numpy()}
+    if any(r.tobytes() not in outputs
+           for _ix, rs in published + published_items for r in rs):
+        raise AssertionError("a published row is no solve's output")
+
+    def last_rows(pubs):
+        last = {}
+        for ixs, rs in pubs:
+            for ix, r in zip(ixs.tolist(), rs):
+                last[ix] = r
+        return last
+
+    # the published rows: the mirrors and the int8 layout hold them, the
+    # users as rows of u_q, the items as COLUMNS of the transposed vt_q
+    last = last_rows(published)
+    last_items = last_rows(published_items)
+    want_items = {m.item_vocab(it) for it in new_items}
+    if not want_items <= set(last_items):
+        raise AssertionError(f"unseen item rows {sorted(want_items)} not "
+                             f"all published: {sorted(last_items)}")
+    for side, rows_, mirror, q_of, s_of in (
+            ("user", last, worker._user_factors,
+             lambda ix: m.quant.u_q[ix], lambda ix: m.quant.u_scale[ix]),
+            ("item", last_items, worker._item_factors,
+             lambda ix: m.quant.vt_q[:, ix], lambda ix: m.quant.v_scale[ix])):
+        for ix, r in rows_.items():
+            if mirror[ix].tobytes() != r.tobytes():
+                raise AssertionError(f"{side} row {ix}: the mirror is not "
+                                     "the last published row")
+            q, sc = quant.quantize_rows(r[None])
+            if (q_of(ix).cpu().numpy().tobytes() != q[0].tobytes()
+                    or s_of(ix).item() != float(sc[0])):
+                raise AssertionError(f"{side} row {ix}: int8 != "
+                                     "quantize_rows")
+    for u, (status, payload, _t) in answers.items():
+        want = _served(m, u, 10)
+        if status != 200 or payload != want:
+            raise AssertionError(f"{u} answered {status} {payload}, the "
+                                 f"plain int8 path {want}")
+        if u in new_users and not payload["itemScores"]:
+            raise AssertionError(f"unseen user {u} got a cold answer")
+    distinct = len({json.dumps(answers[u][1]) for u in new_users})
+    item_rank = {}
+    for it, (status, payload, _t) in item_answers.items():
+        names = [s["item"] for s in payload["itemScores"]]
+        if status != 200 or it not in names:
+            raise AssertionError(f"unseen item {it} is not served")
+        item_rank[it] = names.index(it) + 1
+    # where a tick's time goes: one row's history read from the store
+    gather_ms = {}
+    for kind, who in (("trained", trained[:3]), ("unseen", new_users[:3])):
+        ms = []
+        for u in who:
+            t0 = time.perf_counter()
+            worker._gather_ratings(u, m.item_vocab)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        gather_ms[kind] = ms
+    # and where a trained user's read spends it (host Python, cProfile)
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.runcall(worker._gather_ratings, trained[-1], m.item_vocab)
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][3])[:8]
+    gather_profile = [(f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}:{fn[2]}",
+                       round(st[3] * 1e3, 1), st[1]) for fn, st in top]
+    fresh = state.get("freshness") or {}
+    tick_ms = [t["ms"] for t in ticks]
+    return {
+        "events": len(events), "post_s": post_s, "converge_s": converge_s,
+        "stream": stream_out, "flushes": flushes, "B1_launches": b1,
+        "B2_launches": b2, "A_launches": sum(t["A_launches"]
+                                             for t in ticks),
+        "A_solves_checked": len(solves), "ticks": ticks,
+        "published_rows": {"users": len(last), "items": len(last_items)},
+        "tick_ms": {"p50": float(np.percentile(tick_ms, 50)),
+                    "max": float(max(tick_ms))} if tick_ms else None,
+        "freshness_s": {"p50": fresh.get("p50S"), "p99": fresh.get("p99S"),
+                        "observed": fresh.get("observed")},
+        "gather_ms": gather_ms, "gather_profile": gather_profile,
+        "distinct_new_user_answers": distinct,
+        "new_item_rank_for_a_rater": item_rank,
+        "state": {k: state[k] for k in ("usersFolded", "itemsFolded",
+                                        "capacity", "itemCapacity",
+                                        "eventsSeen", "unknownItems",
+                                        "unknownUsers")}}
+
+
+def _fold_headroom(api, port, store, users, seed) -> dict:
+    """FOLD_HEADROOM rows of headroom, FOLD_HEADROOM_USERS unseen users:
+    the worker falls back to the reload (generation + 1) and folds every
+    pending user into the re-grown headroom, with a query stream running;
+    then POST /reload under a burst of concurrent queries."""
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+
+    rng = np.random.default_rng(seed + 25)
+    items = list(api.models[0].item_vocab.to_dict())
+    horde = [f"horde_u{j}" for j in range(FOLD_HEADROOM_USERS)]
+    events = [_rate(u, items[i], float(rng.integers(1, 11)) / 2)
+              for u in horde
+              for i in rng.choice(len(items), size=10, replace=False)]
+    gen0 = api.generation
+    cap0 = api._foldin_worker.state()["capacity"]["rows"]
+    es, es_port = http_mod.serve_background(
+        service.EventAPI(storage=store), "127.0.0.1", 0)
+    stream = _Stream(port, users, seed + 26)
+    try:
+        _post_events(es_port, events)
+        reload_s = _wait_worker(
+            api, lambda st: st["generation"] == gen0 + 1
+            and st["usersFolded"] >= FOLD_HEADROOM_USERS
+            and not st["usersPending"], "the headroom reload")
+    finally:
+        stream_out = stream.close()
+        es.shutdown()
+        es.server_close()
+    if stream_out["dropped"]:
+        raise AssertionError(f"the headroom reload dropped queries: "
+                             f"{stream_out}")
+    c = _Client(port)
+    try:
+        for u in horde:
+            status, payload, _t = c.call("POST", "/queries.json",
+                                         {"user": u, "num": 10})
+            if status != 200 or not payload["itemScores"]:
+                raise AssertionError(f"{u} after the reload: {status} "
+                                     f"{payload}")
+    finally:
+        c.close()
+    cap1 = api._foldin_worker.state()["capacity"]["rows"]
+
+    # POST /reload while FOLD_BURST queries run on 16 clients
+    gen1 = api.generation
+    burst = [users[u] for u in rng.integers(0, len(users), size=FOLD_BURST)]
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        futures = [pool.submit(_post, port, u, 10) for u in burst]
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/reload", data=b"",
+                method="POST"), timeout=30) as r:
+            reload_status = r.status
+        statuses = []
+        for f in futures:
+            try:
+                statuses.append(f.result()[0])
+            except OSError as e:       # urllib raises on a 503
+                statuses.append(getattr(e, "code", repr(e)))
+    api._reload_thread.join(timeout=120)
+    if reload_status != 200 or api.generation != gen1 + 1:
+        raise AssertionError(f"POST /reload: {reload_status}, generation "
+                             f"{gen1} -> {api.generation}")
+    if statuses != [200] * FOLD_BURST:
+        raise AssertionError(f"the burst around /reload dropped "
+                             f"{sum(s != 200 for s in statuses)} queries")
+    return {"headroom": FOLD_HEADROOM, "users": FOLD_HEADROOM_USERS,
+            "capacity_rows": [cap0, cap1], "generation": [gen0, gen1],
+            "reload_s": reload_s, "stream": stream_out,
+            "burst": {"queries": FOLD_BURST, "dropped": 0,
+                      "generation": [gen1, api.generation]}}
 
 
 def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
@@ -3004,13 +3553,17 @@ def _phase_store(work, seed, dev, synth, qs_out) -> dict:
               "query_ms": {"p50": p50, "p99": p99},
               "flushes": dep["flushes"], "B1_launches": dep["B1_launches"],
               "B2_launches": dep["B2_launches"]}
-    ev.close()          # the buffered tails into chunks, before cleanup
     print(f"store: pio deploy ready in {deploy['ready_s']:.3f} s; "
           f"{deploy['queries']} queries equal to the plain int8 path, p50 "
           f"{deploy['query_ms']['p50']:.3f} ms p99 "
           f"{deploy['query_ms']['p99']:.3f} ms; B1 {deploy['B1_launches']} "
           f"and B2 {deploy['B2_launches']} launches for "
           f"{deploy['flushes']} flushes", flush=True)
+
+    # 6. realtime fold-in on this model, the headroom reload, a reload
+    fold = phase_foldin(work, store, iid, model, seed, dev)
+    _print_foldin(fold)
+    ev.close()          # the buffered tails into chunks, before cleanup
     return {"events": n, "users": N_USERS, "items": N_ITEMS,
             "fill_s": fill_s, "fill_events_per_s": n / fill_s,
             "read_columns_s": read_s, "find_columnar_in_core_s": in_core_s,
@@ -3018,7 +3571,59 @@ def _phase_store(work, seed, dev, synth, qs_out) -> dict:
             "import": {"events": n_file, "import_s": import_s,
                        "events_per_s": n_file / import_s,
                        "sqlite_events_per_s": qs_eps, "train": imported},
-            "cursors": cursors, "deploy": deploy}
+            "cursors": cursors, "deploy": deploy, "foldin": fold}
+
+
+def _print_foldin(fold: dict) -> None:
+    for r in fold["kernel_a"]:
+        print(f"foldin: kernel A at n = {r['n']}, r = {r['r']}: == plain "
+              f"bit for bit; call {r['ms']:.4f} ms, body "
+              f"{r['body_ms']} ms, plain {r['plain_ms']:.4f} ms, "
+              f"torch.linalg.solve {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+    for aot, r in fold["ready"].items():
+        print(f"foldin: time to ready with the warm-up {aot}: "
+              f"{r['time_to_ready_s']:.3f} s (to /readyz "
+              f"{r['wall_to_ready_s']:.3f} s); warm-up launches B1 "
+              f"{r['warmup_B1_launches']}, B2 {r['warmup_B2_launches']}, "
+              f"A {r['warmup_A_launches']}", flush=True)
+    for i, t in enumerate(fold["ticks"]):
+        print(f"foldin: tick {i}: {t['ms']:.1f} ms, {t['events']} events, "
+              f"kernel A {t['A_launches']} launches at buckets "
+              f"{t['buckets']}", flush=True)
+    print(f"foldin: one row's history read from the eventlog "
+          f"(FoldinWorker._gather_ratings), ms: trained users "
+          f"{[round(x, 1) for x in fold['gather_ms']['trained']]}, unseen "
+          f"users {[round(x, 1) for x in fold['gather_ms']['unseen']]}; "
+          f"one trained user's read under cProfile (function, cumulative "
+          f"ms, calls): {fold['gather_profile']}", flush=True)
+    print(f"foldin: {fold['events']} events posted (the users' "
+          f"{fold['post_s']:.3f} s); the users' folds live "
+          f"{fold['converge_s'][0]:.3f} s after their post, the items' "
+          f"{fold['converge_s'][1]:.3f} s after theirs; freshness "
+          f"(event ack to servable) p50 {fold['freshness_s']['p50']} s, p99 "
+          f"{fold['freshness_s']['p99']} s over "
+          f"{fold['freshness_s']['observed']} folds; tick p50 "
+          f"{fold['tick_ms']['p50']:.1f} ms, max "
+          f"{fold['tick_ms']['max']:.1f} ms; {fold['A_solves_checked']} "
+          f"kernel A calls == plain bit for bit; B1 {fold['B1_launches']} / "
+          f"B2 {fold['B2_launches']} launches for {fold['flushes']} "
+          f"flushes; stream {fold['stream']['queries']} queries, "
+          f"{fold['stream']['dropped']} dropped; "
+          f"{fold['distinct_new_user_answers']} distinct answers for "
+          f"{FOLD_NEW_USERS} unseen users; the unseen items' ranks for a "
+          f"rater {fold['new_item_rank_for_a_rater']}; "
+          f"state {fold['state']}", flush=True)
+    h = fold["headroom"]
+    print(f"foldin: headroom {h['headroom']}, {h['users']} unseen users: "
+          f"generation {h['generation'][0]} -> {h['generation'][1]}, "
+          f"capacity {h['capacity_rows'][0]} -> {h['capacity_rows'][1]} "
+          f"rows, all folded {h['reload_s']:.3f} s after the posts, "
+          f"stream {h['stream']['queries']} queries, "
+          f"{h['stream']['dropped']} dropped; POST /reload under "
+          f"{h['burst']['queries']} concurrent queries: generation "
+          f"{h['burst']['generation'][0]} -> {h['burst']['generation'][1]}, "
+          f"0 dropped; phase {fold['phase_s']:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -3104,6 +3709,8 @@ def main(argv=None) -> int:
         "quickstart_merge_launches": qs_merge_launches,
         "store_launches": store_out["deploy"]["B1_launches"],
         "store_merge_launches": store_out["deploy"]["B2_launches"],
+        "foldin_launches": store_out["foldin"]["B1_launches"],
+        "foldin_merge_launches": store_out["foldin"]["B2_launches"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
@@ -3141,6 +3748,8 @@ def main(argv=None) -> int:
                            for t in store_out["trains"]],
         "store_import_launches":
             store_out["import"]["train"]["solve_gj_launches"],
+        "foldin_launches": store_out["foldin"]["A_launches"],
+        "foldin_by_bucket": store_out["foldin"]["kernel_a"],
         "store": store_out,
         "observe": observe["profiled_train"],
         "card": smi,

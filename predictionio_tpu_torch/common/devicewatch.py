@@ -89,6 +89,10 @@ _warmup_done = False
 _post_warmup_events: deque = deque(maxlen=32)
 #: most recent quantized-serving state (ops/quant.py via note_quant)
 _quant_state: Optional[Dict[str, Any]] = None
+#: most recent warm-up summary (workflow/create_server.py via note_aot)
+_aot_state: Optional[Dict[str, Any]] = None
+#: most recent fold-in worker state (realtime/foldin.py via note_foldin)
+_foldin_state: Optional[Dict[str, Any]] = None
 
 
 def _warmup_flush_count() -> int:
@@ -169,6 +173,23 @@ def note_quant(summary: Optional[Dict[str, Any]]) -> None:
     global _quant_state
     with _lock:
         _quant_state = dict(summary) if summary is not None else None
+
+
+def note_aot(summary: Optional[Dict[str, Any]]) -> None:
+    """Record (or with None, clear) the deploy's warm-up summary for the
+    debug surface."""
+    global _aot_state
+    with _lock:
+        _aot_state = dict(summary) if summary is not None else None
+
+
+def note_foldin(summary: Optional[Dict[str, Any]]) -> None:
+    """Record (or with None, clear) the fold-in worker's state (cursor
+    lag, last tick, freshness percentiles, drift verdicts) for the debug
+    surface."""
+    global _foldin_state
+    with _lock:
+        _foldin_state = dict(summary) if summary is not None else None
 
 
 def serving_warmup_done() -> bool:
@@ -428,7 +449,8 @@ def install() -> bool:
 def debug_snapshot() -> Dict[str, Any]:
     """The ``GET /debug/device.json`` payload. With telemetry off the
     subsystem is dormant and the payload says only that. The
-    reference's ``aot``, ``sharding`` and ``foldin`` blocks stay null
+    ``aot`` block is the deploy's warm-up and ``foldin`` the fold-in
+    worker's state (null while those are off); ``sharding`` stays null
     and ``breakers`` empty until those features are ported."""
     if not telemetry.on():
         return {"telemetry": False}
@@ -442,16 +464,19 @@ def debug_snapshot() -> Dict[str, Any]:
         }
         quant_state = (dict(_quant_state)
                        if _quant_state is not None else None)
+        aot_state = dict(_aot_state) if _aot_state is not None else None
+        foldin_state = (dict(_foldin_state)
+                        if _foldin_state is not None else None)
     watchdog["compilesTotal"] = compiles_total()
     watchdog["postWarmupRecompiles"] = post_warmup_recompiles()
     devices = _device_stats()
     return {
         "telemetry": True,
         "watchdog": watchdog,
-        "aot": None,
+        "aot": aot_state,
         "sharding": None,
         "quant": quant_state,
-        "foldin": None,
+        "foldin": foldin_state,
         "devices": devices,
         "liveArrays": _live_array_stats(devices),
         "hostMemory": host_memory_stats(),

@@ -12,7 +12,7 @@ of the JAX package), in one of three kinds:
 - ``UNPORTED``: it turns on a feature the port lacks. :func:`refuse_unported`
   raises ``ValueError`` at the entry points (the CLI's ``train``,
   ``eval``, ``deploy``, ``eventserver``, ``import``, ``export``,
-  ``dashboard`` and ``adminserver``, ``run_train``, ``run_evaluation`` and
+  ``dashboard``, ``adminserver`` and ``foldin``, ``run_train``, ``run_evaluation`` and
   ``QueryAPI``) when such a variable is set to a value that turns the
   feature on, naming the variable, the feature and the ROADMAP item that
   brings it. Unset, ``0``
@@ -36,11 +36,11 @@ UNPORTED = "unported"
 
 TRAIN, EVAL, DEPLOY = "train", "eval", "deploy"
 EVENTSERVER, IMPORT, EXPORT = "eventserver", "import", "export"
-DASHBOARD, ADMINSERVER = "dashboard", "adminserver"
+DASHBOARD, ADMINSERVER, FOLDIN = "dashboard", "adminserver", "foldin"
 #: the verbs that serve HTTP
 DAEMONS = (DEPLOY, EVENTSERVER, DASHBOARD, ADMINSERVER)
 ALL_VERBS = (TRAIN, EVAL, DEPLOY, EVENTSERVER, IMPORT, EXPORT, DASHBOARD,
-             ADMINSERVER)
+             ADMINSERVER, FOLDIN)
 
 
 @dataclass(frozen=True)
@@ -75,7 +75,7 @@ _TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
 _Q4 = "queue 1 item 4 (the read and ingest path)"
-_Q5 = "queue 1 item 5 (fold-in, hot reload and warm start)"
+_Q5B = "queue 1 item 5b (the host-vs-device serving probe)"
 _Q6 = "queue 1 item 6 (distributed training and sharded serving)"
 _Q7 = "queue 1 item 7 (the router, multi-tenancy and the fleet tools)"
 
@@ -133,7 +133,7 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SERVE_BUCKETS": _read("the serving buckets"),
     "PIO_SERVE_DEVICE_MS": _unported(
         "the inline single-query device path and its host-vs-device "
-        "latency probe", _Q5),
+        "latency probe", _Q5B),
     "PIO_SERVE_SHARD": _unported("row-sharded serving", _Q6,
                                  also_off=("auto",)),
     "PIO_SERVE_QUANT": _read("quantized serving"),
@@ -143,22 +143,26 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SERVE_WARMUP_FLUSHES": _read(
         "the serving flushes before devicewatch's post-warmup alarm arms"),
     # fold-in
-    "PIO_FOLDIN": _unported("the realtime fold-in speed layer", _Q5),
-    "PIO_FOLDIN_TICK_MS": _inert("tunes fold-in"),
-    "PIO_FOLDIN_HEADROOM": _inert("tunes fold-in"),
-    "PIO_FOLDIN_MAX_EVENTS": _inert("tunes fold-in"),
-    "PIO_FOLDIN_USER_BUCKETS": _inert("tunes fold-in"),
-    "PIO_FOLDIN_CURSOR_DIR": _inert("tunes fold-in"),
-    "PIO_FOLDIN_DRIFT_EVERY": _inert("tunes fold-in"),
-    "PIO_FOLDIN_DRIFT_RECALL_MIN": _inert("tunes fold-in"),
-    "PIO_FOLDIN_ITEM_HEADROOM": _inert("tunes fold-in"),
-    # ahead-of-time serving and the compile cache
-    "PIO_AOT": _unported(
-        "the ahead-of-time warm-up of every serving shape before /readyz",
-        _Q5),
-    "PIO_AOT_KS": _inert("tunes the ahead-of-time warm-up"),
-    "PIO_AOT_PRUNE": _inert("tunes the ahead-of-time warm-up"),
-    "PIO_AOT_THREADS": _inert("tunes the ahead-of-time warm-up"),
+    "PIO_FOLDIN": _read("the realtime fold-in speed layer (0 / 1)"),
+    "PIO_FOLDIN_TICK_MS": _read("the fold-in tick"),
+    "PIO_FOLDIN_HEADROOM": _read("the user rows padded for fold-in"),
+    "PIO_FOLDIN_MAX_EVENTS": _read("the fold-in history cap per row"),
+    "PIO_FOLDIN_USER_BUCKETS": _read("the fold-in solve's buckets"),
+    "PIO_FOLDIN_CURSOR_DIR": _read("where fold-in cursors persist"),
+    "PIO_FOLDIN_DRIFT_EVERY": _read("ticks between drift probes"),
+    "PIO_FOLDIN_DRIFT_RECALL_MIN": _read("the drift probes' floor"),
+    "PIO_FOLDIN_ITEM_HEADROOM": _read("the item rows padded for fold-in"),
+    # the warm-up before ready and the compile cache
+    "PIO_AOT": _read("the warm-up before /readyz (0 / 1)"),
+    "PIO_AOT_KS": _inert(
+        "the warm-up's k set; k selects no kernel instantiation, so the "
+        "warm-up runs one k"),
+    "PIO_AOT_PRUNE": _inert(
+        "the warm-up's bucket pruning; a bucket changes only a launch's "
+        "grid, so every bucket is warmed"),
+    "PIO_AOT_THREADS": _inert(
+        "the reference's prebuild pool; the warm-up's launches run in "
+        "order on one stream"),
     "PIO_COMPILE_CACHE_DIR": _inert(
         "the XLA compile cache; the port's kernels build once into "
         "PIO_TORCH_KERNEL_DIR"),

@@ -339,6 +339,38 @@ class ALSAlgorithm(Algorithm):
             item_factors=torch.tensor(V, device=dev),
             user_vocab=model.user_vocab, item_vocab=model.item_vocab)
 
+    def aot_serving_programs(self, model: ALSModel, buckets):
+        """The deploy's warm-up (``serving/aot.py``): one batched top-k
+        per bucket, B1 + B2 on the card for a quantized model, and the
+        inline single-query path once, each on row 0 (in bounds) and
+        ending in the host copy, as a flush does."""
+        from predictionio_tpu_torch.serving import aot
+
+        out = []
+        quant = model.quant
+        k = aot.warm_k(len(model.item_vocab))
+        for b in buckets:
+            pix = np.zeros(b, dtype=np.int32)
+            if quant is not None:
+                def run(pix=pix):
+                    return _to_host(*quant.topk(pix, k))
+            else:
+                def run(pix=pix):
+                    U = model.user_factors
+                    ixs = torch.from_numpy(pix).to(U.device)
+                    return _to_host(*topk.topk_for_users(
+                        U, model.item_factors, ixs, k=k))
+            out.append(aot.Program("topk_for_users", run))
+        if quant is not None:
+            def one():
+                return _to_host(*quant.topk_one(0, k))
+        else:
+            def one():
+                return _to_host(*topk.topk_for_user(
+                    model.user_factors, model.item_factors, 0, k=k))
+        out.append(aot.Program("topk_for_user", one))
+        return out
+
     @staticmethod
     def _results(model: ALSModel, vals, idx) -> PredictedResult:
         # an index past the item vocab never surfaces in a result (the

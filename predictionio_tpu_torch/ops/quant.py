@@ -269,6 +269,45 @@ def topk_for_user_quant(u_q: torch.Tensor, u_scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# fold-in publication (realtime/foldin.py): the touched rows re-quantized
+# ---------------------------------------------------------------------------
+
+def scatter_user_rows_quant(u_q: torch.Tensor, u_scale: torch.Tensor,
+                            ixs: torch.Tensor, q_rows: torch.Tensor,
+                            scales: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NEW ``(u_q, u_scale)`` with the int8 rows and their per-row scales
+    replaced at ``ixs`` (in bounds; duplicate indices carry identical
+    rows). Per-row symmetric quantization keeps the re-quantization of
+    the touched rows local and exact; the caller swaps a rebuilt
+    :class:`QuantizedServing` in one reference assignment."""
+    ix = ixs.to(device=u_q.device, dtype=torch.int64)
+    return (u_q.index_copy(0, ix, q_rows.to(u_q.device, torch.int8)),
+            u_scale.index_copy(0, ix, scales.to(u_scale.device,
+                                                torch.float32)))
+
+
+def scatter_item_cols_quant(vt_q: torch.Tensor, v_scale: torch.Tensor,
+                            ixs: torch.Tensor, q_rows: torch.Tensor,
+                            scales: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The item side of :func:`scatter_user_rows_quant`: the items serve
+    TRANSPOSED, so the folded item rows land as COLUMNS of ``vt_q``,
+    with their per-item scales."""
+    ix = ixs.to(device=vt_q.device, dtype=torch.int64)
+    cols = q_rows.to(vt_q.device, torch.int8).T.contiguous()
+    return (vt_q.index_copy(1, ix, cols),
+            v_scale.index_copy(0, ix, scales.to(v_scale.device,
+                                                torch.float32)))
+
+
+def _quantized_rows(ixs, rows_fp32):
+    q_rows, scales = quantize_rows(np.asarray(rows_fp32, np.float32))
+    return (torch.from_numpy(np.asarray(ixs, np.int64).reshape(-1)),
+            torch.from_numpy(q_rows), torch.from_numpy(scales))
+
+
+# ---------------------------------------------------------------------------
 # the device layout
 # ---------------------------------------------------------------------------
 
@@ -339,6 +378,27 @@ class QuantizedServing:
         return topk_for_user_quant(
             self.u_q, self.u_scale, self.vt_q, self.v_scale, int(user_ix),
             k=int(k), n_items=self.n_items)
+
+    def apply_user_rows(self, ixs, rows_fp32) -> "QuantizedServing":
+        """A NEW QuantizedServing with ``rows_fp32`` re-quantized per row
+        and scattered into the user matrix at ``ixs``; the item layout is
+        untouched (fold-in's fixed item matrix). The caller publishes by
+        swapping its model's ``quant`` reference, so every query in
+        flight reads one consistent (rows, scales) pair."""
+        ix, q_rows, scales = _quantized_rows(ixs, rows_fp32)
+        new_q, new_s = scatter_user_rows_quant(
+            self.u_q, self.u_scale, ix, q_rows, scales)
+        return dataclasses.replace(self, u_q=new_q, u_scale=new_s)
+
+    def apply_item_rows(self, ixs, rows_fp32) -> "QuantizedServing":
+        """The item side of :meth:`apply_user_rows`: ``rows_fp32``
+        re-quantized per row and scattered as COLUMNS of the transposed
+        item layout at ``ixs`` (the item headroom padded at deploy;
+        ``n_items`` counts it, so no shape changes)."""
+        ix, q_rows, scales = _quantized_rows(ixs, rows_fp32)
+        new_vt, new_s = scatter_item_cols_quant(
+            self.vt_q, self.v_scale, ix, q_rows, scales)
+        return dataclasses.replace(self, vt_q=new_vt, v_scale=new_s)
 
     def int8_bytes(self) -> int:
         """Logical footprint (int8 matrices + fp32 scales), pad excluded."""

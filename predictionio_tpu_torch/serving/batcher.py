@@ -82,6 +82,11 @@ class _Pending:
         self.rec = rec
 
 
+class BatcherClosed(RuntimeError):
+    """submit() on a batcher whose close() began: the item was never
+    queued, so the caller may hand it to another batcher."""
+
+
 class MicroBatcher:
     """Coalesces concurrent submit() calls into flush_fn(list) batches."""
 
@@ -142,13 +147,13 @@ class MicroBatcher:
 
     def submit(self, item: Any) -> Any:
         """Enqueue one item and block until its batch is served. Raises
-        ServerSaturated when the queue is full, RuntimeError once closed,
+        ServerSaturated when the queue is full, BatcherClosed once closed,
         and re-raises what the flush callback raised for this batch."""
         trace = tracing.current()
         rec = waterfall.current()
         with self._cond:
             if self._closed:
-                raise RuntimeError("batcher is closed")
+                raise BatcherClosed("batcher is closed")
             if len(self._q) >= self.max_queue:
                 self._m_rejected.inc()
                 raise ServerSaturated(self._retry_after_locked())

@@ -21,7 +21,11 @@
         [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
         [--engine-instance-id ID] [--ip HOST] [--port PORT]
+        [--aot auto|on|off] [--foldin on|off] [--foldin-tick-ms MS]
+        [--foldin-headroom N] [--foldin-item-headroom N]
         [--telemetry] [--trace] [--waterfall] [--profile-dir DIR] ...
+    python -m predictionio_tpu_torch.tools.cli foldin [--engine-dir DIR]
+        [--engine-instance-id ID] [--tick-ms MS] [--max-ticks N]
     python -m predictionio_tpu_torch.tools.cli undeploy [--ip HOST]
         [--port PORT]
     python -m predictionio_tpu_torch.tools.cli profile [URL] [--ms N]
@@ -33,8 +37,8 @@
 ``PIO_TORCH_DEVICE=cpu`` asks for the CPU; the event server, the app and
 key commands, ``import`` and ``export`` work on the host and never touch
 the card. A reference variable that asks for a feature the port lacks
-(``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_FOLDIN=1``,
-``PIO_HISTORY=1``, ...) makes the verb exit 1 with a message naming it,
+(``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_TRANSPORT=async``, ...)
+makes the verb exit 1 with a message naming it,
 before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
 ``PIO_TELEMETRY``, ``PIO_TRACE`` and ``PIO_WATERFALL`` to 1, as in the
 reference. Storage is configured as in the reference (zero
@@ -170,12 +174,32 @@ def cmd_deploy(args) -> int:
         batch_max_queue=args.batch_max_queue,
         drain_grace_s=args.drain_grace_s,
         serve_quant=args.serve_quant,
+        aot=args.aot,
+        foldin=args.foldin,
+        foldin_tick_ms=args.foldin_tick_ms,
+        foldin_headroom=args.foldin_headroom,
+        foldin_item_headroom=args.foldin_item_headroom,
     )
     api = QueryAPI(config=config)
     _info(f"Engine is deployed and running. Engine API is live at "
           f"http://{args.ip}:{args.port}.")
     serve(api, host=args.ip, port=args.port)
     return 0
+
+
+def cmd_foldin(args) -> int:
+    """The standalone fold-in runner (realtime/foldin.py run_standalone):
+    the latest COMPLETED instance's model in this process, the tail ->
+    solve -> publish pipeline against the live event stream, and its
+    freshness, lag and drift; publication stays in the local copy and
+    the cursor in its own ``standalone`` namespace. ``pio deploy
+    --foldin on`` is the serving form. Exit 0 clean, 1 when the store has
+    no incremental tail."""
+    from predictionio_tpu_torch.realtime.foldin import run_standalone
+    return run_standalone(
+        engine_dir=args.engine_dir, variant=args.variant,
+        engine_instance_id=args.engine_instance_id,
+        tick_ms=args.tick_ms, max_ticks=args.max_ticks or None)
 
 
 def cmd_undeploy(args) -> int:
@@ -418,6 +442,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "scales through the fused kernel (auto = on the "
                          "card, gated by the ranking-parity probe; "
                          "PIO_SERVE_QUANT overrides)")
+    sp.add_argument("--aot", choices=("auto", "on", "off"), default="auto",
+                    help="run every bucket's serving call and, with "
+                         "fold-in, kernel A at every fold-in bucket once "
+                         "before /readyz says ready (serving/aot.py; "
+                         "auto = on the card; PIO_AOT=0/1 overrides)")
+    sp.add_argument("--foldin", choices=("on", "off"), default="off",
+                    help="run the realtime fold-in worker in process "
+                         "(realtime/foldin.py): tail the event store, "
+                         "re-solve dirty users and unseen items with the "
+                         "ALS half-step and publish the rows into the "
+                         "live model (PIO_FOLDIN=0/1 overrides)")
+    sp.add_argument("--foldin-tick-ms", type=float, default=0.0,
+                    help="fold-in tick in ms (0 = PIO_FOLDIN_TICK_MS or "
+                         "250)")
+    sp.add_argument("--foldin-headroom", type=int, default=0,
+                    help="user rows padded for fold-in appends (0 = "
+                         "PIO_FOLDIN_HEADROOM or 1024)")
+    sp.add_argument("--foldin-item-headroom", type=int, default=0,
+                    help="item rows padded for unseen items (0 = "
+                         "PIO_FOLDIN_ITEM_HEADROOM or 1024)")
     sp.add_argument("--waterfall", action="store_true",
                     help="sample per-request latency waterfalls "
                          "(GET /debug/slow.json + per-stage histograms; "
@@ -426,6 +470,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="directory for POST /debug/profile capture "
                          "artifacts (sets PIO_PROFILE_DIR)")
     telemetry_flags(sp)
+
+    sp = sub.add_parser(
+        "foldin",
+        help="standalone realtime fold-in: tail the event store and "
+             "re-solve dirty users against the latest trained model in "
+             "this process (the dry-run form of `pio deploy --foldin "
+             "on`; exit 0 clean / 1 unsupported store)")
+    engine_flags(sp)
+    sp.add_argument("--engine-instance-id", default=None)
+    sp.add_argument("--tick-ms", type=float, default=0.0,
+                    help="tick in ms (0 = PIO_FOLDIN_TICK_MS or 250)")
+    sp.add_argument("--max-ticks", type=int, default=0,
+                    help="stop after N ticks (0 = run until Ctrl-C)")
 
     sp = sub.add_parser("undeploy", help="stop a deployed engine server")
     sp.add_argument("--ip", default="localhost")
@@ -522,6 +579,7 @@ _DISPATCH = {
     "train": cmd_train,
     "eval": cmd_eval,
     "deploy": cmd_deploy,
+    "foldin": cmd_foldin,
     "undeploy": cmd_undeploy,
     "profile": cmd_profile,
     "eventserver": cmd_eventserver,

@@ -8,6 +8,7 @@ else the device policy: the card) and answers:
   GET  /             -> status (engine instance, serving stats)
   GET  /readyz       -> readiness
   POST /queries.json -> supplement -> predict -> serve, micro-batched
+  POST /reload       -> hot-swap to the latest COMPLETED instance
   POST /stop         -> shut the server down
 
 Before its models are laid out, every algorithm is bound
@@ -31,8 +32,30 @@ request's trace. The deploy's load and drain are journal events.
 ``PIO_TELEMETRY=1`` adds ``pio_serve_seconds``. With every knob unset
 the answers are byte-identical to a server without them.
 
-Multi-tenancy, fold-in, partitions, plugins, feedback and AOT of the JAX
-server arrive in later slices.
+Hot reload (``POST /reload``): the load runs again on a thread, lays the
+new model out beside the old one, swaps it in under the lock and drains
+the old batcher before it retires; each successful load bumps
+``generation``. A query that raced the swap onto the retired batcher is
+resubmitted to the new one, so none is dropped. A failed reload keeps
+the previous generation serving and journals a WARN.
+
+The warm-up (``serving/aot.py``, ``ServerConfig.aot``, ``PIO_AOT``): before
+the deploy is ready, every bucket the batcher can flush has run once
+through the serving kernels, and kernel A once per fold-in bucket, so no
+kernel build, load or first launch lands behind a query or a tick.
+
+Realtime fold-in (``realtime/foldin.py``, ``ServerConfig.foldin``,
+``PIO_FOLDIN``): the load pads user and item headroom before the layout,
+and one worker per server, re-bound to each generation, tails the event
+store and publishes folded rows into the live model. When the headroom
+runs out the worker calls ``/reload``'s load, which re-pads with room for
+every folded row. A fold-in that cannot start journals a WARN and the
+server serves without it. ``GET /`` carries ``aot`` and ``foldin`` blocks
+only when those are live: with both off every endpoint is byte-identical
+to a server without them.
+
+Multi-tenancy, partitions, plugins and feedback of the JAX server arrive
+in later slices.
 """
 
 from __future__ import annotations
@@ -57,8 +80,10 @@ from predictionio_tpu_torch.common import (
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.ops import quant as serve_quant
+from predictionio_tpu_torch.realtime import foldin as foldin_mod
 from predictionio_tpu_torch.serving import (
-    MicroBatcher, ServerSaturated, batch_capable, protocol,
+    BatcherClosed, MicroBatcher, ServerSaturated, aot, batch_capable,
+    protocol,
 )
 from predictionio_tpu_torch.workflow import json_extractor, model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
@@ -119,6 +144,21 @@ class ServerConfig:
     #: int8 on the card when the ranking-parity probe passes;
     #: PIO_SERVE_QUANT overrides
     serve_quant: str = "auto"
+    #: the warm-up before ready (serving/aot.py): "on" always, "off"
+    #: never, "auto" on the card; PIO_AOT=0/1 overrides
+    aot: str = "auto"
+    #: realtime fold-in (realtime/foldin.py): "on" runs the worker in
+    #: process; "off" keeps every endpoint byte-identical. PIO_FOLDIN
+    #: overrides
+    foldin: str = "off"
+    #: fold-in tick in ms (0 = PIO_FOLDIN_TICK_MS or 250)
+    foldin_tick_ms: float = 0.0
+    #: user-row headroom padded for fold-in appends (0 =
+    #: PIO_FOLDIN_HEADROOM or 1024)
+    foldin_headroom: int = 0
+    #: item-row headroom padded for unseen items (0 =
+    #: PIO_FOLDIN_ITEM_HEADROOM or 1024)
+    foldin_item_headroom: int = 0
 
 
 def resolve_engine_instance(storage: Storage, config: ServerConfig):
@@ -181,6 +221,15 @@ class QueryAPI:
         self._draining = threading.Event()
         self._batcher: Optional[MicroBatcher] = None
         self._quant_state: Optional[Dict[str, Any]] = None
+        self._aot_state: Optional[Dict[str, Any]] = None
+        #: the realtime fold-in worker: one per server, re-bound to each
+        #: model generation by the load
+        self._foldin_worker = None
+        self._foldin_instance_id: Optional[str] = None
+        #: the latest POST /reload's thread (close() joins it)
+        self._reload_thread: Optional[threading.Thread] = None
+        #: one load at a time: /reload and the fold-in fallback share it
+        self._load_lock = threading.Lock()
         self.request_count = 0
         self.avg_serving_sec = 0.0
         self.last_serving_sec = 0.0
@@ -232,6 +281,10 @@ class QueryAPI:
 
     # ------------------------------------------------------------- loading
     def _load_single(self) -> None:
+        with self._load_lock:
+            self._load_locked()
+
+    def _load_locked(self) -> None:
         t_load = time.perf_counter()
         instance = resolve_engine_instance(self.storage, self.config)
         engine = self._engine_override or get_engine(
@@ -244,6 +297,23 @@ class QueryAPI:
         _, _, algorithms, serving = engine._instantiate(engine_params)
         for a in algorithms:
             a.bind_serving(self.ctx)
+        # fold-in headroom goes in BEFORE the layout, so every layout
+        # holds the rows new users and items fold into; a reload re-pads
+        # with the worker's hints, so the fallback always lands with room
+        foldin_on = foldin_mod.enabled(self.config.foldin)
+        foldin_prep = None
+        if foldin_on:
+            headroom = (self.config.foldin_headroom
+                        or foldin_mod.default_headroom())
+            item_headroom = (self.config.foldin_item_headroom
+                             or foldin_mod.default_item_headroom())
+            worker = self._foldin_worker
+            if worker is not None:
+                headroom = max(headroom, worker.headroom_hint())
+                item_headroom = max(item_headroom,
+                                    worker.item_headroom_hint())
+            foldin_prep = foldin_mod.pad_capacity(
+                models, headroom, algorithms, item_headroom=item_headroom)
         with serve_quant.deploy_scope(self.config.serve_quant,
                                       device=self.device):
             models = [a.prepare_serving(m)
@@ -255,7 +325,9 @@ class QueryAPI:
         if quant_state is None and quant_requested:
             quant_state = {"enabled": False, "fellBack": True}
         serve_quant.record_state(quant_state)
+        aot_state = self._warm_up(algorithms, models, foldin_prep)
         batcher = self._make_batcher(algorithms, models, serving)
+        is_reload = getattr(self, "engine_instance", None) is not None
         with self._lock:
             self.engine_instance = instance
             self.engine = engine
@@ -264,8 +336,9 @@ class QueryAPI:
             self.models = models
             self.serving = serving
             self._quant_state = quant_state
+            self._aot_state = aot_state
             old_batcher, self._batcher = self._batcher, batcher
-        if old_batcher is not None:
+        if old_batcher is not None:   # reload: drain in-flight, then retire
             old_batcher.close()
         self.time_to_ready_s = time.perf_counter() - t_load
         self._m_time_to_ready.set(self.time_to_ready_s)
@@ -277,16 +350,115 @@ class QueryAPI:
             "(0 = replicated single-device serving)").labels().set(0.0)
         self.generation += 1
         logger.info("Engine instance %s deployed on %s (%d algorithm(s), "
-                    "batching %s) in %.2fs", instance.id, self.device,
-                    len(algorithms), "on" if batcher is not None else "off",
+                    "batching %s, warm-up %s) in %.2fs", instance.id,
+                    self.device, len(algorithms),
+                    "on" if batcher is not None else "off",
+                    "on" if aot_state is not None else "off",
                     self.time_to_ready_s)
         journal.emit(
             "lifecycle",
-            (f"model generation {self.generation} live (initial deploy: "
+            (f"model generation {self.generation} live "
+             f"({'reload hot-swap' if is_reload else 'initial deploy'}: "
              f"instance {instance.id})"),
             level=journal.INFO,
             generation=self.generation, instanceId=instance.id,
-            reload=False, timeToReadyS=round(self.time_to_ready_s, 3))
+            reload=bool(is_reload),
+            timeToReadyS=round(self.time_to_ready_s, 3))
+        if foldin_on and foldin_prep is not None:
+            self._install_foldin(engine_params, models, foldin_prep)
+        elif foldin_on:
+            journal.emit(
+                "foldin", "fold-in requested but no model is fold-in-"
+                "shaped (user/item factor matrices + vocabs); worker "
+                "not started", level=journal.WARN)
+
+    def _warm_up(self, algorithms, models, foldin_prep
+                 ) -> Optional[Dict[str, Any]]:
+        """The warm-up before ready (serving/aot.py), or None when the
+        deploy's mode leaves it off: every bucket's serving call and,
+        with fold-in, kernel A at every fold-in bucket, run once."""
+        if not aot.enabled(self.config.aot, self.device):
+            devicewatch.note_aot(None)
+            return None
+        buckets = aot.serve_buckets(self.config.batch_max_size)
+        programs = []
+        for a, m in zip(algorithms, models):
+            programs.extend(aot.algorithm_programs(a, m, buckets))
+        if foldin_prep is not None:
+            rank = int(foldin_prep["item_factors"].shape[1])
+            programs.extend(foldin_mod.solve_programs(
+                rank, self.device, foldin_prep["reg_scaling"]))
+        state = {"enabled": True, "buckets": list(buckets),
+                 **aot.prebuild(programs, self.device)}
+        devicewatch.note_aot(state)
+        return state
+
+    def _install_foldin(self, engine_params, models, prep) -> None:
+        """Create (first load) or re-bind (reload) the fold-in worker
+        against the freshly swapped generation. An engine without an app
+        name, a store without an incremental tail or a missing app
+        journals a WARN and the server serves without fold-in."""
+        worker = self._foldin_worker
+        if worker is None:
+            cfg = foldin_mod.config_for(
+                engine_params, tick_ms=self.config.foldin_tick_ms,
+                headroom=self.config.foldin_headroom or None,
+                item_headroom=self.config.foldin_item_headroom or None)
+            if cfg is None:
+                journal.emit(
+                    "foldin", "fold-in requested but the engine has no "
+                    "datasource appName to tail; worker not started",
+                    level=journal.WARN)
+                return
+            if prep.get("lambda_") is not None:
+                cfg.lambda_ = prep["lambda_"]
+            try:
+                worker = foldin_mod.FoldinWorker(self.storage, cfg,
+                                                 device=self.device)
+            except ValueError as e:
+                journal.emit(
+                    "foldin", f"fold-in worker failed to start: {e}",
+                    level=journal.WARN, error=str(e))
+                return
+            if not worker.supported:
+                journal.emit(
+                    "foldin", "fold-in requested but this event-store "
+                    "backend exposes no incremental tail; worker not "
+                    "started", level=journal.WARN)
+                return
+            self._foldin_worker = worker
+        # a reload onto a NEW trained instance invalidates the folded
+        # state (solved against the old batch base): rebase first
+        inst = self.engine_instance
+        if self._foldin_instance_id not in (None, inst.id):
+            worker.rebase()
+        self._foldin_instance_id = inst.id
+        worker.bind(models[prep["index"]], generation=self.generation,
+                    prep=prep, reload_cb=self._reload)
+        worker.start()
+
+    def _reload(self) -> None:
+        """Load the latest COMPLETED instance again and swap it in; on a
+        failure the previous generation keeps serving."""
+        try:
+            self._load_single()
+        except Exception as e:
+            logger.exception("reload failed; keeping previous engine")
+            journal.emit(
+                "lifecycle",
+                f"reload FAILED; generation {self.generation} keeps "
+                "serving",
+                level=journal.WARN, generation=self.generation,
+                error=f"{type(e).__name__}: {e}")
+
+    def reload_async(self) -> threading.Thread:
+        """``POST /reload``: the load on its own thread (returned, and
+        joined by :meth:`close`)."""
+        t = threading.Thread(target=self._reload, name="pio-reload",
+                             daemon=True)
+        self._reload_thread = t
+        t.start()
+        return t
 
     def _make_batcher(self, algorithms, models, serving
                       ) -> Optional[MicroBatcher]:
@@ -347,6 +519,11 @@ class QueryAPI:
                      "queries; flushing admitted batches",
                      level=journal.INFO, generation=self.generation)
         t0 = time.perf_counter()
+        worker = self._foldin_worker
+        if worker is not None:
+            # the speed layer stops BEFORE the batcher drains: no new
+            # publication races the final flushes
+            worker.stop()
         with self._lock:
             batcher = self._batcher
         if batcher is not None:
@@ -359,7 +536,14 @@ class QueryAPI:
                      drainS=round(time.perf_counter() - t0, 3))
 
     def close(self) -> None:
-        """Retire the batcher (server shutdown)."""
+        """Stop the fold-in worker, finish a reload in flight and retire
+        the batcher (server shutdown)."""
+        worker = self._foldin_worker
+        if worker is not None:
+            worker.stop()
+        t = self._reload_thread
+        if t is not None and t is not threading.current_thread():
+            t.join()
         with self._lock:
             batcher, self._batcher = self._batcher, None
         if batcher is not None:
@@ -387,6 +571,9 @@ class QueryAPI:
                 return t
             if path == "/queries.json" and method == "POST":
                 return self._queries(body)
+            if path == "/reload" and method == "POST":
+                self.reload_async()
+                return 200, {"message": "Reloading..."}
             if path == "/stop" and method == "POST":
                 self._stop_requested.set()
                 return 200, {"message": "Shutting down."}
@@ -419,13 +606,23 @@ class QueryAPI:
         batcher = self._batcher
         out["batching"] = ({"enabled": True, **batcher.stats()}
                            if batcher is not None else {"enabled": False})
+        if self._aot_state is not None:
+            # only with the warm-up on: an "off" deploy keeps the key set
+            out["aot"] = {**self._aot_state,
+                          "timeToReadyS": (round(self.time_to_ready_s, 3)
+                                           if self.time_to_ready_s
+                                           is not None else None)}
         if self._quant_state is not None:
             out["quant"] = self._quant_state
+        worker = self._foldin_worker
+        if worker is not None:
+            # only with the fold-in worker live (wire parity)
+            out["foldin"] = worker.state()
         return out
 
     def _readyz(self) -> Response:
-        """Ready: a model is deployed and the admission queue has room.
-        503 while draining."""
+        """Ready: a model is deployed, the admission queue has room and
+        the storage answers a point read. 503 while draining."""
         if self._draining.is_set():
             return 503, {"status": "draining",
                          "generation": self.generation}
@@ -434,13 +631,45 @@ class QueryAPI:
             batcher = self._batcher
         checks: Dict[str, Any] = {"modelLoaded": instance is not None}
         ready = checks["modelLoaded"]
+        aot_state = self._aot_state
+        if aot_state is not None:
+            # informational: the warm-up ran inside the load, so by the
+            # time this route answers, the serving calls have run
+            checks["aotPrograms"] = aot_state.get("programs", 0)
         if batcher is not None:
             depth = batcher.depth()
             checks["queueDepth"] = depth
             ready &= depth < self.config.batch_max_queue
+        try:
+            # one cheap metadata point-read, as the reference probes
+            if instance is not None:
+                self.storage.get_meta_data_engine_instances().get(
+                    instance.id)
+            checks["storage"] = "ok"
+        except Exception as e:
+            checks["storage"] = f"{type(e).__name__}: {e}"
+            ready = False
         return (200 if ready else 503), {
             "status": "ready" if ready else "unready",
             "generation": self.generation, **checks}
+
+    def _submit(self, batcher: MicroBatcher, query):
+        """Submit to ``batcher``; when a reload retired it between the
+        read and the submit, submit to its successor instead (the query
+        then answers from the new generation). A flush's own error is
+        raised as it came, never resubmitted; BatcherClosed is raised
+        once the server drains or closes."""
+        while True:
+            try:
+                return batcher.submit(query)
+            except BatcherClosed:
+                if self._draining.is_set():
+                    raise
+                with self._lock:
+                    current = self._batcher
+                if current is None or current is batcher:
+                    raise
+                batcher = current
 
     def _queries(self, body: bytes) -> Response:
         t0 = time.perf_counter()
@@ -464,7 +693,7 @@ class QueryAPI:
         if batcher is not None:
             try:
                 with waterfall.activate((rec,)):
-                    prediction, degraded = batcher.submit(query)
+                    prediction, degraded = self._submit(batcher, query)
             except ServerSaturated as e:
                 return 503, {"message": (
                     "serving queue is saturated (admission control); "

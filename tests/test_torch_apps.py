@@ -28,6 +28,13 @@ from predictionio_tpu_torch.tools.transfer import (
     events_to_file, file_to_events,
 )
 
+from torch_deploy_util import port_cli  # noqa: F401 (fixture)
+
+#: every test starts and ends with the port's storage singleton dropped
+#: and the CLI's environment writes registered for undoing
+pytestmark = pytest.mark.usefixtures("port_cli")
+
+
 MEM = {
     "PIO_STORAGE_SOURCES_M_TYPE": "memory",
     "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",

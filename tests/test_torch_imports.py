@@ -121,6 +121,14 @@ STORE_SLICE = [
 ]
 
 
+#: the realtime fold-in, hot reload and the warm-up before ready
+FOLDIN_SLICE = [
+    "predictionio_tpu_torch.realtime",
+    "predictionio_tpu_torch.realtime.foldin",
+    "predictionio_tpu_torch.serving.aot",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -134,11 +142,12 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 94
+    assert int(names[-1]) == len(names) - 1 >= 97
     assert set(EVENT_SLICE) <= set(names[:-1])
     assert set(TEMPLATE_SLICE) <= set(names[:-1])
     assert set(OBSERVABILITY_SLICE) <= set(names[:-1])
     assert set(STORE_SLICE) <= set(names[:-1])
+    assert set(FOLDIN_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

@@ -15,6 +15,11 @@ from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.create_server import (
     QueryAPI, ServerConfig,
 )
+from torch_deploy_util import port_cli  # noqa: F401 (fixture)
+
+#: every test starts and ends with the port's storage singleton dropped
+#: and the CLI's environment writes registered for undoing
+pytestmark = pytest.mark.usefixtures("port_cli")
 
 MEM = {
     "PIO_STORAGE_SOURCES_M_TYPE": "memory",
@@ -28,8 +33,6 @@ REFUSED = {
     "PIO_TRANSPORT": ["async"],
     "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
     "PIO_SERVE_SHARD": ["1", "on"],
-    "PIO_FOLDIN": ["1"],
-    "PIO_AOT": ["1"],
     "PIO_DEPLOY_PARTITION": ["1/4"],
     "PIO_TENANT_RATE": ["100"],
     "PIO_TENANT_HBM_BUDGET_MB": ["512"],
@@ -77,7 +80,8 @@ def test_unported_feature_is_refused_at_its_entry_points(
             knobs.IMPORT: ["import", "--appid", "1", "--input", missing],
             knobs.EXPORT: ["export", "--appid", "1", "--output", missing],
             knobs.DASHBOARD: ["dashboard", *nowhere],
-            knobs.ADMINSERVER: ["adminserver", *nowhere]}
+            knobs.ADMINSERVER: ["adminserver", *nowhere],
+            knobs.FOLDIN: ["foldin", "--engine-dir", missing]}
     assert sorted(argv) == sorted(knobs.ALL_VERBS)
     for verb in knob.verbs:
         with pytest.raises(ValueError) as e:
@@ -305,3 +309,60 @@ def test_eventlog_cache_and_big_layout_min_are_read(monkeypatch, tmp_path):
     als_algorithm._ensure_layout(td, torch.device("cpu"))
     assert len(als_algorithm._BIG_LAYOUT_CACHE) == 1
     assert getattr(td, "_pio_layout_cache", None) is None
+
+
+#: the rows read since the realtime fold-in and the warm-up before ready
+#: landed (they were refused or inert before), each with a value that
+#: changes what the port does, and the function that shows it
+def _foldin_and_aot_reads():
+    from predictionio_tpu_torch.realtime import foldin
+    from predictionio_tpu_torch.serving import aot
+
+    return {
+        "PIO_FOLDIN": ("1", foldin.enabled, True),
+        "PIO_FOLDIN_TICK_MS": ("40", foldin.default_tick_ms, 40.0),
+        "PIO_FOLDIN_HEADROOM": ("12", foldin.default_headroom, 12),
+        "PIO_FOLDIN_MAX_EVENTS": ("32", foldin.max_events_per_user, 32),
+        "PIO_FOLDIN_USER_BUCKETS": ("4,1", foldin.user_buckets, (1, 4)),
+        "PIO_FOLDIN_CURSOR_DIR": ("/srv/cur", foldin.cursor_dir,
+                                  "/srv/cur"),
+        "PIO_FOLDIN_DRIFT_EVERY": ("0", foldin.drift_every, 0),
+        "PIO_FOLDIN_DRIFT_RECALL_MIN": ("0.5", foldin.drift_recall_floor,
+                                        0.5),
+        "PIO_FOLDIN_ITEM_HEADROOM": ("3", foldin.default_item_headroom, 3),
+        "PIO_AOT": ("1", lambda: aot.enabled("off", "cpu"), True),
+    }
+
+
+FOLDIN_AND_AOT = sorted(_foldin_and_aot_reads())
+
+
+@pytest.mark.parametrize("name", FOLDIN_AND_AOT)
+def test_foldin_and_aot_variables_are_read(monkeypatch, name):
+    """PIO_FOLDIN and PIO_AOT turned from refused to read with their
+    slice, and their tuning rows from inert to read: refused by no verb,
+    and read with the reference's meaning."""
+    _clear(monkeypatch)
+    value, read, want = _foldin_and_aot_reads()[name]
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    assert read() == want
+
+
+@pytest.mark.parametrize("name,value", [("PIO_AOT_KS", "5,20"),
+                                        ("PIO_AOT_PRUNE", "1")])
+def test_aot_shape_knobs_are_inert(monkeypatch, name, value):
+    """The warm-up runs every configured bucket at one k whatever the
+    reference's k set and pruning knobs say: k selects no kernel
+    instantiation and a bucket only a launch's grid."""
+    from predictionio_tpu_torch.serving import aot
+
+    _clear(monkeypatch)
+    assert knobs.KNOBS[name].kind == knobs.INERT
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    assert aot.serve_buckets() == (1, 4, 16, 64)
+    assert aot.warm_k(100) == aot.WARM_K == 10

@@ -22,6 +22,11 @@ from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.tools import cli
 
 import torch_deploy_util as util
+from torch_deploy_util import port_cli  # noqa: F401 (fixture)
+
+#: every test starts and ends with the port's storage singleton dropped
+#: and the CLI's environment writes registered for undoing
+pytestmark = pytest.mark.usefixtures("port_cli")
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ import types
 import numpy as np
 import pytest
 
+from predictionio_tpu.common import devicewatch as ref_devicewatch
 from predictionio_tpu.common import history as ref_history
 from predictionio_tpu.common import journal as ref_journal
 from predictionio_tpu.common import slo as ref_slo
@@ -27,7 +28,9 @@ from predictionio_tpu.data.api.http import dispatch_request as ref_dispatch
 from predictionio_tpu.data.storage import Storage as RefStorage
 from predictionio_tpu.tools.admin import AdminAPI as RefAdminAPI
 from predictionio_tpu.tools.dashboard import DashboardAPI as RefDashboardAPI
-from predictionio_tpu_torch.common import history, journal, slo, telemetry
+from predictionio_tpu_torch.common import (
+    devicewatch, history, journal, slo, telemetry,
+)
 from predictionio_tpu_torch.data.api import service
 from predictionio_tpu_torch.data.api.http import dispatch_request
 from predictionio_tpu_torch.data.storage import Storage
@@ -39,6 +42,11 @@ import torch_deploy_util as util
 #: (reference module, port module) pairs of the process-wide state
 PACKAGES = ((ref_telemetry, ref_history, ref_slo, ref_journal),
             (telemetry, history, slo, journal))
+#: the device watches: a serving warmup that an earlier test armed (a
+#: reference deploy's AOT prebuild marks it done) turns the reference's
+#: first compile here into a post-warmup recompile family the port has no
+#: counterpart of, so both start and end disarmed
+WATCHDOGS = (ref_devicewatch, devicewatch)
 
 #: families that count compile events: the reference's come from JAX's
 #: XLA compiles, the port's from building the hand-written kernels with
@@ -55,6 +63,8 @@ def fresh(monkeypatch):
         hist.reset()
         slo_mod.reset()
         jour.clear()
+    for watch in WATCHDOGS:
+        watch.reset_watchdog()
     for name in util.KNOBS + ("PIO_HISTORY", "PIO_HISTORY_TICK_S",
                               "PIO_HISTORY_MAX_SERIES"):
         monkeypatch.delenv(name, raising=False)
@@ -69,6 +79,8 @@ def fresh(monkeypatch):
         tel.set_enabled(None)
         hist.reset()
         slo_mod.reset()
+    for watch in WATCHDOGS:
+        watch.reset_watchdog()
 
 
 def _families(text: str) -> set:

@@ -45,6 +45,13 @@ from predictionio_tpu_torch.workflow.checkpoint import (
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.core_workflow import run_train
 
+from torch_deploy_util import port_cli  # noqa: F401 (fixture)
+
+#: every test starts and ends with the port's storage singleton dropped
+#: and the CLI's environment writes registered for undoing
+pytestmark = pytest.mark.usefixtures("port_cli")
+
+
 RANK, ITERS, LAM = 4, 5, 0.07
 MEM = {
     "PIO_STORAGE_SOURCES_M_TYPE": "memory",

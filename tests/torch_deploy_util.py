@@ -5,8 +5,10 @@ store, plus the other daemons of both packages."""
 
 import datetime as dt
 import json
+import os
 
 import numpy as np
+import pytest
 
 from predictionio_tpu.data.bimap import BiMap as JBiMap
 from predictionio_tpu.data.storage import EngineInstance as JEngineInstance
@@ -17,6 +19,7 @@ from predictionio_tpu.models.recommendation.als_algorithm import (
 )
 from predictionio_tpu.workflow import create_server as jserver
 from predictionio_tpu.workflow import model_io as jmodel_io
+from predictionio_tpu_torch.data import storage as storage_mod
 from predictionio_tpu_torch.data.storage import EngineInstance, Model, Storage
 from predictionio_tpu_torch.workflow import create_server as tserver
 
@@ -37,6 +40,32 @@ PARAMS = {
 KNOBS = ("PIO_TELEMETRY", "PIO_TRACE", "PIO_WATERFALL", "PIO_JOURNAL",
          "PIO_PROFILE_ENABLE", "PIO_PROFILE_DIR", "PIO_WATERFALL_SAMPLE",
          "PIO_SLOW_RING", "PIO_SERVE_WARMUP_FLUSHES")
+
+
+#: every variable the port's ``pio`` verbs write into ``os.environ``
+#: (tools/cli.py); a test that calls ``cli.main`` registers them first
+CLI_ENV = ("PIO_TELEMETRY", "PIO_TRACE", "PIO_SYNTHETIC_EVENTS",
+           "PIO_SYNTHETIC_SEED", "PIO_AUTO_RESUME", "PIO_WATERFALL",
+           "PIO_PROFILE_DIR")
+
+
+@pytest.fixture
+def port_cli(monkeypatch):
+    """Isolation for a test that calls the port's ``cli.main`` or reaches
+    its ``get_storage()`` singleton: the verbs' environment writes are
+    undone at teardown, and the singleton is dropped before and after,
+    so neither a store nor a switch outlives the test. Use it through
+    ``pytestmark = pytest.mark.usefixtures("port_cli")`` after importing
+    it into the test module."""
+    for name in CLI_ENV:
+        # setenv registers the variable's prior state (absent included)
+        # for restoration; a variable absent before is then removed
+        monkeypatch.setenv(name, os.environ.get(name, ""))
+        if not os.environ[name]:
+            monkeypatch.delenv(name)
+    storage_mod.reset_storage()
+    yield
+    storage_mod.reset_storage()
 
 
 def dyadic_blob(seed: int = 11) -> bytes:
