@@ -169,7 +169,41 @@ Phases (any failure raises and the script exits non-zero):
              profiled; then a redeploy with PIO_FOLDIN_HEADROOM=8 and 16
              unseen users (the reload fallback: generation + 1, all
              folded, none dropped) and ``POST /reload`` under 256
-             concurrent queries (generation + 1, none dropped).
+             concurrent queries (generation + 1, none dropped). The
+             fold-in step runs after phase 11, whose remote trains must
+             read the 20M app as the warm train read it (fold-in posts
+             events into it).
+11. remote — ``pio storageserver`` (a process of its own, key auth,
+             telemetry, traces and the journal on) serves phase 10's
+             eventlog store, and this process points every repository at
+             it through a ``remote`` source: ``read_columns`` of the 20M
+             app through it, timed beside the local read; ``pio train``
+             through it twice, the second with the columnar reply lost
+             once (``PIO_FAULT_SPEC`` drop_rx, one retry): kernel A 20
+             times each, one layout built from each read, both models
+             bit-identical to phase 10's warm train; ``pio app new`` and
+             ``pio import`` of the quickstart file's first 100,000 lines
+             with a write reply lost and ``PIO_RPC_WRITE_DEDUP=1``: one
+             dedup replay, exactly 100,000 events stored, the same rows
+             as the file; ``pio deploy`` of the first remote train
+             (quantized, model blob through the remote source, the
+             breaker on) under one client's query stream; the storage
+             server SIGTERMed (its /readyz 503 on an open connection, the
+             drain's flush, exit 0), ``POST /reload`` twice (the first
+             fails and opens the breaker, the second fails fast),
+             ``pio_breaker_open`` 1 on /metrics, the breaker in
+             /debug/device.json, ``pio doctor`` exit 1 naming it and
+             ``pio doctor --targets`` exit 2; the storage server
+             restarted on the same port, after open_s a traced ``POST
+             /reload`` whose probe closes the breaker (generation + 1)
+             and ``pio doctor`` exit 0; no query dropped, every answer
+             equal to the plain int8 path, B1 and B2 once per flush;
+             then ``pio incident`` (exit 1, the breaker's open before its
+             half-open probe), ``pio events`` (both journals, oldest
+             first: open, half-open, closed), ``pio trace`` of the
+             reload (one tree over both daemons), ``pio monitor --once``
+             (a row per daemon, QPS from the history rings) and ``pio
+             undeploy``; the seconds of each step beside the card.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -179,9 +213,11 @@ script prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import datetime as _dt
 import http.client
+import io
 import json
 import math
 import os
@@ -202,7 +238,9 @@ import numpy as np
 import torch
 
 import predictionio_tpu_torch
-from predictionio_tpu_torch.common import devicewatch
+from predictionio_tpu_torch.common import (
+    devicewatch, history, journal, resilience, slo, telemetry, tracing,
+)
 from predictionio_tpu_torch.controller.evaluation import MetricEvaluator
 from predictionio_tpu_torch.data import storage as storage_mod
 from predictionio_tpu_torch.data import store as store_mod
@@ -1588,24 +1626,31 @@ def _wrapped(*targets):
             setattr(obj, name, original)
 
 
-def _write_import_file(path: str, seed: int) -> int:
+def _write_import_file(path: str, seed: int, limit: int = 0) -> int:
     """EVAL_RATINGS synthetic rate events (zipf users and items, half-star
-    ratings, from ``seed``) as the JSON lines ``pio import`` reads."""
+    ratings, from ``seed``) as the JSON lines ``pio import`` reads; with
+    ``limit``, only that many first lines of the same file."""
     src = synthetic.chunk_source(EVAL_RATINGS, seed=seed, n_users=EVAL_USERS,
                                  n_items=N_ITEMS, chunk=50_000)
+    n = 0
     with open(path, "w") as f:
         for chunk in src.chunks():
             users = (chunk["entity_code"] - 3).tolist()
             items = (chunk["target_code"] - 3 - EVAL_USERS).tolist()
             times = np.datetime_as_string(
                 chunk["time_ms"].astype("datetime64[ms]"), unit="ms")
+            rows = list(zip(users, items, chunk["rating"].tolist(),
+                            times.tolist()))
+            if limit:
+                rows = rows[:limit - n]
             f.writelines(
                 '{"event": "rate", "entityType": "user", "entityId": '
                 f'"u{u}", "targetEntityType": "item", "targetEntityId": '
                 f'"i{i}", "properties": {{"rating": {r!r}}}, "eventTime": '
-                f'"{t}Z"}}\n'
-                for u, i, r, t in zip(users, items, chunk["rating"].tolist(),
-                                      times.tolist()))
+                f'"{t}Z"}}\n' for u, i, r, t in rows)
+            n += len(rows)
+            if limit and n >= limit:
+                return n
     return src.n_events
 
 
@@ -2910,11 +2955,16 @@ def _foldin_plain(item_rows, self_idx, rating, counts, lambda_, n_self,
 class _Stream:
     """A steady query stream: one keep-alive client posting trained
     users' queries back to back until closed; every answer that is not
-    a 200 (or a connection error) is a dropped query."""
+    a 200 (or a connection error) is a dropped query. ``answers`` keeps
+    each (user, status, payload, seconds); :meth:`pause` holds the
+    stream with no query in flight."""
 
     def __init__(self, port: int, users, seed: int):
-        self.statuses, self.errors = [], []
+        self.answers, self.errors = [], []
         self._stop = threading.Event()
+        self._go = threading.Event()
+        self._go.set()
+        self._parked = threading.Event()
         rng = np.random.default_rng(seed)
         self._users = [users[u] for u in rng.integers(0, len(users),
                                                       size=1024)]
@@ -2927,23 +2977,45 @@ class _Stream:
         try:
             i = 0
             while not self._stop.is_set():
-                status, _body, _t = c.call(
-                    "POST", "/queries.json",
-                    {"user": self._users[i % len(self._users)], "num": 10})
-                self.statuses.append(status)
+                if not self._go.is_set():
+                    self._parked.set()
+                    self._go.wait()
+                    self._parked.clear()
+                    continue
+                user = self._users[i % len(self._users)]
+                status, body, t = c.call(
+                    "POST", "/queries.json", {"user": user, "num": 10})
+                self.answers.append((user, status, body, t))
                 i += 1
         except Exception as e:     # a lost connection is a drop too
             self.errors.append(f"{type(e).__name__}: {e}")
         finally:
             c.close()
 
+    def wait_for(self, n: int, deadline_s: float = 60.0) -> None:
+        """Until ``n`` queries were answered (a stream that stopped on an
+        error fails here)."""
+        t0 = time.perf_counter()
+        while len(self.answers) < n:
+            if time.perf_counter() - t0 > deadline_s or self.errors:
+                raise AssertionError(f"query stream: {len(self.answers)} "
+                                     f"answers, errors {self.errors[:3]}")
+            time.sleep(0.01)
+
+    def pause(self) -> None:
+        self._go.clear()
+        if not self._parked.wait(timeout=60):
+            raise AssertionError("the query stream did not pause")
+
     def close(self) -> dict:
         self._stop.set()
+        self._go.set()
         self._thread.join(timeout=60)
         if self._thread.is_alive():
             raise AssertionError("the query stream did not stop")
-        dropped = sum(s != 200 for s in self.statuses) + len(self.errors)
-        return {"queries": len(self.statuses), "dropped": dropped,
+        dropped = (sum(a[1] != 200 for a in self.answers)
+                   + len(self.errors))
+        return {"queries": len(self.answers), "dropped": dropped,
                 "errors": self.errors[:3]}
 
 
@@ -3387,12 +3459,14 @@ def _fold_headroom(api, port, store, users, seed) -> dict:
 
 
 def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
-                qs_out: dict) -> dict:
+                qs_out: dict):
     """The eventlog store on the card's path: the 20M fill and reads, the
     streamed / in-core / warm trains through kernel A, ``pio import`` and
     its train, the cursor check through the event server, and ``pio
     deploy`` through B1 + B2. ``synth`` and ``qs_out`` are phase 5's and
-    the quickstart's numbers, printed beside this phase's."""
+    the quickstart's numbers, printed beside this phase's. Returns the
+    phase's numbers and the warm train's instance id and model, which
+    phase 11 and the fold-in step (:func:`phase_store_foldin`) use."""
     env = _eventlog_env(work)
     saved = {k: os.environ.get(k) for k in
              (*env, "PIO_TRAIN_STREAM", "PIO_SYNTHETIC_EVENTS",
@@ -3403,7 +3477,7 @@ def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
     storage_mod.reset_storage()
     t_phase = time.perf_counter()
     try:
-        out = _phase_store(work, seed, dev, synth, qs_out)
+        out, ctx = _phase_store(work, seed, dev, synth, qs_out)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -3413,7 +3487,7 @@ def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
         storage_mod.reset_storage()
     out["phase_s"] = time.perf_counter() - t_phase
     print("store: " + json.dumps(out), flush=True)
-    return out
+    return out, ctx
 
 
 def _phase_store(work, seed, dev, synth, qs_out) -> dict:
@@ -3560,10 +3634,9 @@ def _phase_store(work, seed, dev, synth, qs_out) -> dict:
           f"and B2 {deploy['B2_launches']} launches for "
           f"{deploy['flushes']} flushes", flush=True)
 
-    # 6. realtime fold-in on this model, the headroom reload, a reload
-    fold = phase_foldin(work, store, iid, model, seed, dev)
-    _print_foldin(fold)
-    ev.close()          # the buffered tails into chunks, before cleanup
+    # the buffered tails into chunks: phase 11's storage server reads this
+    # store from another process, and the fold-in step reopens it after
+    ev.close()
     return {"events": n, "users": N_USERS, "items": N_ITEMS,
             "fill_s": fill_s, "fill_events_per_s": n / fill_s,
             "read_columns_s": read_s, "find_columnar_in_core_s": in_core_s,
@@ -3571,7 +3644,585 @@ def _phase_store(work, seed, dev, synth, qs_out) -> dict:
             "import": {"events": n_file, "import_s": import_s,
                        "events_per_s": n_file / import_s,
                        "sqlite_events_per_s": qs_eps, "train": imported},
-            "cursors": cursors, "deploy": deploy, "foldin": fold}
+            "cursors": cursors, "deploy": deploy}, \
+        {"iid": iid, "model": model}
+
+
+def phase_store_foldin(work: str, seed: int, dev: torch.device,
+                       ctx: dict) -> dict:
+    """The store phase's last step, realtime fold-in on the warm train's
+    model, the headroom reload and a reload under burst. It runs after
+    phase 11, whose remote trains must read the 20M app as the warm train
+    read it (fold-in posts events into that app)."""
+    env = _eventlog_env(work)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    storage_mod.reset_storage()
+    try:
+        store = storage_mod.get_storage()
+        fold = phase_foldin(work, store, ctx["iid"], ctx["model"], seed, dev)
+        _print_foldin(fold)
+        store.get_events().close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+    return fold
+
+
+# ---------------------------------------------------------------------------
+# phase 11: remote storage, the circuit breaker and the operator tools
+# ---------------------------------------------------------------------------
+
+REMOTE_KEY = "smoke-storage-key"
+REMOTE_IMPORT_APP = "SmokeRemoteImport"
+#: the first lines of the quickstart's import file (a cut: PERF.md §4)
+REMOTE_IMPORT_EVENTS = 100_000
+REMOTE_FAULT_SEED = "11"
+#: the remote deploy's retries and breaker: one retry, a 2 s error window
+#: (the load's successful reads age out of it before the kill), open after
+#: 2 failed calls, a half-open probe after 5 s
+REMOTE_DEPLOY_ENV = {"PIO_RPC_RETRIES": "1", "PIO_RPC_BACKOFF_MS": "20",
+                     "PIO_BREAKER_ENABLED": "1",
+                     "PIO_BREAKER_WINDOW_S": "2",
+                     "PIO_BREAKER_MIN_CALLS": "2",
+                     "PIO_BREAKER_OPEN_S": "5"}
+#: the variables phase 11 sets in this process, restored after it
+REMOTE_NAMES = ("PIO_TELEMETRY", "PIO_TRACE", "PIO_HISTORY_TICK_S",
+                "PIO_FAULT_SPEC", "PIO_FAULT_SEED", "PIO_RPC_WRITE_DEDUP",
+                "PIO_TRAIN_STREAM", *REMOTE_DEPLOY_ENV)
+REMOTE_TRACE = "5e1fca11ab1e0011"        # the traced /reload's trace id
+REMOTE_QUERIES_MIN = 200                 # stream queries before the kill
+_REPO = os.path.dirname(os.path.abspath(__file__))
+#: ``pio storageserver`` through the CLI's entry; after the drain returns,
+#: the process waits for its stdin to close, so the drain's /readyz 503
+#: can be read on a connection the smoke holds open
+_STORAGE_SERVER = (
+    "import sys\n"
+    "from predictionio_tpu_torch.tools import cli\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(f'storageserver exited {rc}', flush=True)\n"
+    "sys.stdin.read()\n"
+    "sys.exit(rc)\n")
+
+
+def _remote_env(port: int) -> dict:
+    """Every repository on one ``remote`` source: the storage server."""
+    return {"PIO_STORAGE_SOURCES_RPC_TYPE": "remote",
+            "PIO_STORAGE_SOURCES_RPC_URL": f"http://127.0.0.1:{port}",
+            "PIO_STORAGE_SOURCES_RPC_KEY": REMOTE_KEY,
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "RPC",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "RPC",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "RPC"}
+
+
+class _StorageServer:
+    """``pio storageserver`` over the store phase's eventlog store, in a
+    process of its own (its own journal, trace ring and metrics, as on a
+    storage host), with telemetry, traces and the journal on."""
+
+    def __init__(self, work: str, port: int, name: str):
+        self.port = port
+        self.log_path = os.path.join(work, name + ".log")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PIO_")}
+        env.update(_eventlog_env(work))
+        env.update({"PIO_JOURNAL": "1", "PIO_HISTORY_TICK_S": "1",
+                    "PYTHONPATH": os.pathsep.join(
+                        p for p in (_REPO, env.get("PYTHONPATH")) if p)})
+        self._log = open(self.log_path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _STORAGE_SERVER, "storageserver",
+             "--ip", "127.0.0.1", "--port", str(port), "--key", REMOTE_KEY,
+             "--telemetry", "--trace"],
+            stdin=subprocess.PIPE, stdout=self._log,
+            stderr=subprocess.STDOUT, env=env, cwd=_REPO)
+        _wait_ready(port, lambda: self.proc.poll() is None, deadline_s=120)
+        self.ready_s = time.perf_counter() - t0
+
+    def output(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def drain(self) -> dict:
+        """SIGTERM: /readyz must answer 503 on an open connection, the
+        drain must flush the event buffers and the CLI must return 0."""
+        c = _Client(self.port)
+        try:
+            status, body, _t = c.call("GET", "/readyz")
+            if status != 200:
+                raise AssertionError(f"storage /readyz before the drain: "
+                                     f"{status} {body}")
+            t0 = time.perf_counter()
+            self.proc.send_signal(signal.SIGTERM)
+            while True:
+                status, body, _t = c.call("GET", "/readyz")
+                if (status, body) == (503, {"status": "draining"}):
+                    break
+                if time.perf_counter() - t0 > 30:
+                    raise AssertionError("storage /readyz never answered "
+                                         "503 after SIGTERM")
+                time.sleep(0.005)
+            seen_s = time.perf_counter() - t0
+            while "storageserver exited" not in self.output():
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("the storage server did not "
+                                         "return from its drain")
+                time.sleep(0.02)
+            drained_s = time.perf_counter() - t0
+        finally:
+            c.close()
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=60)
+        self._log.close()
+        text = self.output()
+        if rc != 0 or "storageserver exited 0" not in text or \
+                "Storage server drained (event buffers flushed)." not in text:
+            raise AssertionError(f"storage server drain: rc {rc}\n{text}")
+        return {"readyz_503_after_s": seen_s, "drained_s": drained_s}
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        if not self._log.closed:
+            self._log.close()
+
+
+def _cli_out(argv) -> tuple:
+    """``pio <argv>`` in process: (exit code, standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _reload(port: int, api, trace: str = "") -> float:
+    """POST /reload (with ``trace`` as its X-PIO-Trace id), then wait for
+    its load to end; the seconds."""
+    headers = {"X-PIO-Trace": f"{trace}-{'0' * 15}1"} if trace else {}
+    t0 = time.perf_counter()
+    urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{port}/reload", data=b"", method="POST",
+        headers=headers), timeout=30).close()
+    api._reload_thread.join(timeout=120)
+    if api._reload_thread.is_alive():
+        raise AssertionError("the reload did not end")
+    return time.perf_counter() - t0
+
+
+def _counter(name: str, labels: str = "") -> float:
+    """One sample of this process's metrics registry (0 when absent)."""
+    return _samples(telemetry.registry().exposition(), name).get(labels, 0.0)
+
+
+def _import_rows(path: str) -> collections.Counter:
+    """The multiset of (user, item, rating, event ms) of an import file."""
+    rows = collections.Counter()
+    with open(path) as f:
+        for line in f:
+            d = json.loads(line)
+            t = _dt.datetime.fromisoformat(
+                d["eventTime"].replace("Z", "+00:00"))
+            rows[(d["entityId"], d["targetEntityId"],
+                  d["properties"]["rating"], int(t.timestamp() * 1000))] += 1
+    return rows
+
+
+def phase_remote(work: str, seed: int, dev: torch.device, store_out: dict,
+                 ctx: dict) -> dict:
+    """Phase 11: the store phase's eventlog store behind ``pio
+    storageserver`` and every verb of the path through a ``remote``
+    source: two trains through kernel A (one with a reply lost), the
+    exactly-once import, the deploy through B1 + B2, the storage server
+    killed and restarted under a query stream, and the operator tools on
+    both daemons. ``ctx`` holds the store phase's warm train."""
+    saved = {k: os.environ.get(k)
+             for k in (*REMOTE_NAMES, *_remote_env(0))}
+    servers = []
+    t_phase = time.perf_counter()
+    try:
+        out = _phase_remote(work, seed, store_out, ctx, servers)
+    finally:
+        for srv in servers:
+            srv.kill()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+        resilience.CircuitBreaker.reset_registry()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = _smi()
+    _print_remote(out)
+    return out
+
+
+def _phase_remote(work, seed, store_out, ctx, servers) -> dict:
+    port = _free_port()
+    for k in REMOTE_NAMES:
+        os.environ.pop(k, None)
+    os.environ.update(_remote_env(port))
+    os.environ.update({"PIO_TELEMETRY": "1", "PIO_HISTORY_TICK_S": "1"})
+    # the query server's process starts its observability from zero, as a
+    # fresh `pio deploy` process would: metrics, SLO windows, the flight
+    # recorder, the journal, the trace ring and the breakers
+    telemetry.registry().reset()
+    slo.reset()
+    history.reset()
+    journal.clear()
+    tracing.clear()
+    resilience.clear()
+    resilience.CircuitBreaker.reset_registry()
+
+    # 1. the store served; the 20M read through it
+    first = _StorageServer(work, port, "storageserver_1")
+    servers.append(first)
+    storage_mod.reset_storage()
+    store = storage_mod.get_storage()
+    app_id = store.get_meta_data_apps().get_by_name(STORE_APP).id
+    t0 = time.perf_counter()
+    cols = store.get_events().read_columns(app_id, **STORE_KW)
+    read_s = time.perf_counter() - t0
+    n_read = int(cols["entity_code"].shape[0])
+    reply_mb = sum(v.nbytes for k, v in cols.items() if k != "pool") / 1e6
+    del cols
+    if n_read != store_out["events"]:
+        raise AssertionError(f"the remote read returned {n_read} events, "
+                             f"the store holds {store_out['events']}")
+
+    # 2. train through it, then again with the columnar reply lost once
+    with open(ENGINE_JSON) as f:
+        iters = json.load(f)["algorithms"][0]["params"]["numIterations"]
+    engine_dir = _engine_dir(work, "remote_engine", STORE_APP)
+    warm = ctx["model"]
+    als_algorithm._BIG_LAYOUT_CACHE.clear()      # the layout from this read
+    clean, clean_model = _store_train(engine_dir, store, iters, None)
+    retries0 = _counter("pio_rpc_retries_total", '{kind="transport"}')
+    os.environ.update({
+        "PIO_FAULT_SPEC": "drop_rx:1:1@client POST /rpc/read_columns",
+        "PIO_FAULT_SEED": REMOTE_FAULT_SEED, "PIO_RPC_RETRIES": "2",
+        "PIO_RPC_BACKOFF_MS": "50"})
+    storage_mod.reset_storage()                  # a client with retries
+    store = storage_mod.get_storage()
+    inj = resilience.active()
+    als_algorithm._BIG_LAYOUT_CACHE.clear()
+    try:
+        faulted, faulted_model = _store_train(engine_dir, store, iters, None)
+    finally:
+        for k in ("PIO_FAULT_SPEC", "PIO_FAULT_SEED", "PIO_RPC_RETRIES",
+                  "PIO_RPC_BACKOFF_MS"):
+            os.environ.pop(k, None)
+    train_fired = dict(inj.fired)
+    retried = _counter("pio_rpc_retries_total",
+                       '{kind="transport"}') - retries0
+    if train_fired != {"drop_rx": 1} or retried != 1:
+        raise AssertionError(f"the faulted train: fired {train_fired}, "
+                             f"{retried} transport retries (want 1)")
+    for t in (clean, faulted):
+        if (t["layout_builds"], t["staged_chunks"]) != (1, 0):
+            raise AssertionError(f"the remote train: {t}")
+    for m in (clean_model, faulted_model):
+        if not (_same_factors(m, warm)
+                and m.user_vocab.to_dict() == warm.user_vocab.to_dict()
+                and m.item_vocab.to_dict() == warm.item_vocab.to_dict()):
+            raise AssertionError("a remote train differs from the store "
+                                 "phase's warm eventlog train")
+
+    # 3. write through it exactly once
+    storage_mod.reset_storage()
+    if cli.main(["app", "new", REMOTE_IMPORT_APP]) != 0:
+        raise AssertionError("pio app new through the remote source failed")
+    store = storage_mod.get_storage()
+    import_id = store.get_meta_data_apps().get_by_name(REMOTE_IMPORT_APP).id
+    path = os.path.join(work, "remote_import.json")
+    n_file = _write_import_file(path, seed, limit=REMOTE_IMPORT_EVENTS)
+    want_rows = _import_rows(path)
+    replays0 = _counter("pio_rpc_dedup_replays_total")
+    os.environ.update({"PIO_RPC_WRITE_DEDUP": "1", "PIO_RPC_RETRIES": "2",
+                       "PIO_FAULT_SPEC": "drop_rx:1:1@client POST /rpc",
+                       "PIO_FAULT_SEED": REMOTE_FAULT_SEED})
+    storage_mod.reset_storage()                  # a client with dedup
+    inj = resilience.active()
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["import", "--appid", str(import_id), "--input",
+                       path])
+        import_s = time.perf_counter() - t0
+    finally:
+        for k in ("PIO_RPC_WRITE_DEDUP", "PIO_RPC_RETRIES",
+                  "PIO_FAULT_SPEC", "PIO_FAULT_SEED"):
+            os.environ.pop(k, None)
+    os.remove(path)
+    import_fired = dict(inj.fired)
+    replayed = _counter("pio_rpc_dedup_replays_total") - replays0
+    if rc != 0 or import_fired != {"drop_rx": 1} or replayed != 1:
+        raise AssertionError(f"pio import: rc {rc}, fired {import_fired}, "
+                             f"{replayed} dedup replays (want 1)")
+    storage_mod.reset_storage()
+    store = storage_mod.get_storage()
+    got = list(store.get_events().find(import_id))
+    got_rows = collections.Counter(
+        (e.entity_id, e.target_entity_id, e.properties.get_opt("rating"),
+         int(e.event_time.timestamp() * 1000)) for e in got)
+    if len(got) != n_file or got_rows != want_rows:
+        raise AssertionError(f"the import stored {len(got)} events for "
+                             f"{n_file} lines (or other rows)")
+    del got, got_rows, want_rows
+
+    # 4. serve from it, under one client's query stream
+    os.environ.update(REMOTE_DEPLOY_ENV)
+    storage_mod.reset_storage()
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    qport, rcs = _free_port(), []
+    users = list(clean_model.user_vocab.to_dict())
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            clean["instance"], "--ip", "127.0.0.1", "--port", str(qport),
+            "--serve-quant", "on", "--aot", "off", "--telemetry"])),
+            daemon=True)
+        deploy.start()
+        deploy_ready_s = _wait_ready(qport, deploy.is_alive)
+    (api,) = apis
+    breaker = resilience.CircuitBreaker.for_endpoint(f"127.0.0.1:{port}")
+    loaded = api.models[0].quant
+    topk_fused.reset_launches()          # the serving path starts here
+    solve.reset_launches()
+    t_ready = time.perf_counter()
+    stream = _Stream(qport, users, seed + 13)
+    qurl, surl = f"http://127.0.0.1:{qport}", f"http://127.0.0.1:{port}"
+    try:
+        stream.wait_for(REMOTE_QUERIES_MIN)
+        # the load's successful reads leave the breaker's window
+        window_s = float(REMOTE_DEPLOY_ENV["PIO_BREAKER_WINDOW_S"])
+        time.sleep(max(0.0, window_s + 0.5
+                       - (time.perf_counter() - t_ready)))
+        old_batcher = api._batcher
+
+        # 5. kill the store under traffic
+        gen0 = api.generation
+        t_kill = time.perf_counter()
+        drain = first.drain()
+        failed_s = [_reload(qport, api)]
+        t_open = time.perf_counter()
+        if breaker.state != "open":
+            raise AssertionError(f"the breaker is {breaker.stats()} after "
+                                 "the failed reload")
+        fast_fails = breaker.stats()["fastFails"]
+        failed_s.append(_reload(qport, api))
+        if (breaker.stats()["fastFails"] != fast_fails + 1
+                or api.generation != gen0):
+            raise AssertionError(f"the second reload: {breaker.stats()}, "
+                                 f"generation {api.generation}")
+        reload_errors = [e["fields"]["error"]
+                         for e in journal.snapshot()["events"]
+                         if e["message"].startswith("reload FAILED")]
+        if len(reload_errors) != 2 or \
+                not reload_errors[1].startswith("CircuitOpenError"):
+            raise AssertionError(f"reload failures: {reload_errors}")
+        gauge = _samples(_get(qport, "/metrics")[2].decode(),
+                         "pio_breaker_open")
+        device_breakers = json.loads(_get(qport, "/debug/device.json")[2])[
+            "breakers"]
+        if gauge.get(f'{{endpoint="127.0.0.1:{port}"}}') != 1.0 or [
+                (b["endpoint"], b["state"]) for b in device_breakers] != [
+                    (f"127.0.0.1:{port}", "open")]:
+            raise AssertionError(f"pio_breaker_open {gauge}, breakers "
+                                 f"{device_breakers}")
+        doctor_open = _cli_out(["doctor", qurl])
+        if doctor_open[0] != 1 or f"127.0.0.1:{port}" not in doctor_open[1]:
+            raise AssertionError(f"pio doctor, the breaker open: "
+                                 f"{doctor_open}")
+        fleet_dead = _cli_out(["doctor", "--targets", f"{qurl},{surl}",
+                               "--timeout", "2"])
+        if fleet_dead[0] != 2:
+            raise AssertionError(f"pio doctor --targets, the storage "
+                                 f"server down: {fleet_dead}")
+        open_checks_s = time.perf_counter() - t_open
+
+        # 6. recover: restart on the same port, the probe after open_s
+        t_restart = time.perf_counter()
+        second = _StorageServer(work, port, "storageserver_2")
+        servers.append(second)
+        open_s = float(REMOTE_DEPLOY_ENV["PIO_BREAKER_OPEN_S"])
+        time.sleep(max(0.0, open_s + 0.2 - (time.perf_counter() - t_open)))
+        ok_s = _reload(qport, api, trace=REMOTE_TRACE)
+        t_closed = time.perf_counter()
+        if api.generation != gen0 + 1 or breaker.state != "closed":
+            raise AssertionError(f"the recovery reload: generation "
+                                 f"{api.generation}, {breaker.stats()}")
+        doctor_ok = _cli_out(["doctor", qurl])
+        if doctor_ok[0] != 0:
+            raise AssertionError(f"pio doctor after the recovery: "
+                                 f"{doctor_ok}")
+        stream.wait_for(len(stream.answers) + 50)
+        stream.pause()
+        flushes = (old_batcher.stats()["batches"]
+                   + api.handle("GET", "/")[1]["batching"]["batches"])
+        launches = topk_fused.launches   # the serving path ends here
+        merge_launches = topk_fused.merge_launches
+
+        # 7. the fleet read by the operator tools
+        targets = f"{qurl},{surl}"
+        incident_out = _cli_out(["incident", "--targets", targets,
+                                 "--window", "10m"])
+        events_out = _cli_out(["events", "--targets", targets])
+        trace_out = _cli_out(["trace", REMOTE_TRACE, "--targets", targets])
+        monitor_out = _cli_out(["monitor", "--once", "--targets", targets])
+    finally:
+        stream_out = stream.close()
+        undeployed = cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                               str(qport)])
+        deploy.join(timeout=60)
+    if undeployed != 0 or rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}, undeploy "
+                             f"{undeployed}")
+
+    # what the stream saw: every query answered, as the plain int8 path
+    if stream_out["dropped"]:
+        raise AssertionError(f"queries dropped: {stream_out}")
+    m = api.models[0]
+    served = m.quant
+    for name in ("u_q", "u_scale", "vt_q", "v_scale"):
+        if not torch.equal(getattr(loaded, name), getattr(served, name)):
+            raise AssertionError(f"the reloaded layout's {name} differs")
+    inv = m.item_vocab.inverse()
+    want = {}
+    for u in {a[0] for a in stream.answers}:
+        vals, idx = quant.topk_for_users_quant(
+            served.u_q, served.u_scale, served.vt_q, served.v_scale,
+            torch.tensor([m.user_vocab(u)], dtype=torch.int32,
+                         device=served.device), k=10,
+            n_items=len(m.item_vocab))
+        want[u] = {"itemScores": [
+            {"item": inv(int(i)), "score": float(v)}
+            for v, i in zip(vals[0].cpu().numpy(), idx[0].cpu().numpy())]}
+    bad = [(u, p) for u, _s, p, _t in stream.answers if p != want[u]]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers differ from the plain "
+                             f"int8 path, the first {bad[0]}")
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
+        raise AssertionError(f"B1 {launches} and B2 {merge_launches} "
+                             f"launches for {flushes} flushes")
+    if solve.launches:
+        raise AssertionError("the serving path launched solve_gj")
+
+    # the operator tools' verdicts
+    host = f"127.0.0.1:{port}"
+    inc = incident_out[1]
+    i_open = inc.find(f"breaker: circuit breaker open for {host}")
+    i_half = inc.find(f"breaker: circuit breaker half-open for {host}")
+    if incident_out[0] != 1 or not 0 <= i_open < i_half:
+        raise AssertionError(f"pio incident: {incident_out}")
+    ev_lines = [ln for ln in events_out[1].splitlines() if ln.strip()]
+    ats = [ln.split()[0] for ln in ev_lines]
+    walk = [ln.split("circuit breaker ", 1)[1].split(" for ")[0]
+            for ln in ev_lines if "breaker: circuit breaker " in ln]
+    if events_out[0] != 0 or ats != sorted(ats) or \
+            walk != ["open", "half-open", "closed"]:
+        raise AssertionError(f"pio events: {events_out}")
+    per_target = {t: sum(1 for ln in ev_lines if f"[{t}]" in ln)
+                  for t in (qurl, surl)}
+    head = trace_out[1].splitlines()[0] if trace_out[1] else ""
+    if trace_out[0] != 0 or "over 2 target(s)" not in head or not all(
+            s in trace_out[1] for s in ("server:/reload", "storage",
+                                        "server:/rpc/model")):
+        raise AssertionError(f"pio trace: {trace_out}")
+    rows = [ln for ln in monitor_out[1].splitlines()
+            if ln.startswith("  http://")]
+    if monitor_out[0] != 0 or len(rows) != 2 or rows[0].split()[1] == "--":
+        raise AssertionError(f"pio monitor: {monitor_out}")
+    final_drain = second.drain()
+    q_p50, q_p99 = _pct([t for _u, _s, _p, t in stream.answers])
+    return {
+        "storage_server_ready_s": first.ready_s,
+        "remote_read": {"events": n_read, "reply_mb": reply_mb,
+                        "s": read_s,
+                        "local_s": store_out["read_columns_s"]["pool"]},
+        "trains": [clean, faulted],
+        "faulted_train": {"fired": train_fired,
+                          "transport_retries": int(retried)},
+        "import": {"events": n_file, "import_s": import_s,
+                   "events_per_s": n_file / import_s,
+                   "local_eventlog_events_per_s":
+                       store_out["import"]["events_per_s"],
+                   "fired": import_fired, "dedup_replays": int(replayed)},
+        "deploy": {"ready_s": deploy_ready_s,
+                   "queries": len(stream.answers), "dropped": 0,
+                   "query_ms": {"p50": q_p50, "p99": q_p99},
+                   "flushes": flushes, "B1_launches": launches,
+                   "B2_launches": merge_launches},
+        "kill": {"drain": drain, "kill_to_open_s": t_open - t_kill,
+                 "failed_reload_s": failed_s,
+                 "open_checks_s": open_checks_s},
+        "recover": {"storage_server_ready_s": second.ready_s,
+                    "restart_to_closed_s": t_closed - t_restart,
+                    "reload_s": ok_s,
+                    "time_to_ready_s": api.time_to_ready_s,
+                    "generation": [gen0, api.generation]},
+        "tools": {"incident_rc": incident_out[0],
+                  "events_per_target": per_target,
+                  "trace_head": head, "monitor_rows": rows},
+        "final_drain": final_drain,
+    }
+
+
+def _print_remote(out: dict) -> None:
+    card = out["card"]
+    r = out["remote_read"]
+    print(f"remote: storage server ready in "
+          f"{out['storage_server_ready_s']:.3f} s; read_columns of "
+          f"{r['events']} events ({r['reply_mb']:.1f} MB of columns) "
+          f"through it in {r['s']:.3f} s, the local eventlog read "
+          f"{r['local_s']:.3f} s ({card})", flush=True)
+    for t, name in zip(out["trains"], ("clean", "one reply lost")):
+        print(f"remote: pio train ({name}) through the remote source: wall "
+              f"{t['wall_s']:.3f} s (under torch.profiler); phases "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in t["phases_s"].items())
+              + f"; solve_gj {t['solve_gj_launches']} launches; "
+              "bit-identical to the store phase's warm train "
+              f"({card})", flush=True)
+    i = out["import"]
+    print(f"remote: pio import of {i['events']} events with a reply lost "
+          f"and deduplicated ({i['dedup_replays']} replay): "
+          f"{i['import_s']:.3f} s ({i['events_per_s']:.0f} events/s; the "
+          f"local eventlog import {i['local_eventlog_events_per_s']:.0f} "
+          f"events/s), stored exactly once ({card})", flush=True)
+    d, k, rc = out["deploy"], out["kill"], out["recover"]
+    print(f"remote: pio deploy ready in {d['ready_s']:.3f} s; "
+          f"{d['queries']} streamed queries equal to the plain int8 path, "
+          f"{d['dropped']} dropped, p50 {d['query_ms']['p50']:.3f} ms p99 "
+          f"{d['query_ms']['p99']:.3f} ms; B1 {d['B1_launches']} / B2 "
+          f"{d['B2_launches']} launches for {d['flushes']} flushes "
+          f"({card})", flush=True)
+    print(f"remote: SIGTERM -> /readyz 503 in "
+          f"{k['drain']['readyz_503_after_s'] * 1e3:.1f} ms, drained in "
+          f"{k['drain']['drained_s']:.3f} s; kill to open breaker "
+          f"{k['kill_to_open_s']:.3f} s; the failed reloads "
+          f"{[round(x * 1e3, 1) for x in k['failed_reload_s']]} ms; "
+          f"restart to closed breaker {rc['restart_to_closed_s']:.3f} s "
+          f"(storage ready in {rc['storage_server_ready_s']:.3f} s, the "
+          f"probe after open_s); the recovery reload {rc['reload_s']:.3f} s "
+          f"(time to ready {rc['time_to_ready_s']:.3f} s), generation "
+          f"{rc['generation'][0]} -> {rc['generation'][1]} ({card})",
+          flush=True)
+    t = out["tools"]
+    print(f"remote: pio incident exit {t['incident_rc']}; pio events lines "
+          f"per target {t['events_per_target']}; pio trace: "
+          f"{t['trace_head']}; pio monitor rows {t['monitor_rows']}; "
+          f"phase {out['phase_s']:.1f} s", flush=True)
 
 
 def _print_foldin(fold: dict) -> None:
@@ -3676,7 +4327,13 @@ def main(argv=None) -> int:
             work, args.seed, dev, n_app_events)
         (sim_launches, ecom_launches, tpl_solve_rows,
          tpl_out) = phase_templates(work, args.seed, dev)
-        store_out = phase_store(work, args.seed, dev, train, qs_out)
+        store_out, store_ctx = phase_store(work, args.seed, dev, train,
+                                           qs_out)
+        remote_out = phase_remote(work, args.seed, dev, store_out,
+                                  store_ctx)
+        store_out["foldin"] = phase_store_foldin(work, args.seed, dev,
+                                                 store_ctx)
+        del store_ctx
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3711,6 +4368,8 @@ def main(argv=None) -> int:
         "store_merge_launches": store_out["deploy"]["B2_launches"],
         "foldin_launches": store_out["foldin"]["B1_launches"],
         "foldin_merge_launches": store_out["foldin"]["B2_launches"],
+        "remote_launches": remote_out["deploy"]["B1_launches"],
+        "remote_merge_launches": remote_out["deploy"]["B2_launches"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
@@ -3750,7 +4409,10 @@ def main(argv=None) -> int:
             store_out["import"]["train"]["solve_gj_launches"],
         "foldin_launches": store_out["foldin"]["A_launches"],
         "foldin_by_bucket": store_out["foldin"]["kernel_a"],
+        "remote_launches": [t["solve_gj_launches"]
+                            for t in remote_out["trains"]],
         "store": store_out,
+        "remote": remote_out,
         "observe": observe["profiled_train"],
         "card": smi,
     }]}), flush=True)

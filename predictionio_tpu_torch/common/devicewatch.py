@@ -425,6 +425,25 @@ class _DeviceCollector:
         lines.append(f"pio_compile_cache_entries {cache['entries']}")
         lines.append("# TYPE pio_compile_cache_bytes gauge")
         lines.append(f"pio_compile_cache_bytes {cache['bytes']}")
+        lines.extend(self._breaker_lines())
+        return lines
+
+    @staticmethod
+    def _breaker_lines() -> List[str]:
+        """pio_breaker_open{endpoint}: 1 while a shared circuit breaker
+        is open, the live state `pio doctor` reads (the transitions
+        counter cannot tell open from recovered). Absent by default: no
+        PIO_BREAKER_ENABLED, no breakers, no lines."""
+        from predictionio_tpu_torch.common.resilience import CircuitBreaker
+        with CircuitBreaker._registry_lock:
+            breakers = list(CircuitBreaker._registry.values())
+        if not breakers:
+            return []
+        lines = ["# TYPE pio_breaker_open gauge"]
+        for br in breakers:
+            is_open = 1 if br.state == CircuitBreaker.OPEN else 0
+            ep = telemetry._escape_label(br.endpoint or "?")
+            lines.append(f'pio_breaker_open{{endpoint="{ep}"}} {is_open}')
         return lines
 
 
@@ -451,9 +470,11 @@ def debug_snapshot() -> Dict[str, Any]:
     subsystem is dormant and the payload says only that. The
     ``aot`` block is the deploy's warm-up and ``foldin`` the fold-in
     worker's state (null while those are off); ``sharding`` stays null
-    and ``breakers`` empty until those features are ported."""
+    until sharded serving is ported. ``breakers`` lists the shared
+    circuit breakers' stats (common/resilience.py)."""
     if not telemetry.on():
         return {"telemetry": False}
+    from predictionio_tpu_torch.common.resilience import CircuitBreaker
     with _lock:
         watchdog = {
             "monitoringHooks": True,
@@ -469,6 +490,9 @@ def debug_snapshot() -> Dict[str, Any]:
                         if _foldin_state is not None else None)
     watchdog["compilesTotal"] = compiles_total()
     watchdog["postWarmupRecompiles"] = post_warmup_recompiles()
+    with CircuitBreaker._registry_lock:
+        breakers = [br.stats() for br in
+                    CircuitBreaker._registry.values()]
     devices = _device_stats()
     return {
         "telemetry": True,
@@ -482,5 +506,5 @@ def debug_snapshot() -> Dict[str, Any]:
         "hostMemory": host_memory_stats(),
         "compileCache": {"dir": compile_cache_dir(),
                          **compile_cache_stats()},
-        "breakers": [],
+        "breakers": breakers,
     }

@@ -7,8 +7,14 @@ Any object with ``handle(method, path, query, body, headers) ->
 payload renders as strict JSON: a NaN or Infinity in it is a server bug,
 answered 500. A ``str`` payload (the dashboard's pages) is served as
 HTML unless the handler names its own ``Content-Type`` (``GET /metrics``
-serves Prometheus text). TLS engages when ``PIO_SSL_CERTFILE`` names a
-PEM certificate.
+serves Prometheus text); a ``bytes`` payload (the storage server's
+columnar reads and model blobs) as ``application/octet-stream``. TLS
+engages when ``PIO_SSL_CERTFILE`` names a PEM certificate.
+
+Server-boundary fault injection (``PIO_FAULT_SPEC``, scope ``@server``;
+common/resilience.py) runs in the handler: latency before dispatch, an
+aborted connection with no reply bytes, a synthetic 5xx, or a reply cut
+short under its full ``Content-Length`` on a closed connection.
 
 Request telemetry rides the transport, so every daemon gets it alike:
 an incoming ``X-PIO-Trace`` header is always adopted and a fresh trace
@@ -29,7 +35,9 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
-from predictionio_tpu_torch.common import devicewatch, telemetry, tracing
+from predictionio_tpu_torch.common import (
+    devicewatch, resilience, telemetry, tracing,
+)
 from predictionio_tpu_torch.common.server_security import maybe_wrap_ssl
 
 logger = logging.getLogger("predictionio_tpu_torch.http")
@@ -80,6 +88,9 @@ def dispatch_request(api, method: str, target: str, body: bytes,
             labelnames=("service", "status")).labels(
                 service=service, status=str(status)).inc()
     extra = dict(extra)
+    if isinstance(payload, (bytes, bytearray)):   # binary (storage RPC)
+        ctype = extra.pop("Content-Type", "application/octet-stream")
+        return status, bytes(payload), ctype, extra
     if isinstance(payload, str):
         # pre-rendered text: HTML pages, or what the handler names
         # (GET /metrics serves Prometheus text exposition)
@@ -106,17 +117,40 @@ class _Handler(BaseHTTPRequestHandler):
     def _dispatch(self, method: str) -> None:
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
+        route = f"{method} {urllib.parse.urlsplit(self.path).path}"
+        inj = resilience.active()
+        if inj is not None:
+            try:
+                inj.before_send("server", route)
+            except ConnectionError:
+                # no response bytes at all: what a mid-request kill gives
+                self.close_connection = True
+                return
         status, data, ctype, extra = dispatch_request(
             self.api, method, self.path, body, dict(self.headers.items()))
+        advertised, close = len(data), False
+        if inj is not None:
+            new_status, new_data = inj.on_response("server", route, status,
+                                                   data)
+            if new_status != status:      # a whole synthetic error reply
+                status, data = new_status, new_data
+                advertised = len(data)
+                ctype = "application/json; charset=UTF-8"
+            elif len(new_data) != len(data):
+                # the full length advertised, fewer bytes sent and the
+                # connection dropped: the client sees a torn reply
+                data, close = new_data, True
         try:
             self.send_response(status)
             self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(data)))
+            self.send_header("Content-Length", str(advertised))
             for name, value in extra.items():
                 self.send_header(name, str(value))
             self.end_headers()
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+        if close:
             self.close_connection = True
 
     def do_GET(self):  # noqa: N802

@@ -7,9 +7,10 @@
   ``PIO_STORAGE_REPOSITORIES_<REPO>_SOURCE``;
 - a source of type ``<type>`` is the module
   ``predictionio_tpu_torch.data.storage.<type>`` (memory, sqlite,
-  localfs, eventlog), whose DAO classes are named ``<Prefix><Entity>``
-  (the eventlog store has events only: metadata stays on SQLite or
-  memory, as in the reference);
+  localfs, eventlog, remote, s3), whose DAO classes are named
+  ``<Prefix><Entity>`` (the eventlog store has events only and s3 model
+  blobs only: the other repositories stay on another source, as in the
+  reference; ``remote`` is the client of a ``pio storageserver``);
 - with no configuration, as in the reference, metadata and events live in
   one SQLite file ``$PIO_FS_BASEDIR/pio.sqlite`` and model blobs in
   ``$PIO_FS_BASEDIR/models`` (``PIO_FS_BASEDIR`` defaults to
@@ -45,7 +46,7 @@ ModelData = "MODELDATA"
 #: the ported backends and their DAO class prefixes (the reference's
 #: ``capitalize()`` rule, LocalFS excepted)
 _CLASS_PREFIX = {"sqlite": "Sqlite", "memory": "Memory", "localfs": "LocalFS",
-                 "eventlog": "Eventlog"}
+                 "eventlog": "Eventlog", "remote": "Remote", "s3": "S3"}
 
 
 @dataclass

@@ -11,7 +11,9 @@ the engine lookups of ``predictionio_tpu/data/store.py``).
   the backend's chunk stream when it has one (eventlog:
   ``read_columns_streamed``, chunks decoding on a thread pool while the
   encode consumes them), its columnar ``read_columns`` otherwise
-  (SQLite), and per event last (memory), assigning vocab ids exactly as
+  (SQLite, and a ``remote`` source over one binary reply), and per event
+  last (memory, or a remote source whose server's store has no columnar
+  read), assigning vocab ids exactly as
   the reference does on the same backend;
 - :func:`columnar_from_stream` — the encode over a columnar chunk stream
   (the eventlog's, the synthetic generator's), with two retention modes:
@@ -549,17 +551,24 @@ def find_columnar(
             stage, timings, stream=stream, device=device)
     if hasattr(events_dao, "read_columns"):
         t0 = _time.perf_counter()
-        cols = events_dao.read_columns(
-            app_id, channel_id, event_names=event_names,
-            entity_type=entity_type, target_entity_type=target_entity_type,
-            rating_property=rating_property)
-        t1 = _time.perf_counter()
-        out = _columnar_from_codes(cols, event_names, entity_vocab,
-                                   target_vocab)
-        if timings is not None:
-            timings["read_io"] = t1 - t0
-            timings["read_encode"] = _time.perf_counter() - t1
-        return out
+        try:
+            cols = events_dao.read_columns(
+                app_id, channel_id, event_names=event_names,
+                entity_type=entity_type,
+                target_entity_type=target_entity_type,
+                rating_property=rating_property)
+        except NotImplementedError:
+            # a remote source whose backing store has no columnar read
+            # says so this way: the per-event path below reads it
+            cols = None
+        if cols is not None:
+            t1 = _time.perf_counter()
+            out = _columnar_from_codes(cols, event_names, entity_vocab,
+                                       target_vocab)
+            if timings is not None:
+                timings["read_io"] = t1 - t0
+                timings["read_encode"] = _time.perf_counter() - t1
+            return out
     events = events_dao.find(
         app_id=app_id, channel_id=channel_id, event_names=event_names,
         entity_type=entity_type, target_entity_type=target_entity_type)

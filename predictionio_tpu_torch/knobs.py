@@ -12,8 +12,8 @@ of the JAX package), in one of three kinds:
 - ``UNPORTED``: it turns on a feature the port lacks. :func:`refuse_unported`
   raises ``ValueError`` at the entry points (the CLI's ``train``,
   ``eval``, ``deploy``, ``eventserver``, ``import``, ``export``,
-  ``dashboard``, ``adminserver`` and ``foldin``, ``run_train``, ``run_evaluation`` and
-  ``QueryAPI``) when such a variable is set to a value that turns the
+  ``dashboard``, ``adminserver``, ``storageserver`` and ``foldin``,
+  ``run_train``, ``run_evaluation`` and ``QueryAPI``) when such a variable is set to a value that turns the
   feature on, naming the variable, the feature and the ROADMAP item that
   brings it. Unset, ``0``
   and ``off`` (and the reference's own word for "off" where it has one,
@@ -37,10 +37,11 @@ UNPORTED = "unported"
 TRAIN, EVAL, DEPLOY = "train", "eval", "deploy"
 EVENTSERVER, IMPORT, EXPORT = "eventserver", "import", "export"
 DASHBOARD, ADMINSERVER, FOLDIN = "dashboard", "adminserver", "foldin"
+STORAGESERVER = "storageserver"
 #: the verbs that serve HTTP
-DAEMONS = (DEPLOY, EVENTSERVER, DASHBOARD, ADMINSERVER)
+DAEMONS = (DEPLOY, EVENTSERVER, DASHBOARD, ADMINSERVER, STORAGESERVER)
 ALL_VERBS = (TRAIN, EVAL, DEPLOY, EVENTSERVER, IMPORT, EXPORT, DASHBOARD,
-             ADMINSERVER, FOLDIN)
+             ADMINSERVER, STORAGESERVER, FOLDIN)
 
 
 @dataclass(frozen=True)
@@ -69,7 +70,8 @@ def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
     return Knob(UNPORTED, what, tuple(verbs), roadmap, also_off)
 
 
-_REMOTE = "the remote storage client, whose storage type the port refuses"
+_RPC = "the remote storage client's retry policy (common/resilience.py)"
+_BREAKER = "the remote storage client's circuit breaker"
 _NO_VERB = "a daemon the port has no verb for"
 _TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
@@ -85,7 +87,8 @@ KNOBS: Dict[str, Knob] = {
     "PIO_STORAGE_SOURCES_*": _read(
         "storage sources; an unported TYPE is refused by the storage layer"),
     "PIO_STORAGE_REPOSITORIES_*": _read("repository bindings"),
-    "PIO_STORAGE_SERVER_KEY": _inert(_REMOTE),
+    "PIO_STORAGE_SERVER_KEY": _read(
+        "the storage server's shared key (X-PIO-Storage-Key)"),
     "PIO_SERVER_KEY": _read(
         "the shared key of the dashboard and admin daemons"),
     "PIO_SSL_CERTFILE": _read(_TLS + ": the PEM certificate"),
@@ -184,21 +187,23 @@ KNOBS: Dict[str, Knob] = {
     "PIO_TENANT_HBM_HARD_CAP_MB": _unported(
         "the multi-tenant registry's memory hard cap", _Q7),
     # remote storage resilience
-    "PIO_RPC_RETRIES": _inert(_REMOTE),
-    "PIO_RPC_BACKOFF_MS": _inert(_REMOTE),
-    "PIO_RPC_BACKOFF_MAX_MS": _inert(_REMOTE),
-    "PIO_RPC_DEADLINE_MS": _inert(_REMOTE),
-    "PIO_RPC_WRITE_DEDUP": _inert(_REMOTE),
-    "PIO_RPC_POOL": _inert(_REMOTE),
-    "PIO_BREAKER_ENABLED": _inert(_REMOTE),
-    "PIO_BREAKER_WINDOW_S": _inert(_REMOTE),
-    "PIO_BREAKER_ERROR_RATE": _inert(_REMOTE),
-    "PIO_BREAKER_MIN_CALLS": _inert(_REMOTE),
-    "PIO_BREAKER_OPEN_S": _inert(_REMOTE),
-    "PIO_FAULT_SPEC": _unported(
-        "fault injection at the transport boundary (common/resilience.py)",
-        _Q4, verbs=ALL_VERBS),
-    "PIO_FAULT_SEED": _inert("seeds PIO_FAULT_SPEC"),
+    "PIO_RPC_RETRIES": _read(_RPC + ": retries after the first try"),
+    "PIO_RPC_BACKOFF_MS": _read(_RPC + ": the full-jitter backoff's base"),
+    "PIO_RPC_BACKOFF_MAX_MS": _read(_RPC + ": the backoff's cap"),
+    "PIO_RPC_DEADLINE_MS": _read(
+        _RPC + ": the deadline across attempts, propagated per attempt"),
+    "PIO_RPC_WRITE_DEDUP": _read(
+        "the remote client's exactly-once insert_batch retry"),
+    "PIO_RPC_POOL": _read("the remote client's idle connections kept"),
+    "PIO_BREAKER_ENABLED": _read(_BREAKER + " (0 / 1)"),
+    "PIO_BREAKER_WINDOW_S": _read(_BREAKER + ": its error-rate window"),
+    "PIO_BREAKER_ERROR_RATE": _read(_BREAKER + ": the rate that opens it"),
+    "PIO_BREAKER_MIN_CALLS": _read(
+        _BREAKER + ": the calls in the window before it may open"),
+    "PIO_BREAKER_OPEN_S": _read(_BREAKER + ": how long it stays open"),
+    "PIO_FAULT_SPEC": _read(
+        "fault injection at the transport boundary (common/resilience.py)"),
+    "PIO_FAULT_SEED": _read("seeds PIO_FAULT_SPEC's decisions"),
     "PIO_AUTO_RESUME": _read("auto-resume of a crashed pio train"),
     # observability
     "PIO_TELEMETRY": _read("hot-path metrics (common/telemetry.py)"),

@@ -30,13 +30,27 @@
         [--port PORT]
     python -m predictionio_tpu_torch.tools.cli profile [URL] [--ms N]
         [-o SUBDIR]
+    python -m predictionio_tpu_torch.tools.cli storageserver [--ip HOST]
+        [--port PORT] [--key KEY] [--telemetry] [--trace]
+    python -m predictionio_tpu_torch.tools.cli doctor [URL]
+        [--targets URL,...]
+    python -m predictionio_tpu_torch.tools.cli trace TRACE_ID
+        --targets URL,...
+    python -m predictionio_tpu_torch.tools.cli events --targets URL,...
+        [--since-seq N] [--level L] [--category C] [--follow]
+    python -m predictionio_tpu_torch.tools.cli monitor --targets URL,...
+        [--once] [--record FILE] | --replay FILE
+    python -m predictionio_tpu_torch.tools.cli incident --targets URL,...
+        [--window 10m] [--trace ID]
     python -m predictionio_tpu_torch.tools.cli {status,dashboard,
         adminserver} ...
 
 ``train``, ``eval`` and ``deploy`` run on the card unless
-``PIO_TORCH_DEVICE=cpu`` asks for the CPU; the event server, the app and
-key commands, ``import`` and ``export`` work on the host and never touch
-the card. A reference variable that asks for a feature the port lacks
+``PIO_TORCH_DEVICE=cpu`` asks for the CPU; the event server, the storage
+server, the app and key commands, ``import``, ``export`` and the
+operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
+``incident``, which read live daemons over HTTP) work on the host and
+never touch the card. A reference variable that asks for a feature the port lacks
 (``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_TRANSPORT=async``, ...)
 makes the verb exit 1 with a message naming it,
 before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
@@ -219,6 +233,113 @@ def cmd_profile(args) -> int:
     url = args.url or f"http://{args.ip}:{args.port}"
     return run_profile(url, ms=args.ms, out_dir=args.out or None,
                        timeout=args.timeout)
+
+
+def cmd_doctor(args) -> int:
+    """One-screen operator verdict against a running daemon's
+    observability surface (tools/doctor.py): health, readiness, queue
+    depth, serve p99, circuit breakers, degraded batches, post-warmup
+    kernel builds, device memory headroom, trace buffer, and the router
+    line when the target is a router. ``--targets url,...`` runs the
+    verdict over every member of a fleet and exits with the worst code.
+    Exit 0 green / 1 red / 2 unreachable."""
+    from predictionio_tpu_torch.tools.doctor import (
+        run_doctor, run_doctor_fleet,
+    )
+    if args.targets:
+        return run_doctor_fleet(_parse_targets(args.targets),
+                                timeout=args.timeout)
+    url = args.url or f"http://{args.ip}:{args.port}"
+    return run_doctor(url, timeout=args.timeout)
+
+
+def _parse_targets(raw: str, flag: str = "--targets") -> List[str]:
+    targets = [t.strip() for t in (raw or "").split(",") if t.strip()]
+    if not targets:
+        raise CommandError(
+            f"{flag} requires at least one daemon base URL "
+            "(comma-separated, e.g. "
+            "http://host:8000,http://host:7070)")
+    return targets
+
+
+def cmd_trace(args) -> int:
+    """Fleet trace assembly (common/traceview.py): one trace id fanned
+    out to every target's /traces.json?trace_id=, the spans joined
+    across processes with clock-skew correction and drawn as ONE tree.
+    Exit 0 assembled / 1 not found / 2 every target unreachable."""
+    from predictionio_tpu_torch.common.traceview import run_trace
+    return run_trace(args.trace_id, _parse_targets(args.targets),
+                     timeout=args.timeout)
+
+
+def cmd_events(args) -> int:
+    """Fleet journal merge (common/traceview.py): every target's
+    /debug/events.json, oldest first; --follow keeps polling with
+    per-target since_seq cursors. Exit 0 / 2 every target unreachable."""
+    from predictionio_tpu_torch.common.traceview import run_events
+    return run_events(
+        _parse_targets(args.targets), since_seq=args.since_seq,
+        category=args.category or None, level=args.level or None,
+        follow=args.follow, interval_s=args.interval,
+        timeout=args.timeout)
+
+
+def cmd_monitor(args) -> int:
+    """One-screen fleet view (tools/monitor.py): per target QPS, p99 and
+    error rate from each daemon's own history rings
+    (/debug/history.json), SLO burn from live gauges, and the doctor's
+    state flags. --once prints one frame; --record FILE appends each
+    frame's fetches as a JSON line; --replay FILE re-renders a recording
+    offline. Exit 0 / 2 every target unreachable."""
+    from predictionio_tpu_torch.tools.monitor import run_monitor
+    if args.replay:
+        return run_monitor([], replay=args.replay,
+                           interval_s=args.interval)
+    return run_monitor(
+        _parse_targets(args.targets), once=args.once,
+        interval_s=args.interval, record=args.record or None,
+        timeout=args.timeout)
+
+
+def cmd_incident(args) -> int:
+    """One ordered incident timeline for a fleet (tools/incident.py):
+    journal WARN/RED events, metric change points over each target's
+    history rings, slow-ring exemplars and the traces they reference,
+    clock-skew corrected, oldest first. Exit 0 clean window / 1 incident
+    evidence found / 2 every target unreachable."""
+    from predictionio_tpu_torch.tools.incident import run_incident
+    return run_incident(
+        _parse_targets(args.targets), window=args.window,
+        trace_id=args.trace or None, timeout=args.timeout)
+
+
+def cmd_storageserver(args) -> int:
+    """Serve this node's storage over HTTP so other processes and hosts
+    can point a ``remote`` source at it (data/storage/remote.py).
+    SIGTERM drains: /readyz answers 503, the listener stops accepting,
+    and the backing event store flushes its WAL buffers before exit."""
+    from predictionio_tpu_torch.data.api.http import serve_forever
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.data.storage.remote import StorageRPCAPI
+    _apply_telemetry_env(args)
+    key = args.key or os.environ.get("PIO_STORAGE_SERVER_KEY") or None
+    storage = get_storage()
+
+    def flush_events():
+        try:
+            events = storage.get_events()
+            if hasattr(events, "close"):
+                events.close()
+            _info("Storage server drained (event buffers flushed).")
+        except Exception as e:  # a backend's own flush failure
+            _error(f"Drain-time flush failed: {e}")
+
+    _info(f"Storage server is started at {args.ip}:{args.port}"
+          f"{' (key auth on)' if key else ''}.")
+    serve_forever(StorageRPCAPI(storage, key=key),
+                  host=args.ip, port=args.port, on_drain=flush_events)
+    return 0
 
 
 def cmd_eventserver(args) -> int:
@@ -507,6 +628,111 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--timeout", type=float, default=5.0,
                     help="per-request timeout in seconds")
 
+    sp = sub.add_parser(
+        "doctor",
+        help="one-screen health verdict for a running daemon "
+             "(scrapes /healthz, /metrics, /traces.json, "
+             "/debug/device.json; exit 0 green / 1 red / 2 unreachable)")
+    sp.add_argument("url", nargs="?", default="",
+                    help="daemon base URL (default http://<ip>:<port>)")
+    sp.add_argument("--ip", default="localhost")
+    sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--targets", default="",
+                    help="comma-separated fleet base URLs (router + "
+                         "replicas + storage): run the verdict over "
+                         "every member, exit with the worst code")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-scrape timeout in seconds")
+
+    sp = sub.add_parser(
+        "trace",
+        help="assemble one trace id across a daemon fleet into a "
+             "single waterfall tree (fans out to every target's "
+             "/traces.json?trace_id=, joins spans with clock-skew "
+             "correction; exit 0 assembled / 1 not found / 2 "
+             "unreachable)")
+    sp.add_argument("trace_id", help="the 16-hex trace id (from "
+                    "/debug/slow.json, a /metrics exemplar, a journal "
+                    "event, or an X-PIO-Trace header)")
+    sp.add_argument("--targets", required=True,
+                    help="comma-separated daemon base URLs (query, "
+                         "storage, event servers)")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-target timeout in seconds")
+
+    sp = sub.add_parser(
+        "events",
+        help="merge-tail the operational journals "
+             "(/debug/events.json) of a daemon fleet by timestamp "
+             "(exit 0 / 2 when every target is unreachable)")
+    sp.add_argument("--targets", required=True,
+                    help="comma-separated daemon base URLs")
+    sp.add_argument("--since-seq", type=int, default=0,
+                    help="only events with seq beyond this cursor "
+                         "(per target; default 0 = everything buffered)")
+    sp.add_argument("--level", default="",
+                    help="minimum severity: info (default) / warn / red")
+    sp.add_argument("--category", default="",
+                    help="narrow to one journal category")
+    sp.add_argument("--follow", action="store_true",
+                    help="keep polling for new events (Ctrl-C to stop)")
+    sp.add_argument("--interval", type=float, default=2.0,
+                    help="--follow poll interval in seconds")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-target timeout in seconds")
+
+    sp = sub.add_parser(
+        "monitor",
+        help="one-screen auto-refreshing fleet view: QPS, p99, error "
+             "rate and SLO burn per target from each daemon's metrics "
+             "history rings (/debug/history.json; exit 0 / 2 when "
+             "every target is unreachable)")
+    sp.add_argument("--targets", default="",
+                    help="comma-separated daemon base URLs (router + "
+                         "replicas + storage)")
+    sp.add_argument("--once", action="store_true",
+                    help="print one frame and exit (scripting)")
+    sp.add_argument("--interval", type=float, default=5.0,
+                    help="refresh interval in seconds")
+    sp.add_argument("--record", default="",
+                    help="append every frame's raw fetches to FILE as "
+                         "JSON lines (the durable path out of the "
+                         "bounded per-process rings)")
+    sp.add_argument("--replay", default="",
+                    help="re-render a --record file frame by frame "
+                         "without touching the network")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-target timeout in seconds")
+
+    sp = sub.add_parser(
+        "incident",
+        help="assemble one ordered incident timeline from a fleet: "
+             "journal events + metric change-points (history rings) + "
+             "slow exemplars + referenced traces, clock-skew "
+             "corrected (exit 0 clean / 1 evidence found / 2 "
+             "unreachable)")
+    sp.add_argument("--targets", required=True,
+                    help="comma-separated daemon base URLs")
+    sp.add_argument("--window", default="10m",
+                    help="lookback window, e.g. 10m / 90s / 1h "
+                         "(default 10m)")
+    sp.add_argument("--trace", default="",
+                    help="seed the assembly with this trace id "
+                         "(otherwise traces referenced by journal "
+                         "events / slow exemplars are fetched)")
+    sp.add_argument("--timeout", type=float, default=5.0,
+                    help="per-target timeout in seconds")
+
+    sp = sub.add_parser("storageserver",
+                        help="serve this node's storage to remote clients")
+    sp.add_argument("--ip", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=7072)
+    sp.add_argument("--key", default="",
+                    help="shared secret clients must send "
+                         "(X-PIO-Storage-Key; or set "
+                         "PIO_STORAGE_SERVER_KEY)")
+    telemetry_flags(sp)
+
     sp = sub.add_parser("eventserver", help="start the event server")
     sp.add_argument("--ip", default="0.0.0.0")
     sp.add_argument("--port", type=int, default=7070)
@@ -585,6 +811,12 @@ _DISPATCH = {
     "eventserver": cmd_eventserver,
     "dashboard": cmd_dashboard,
     "adminserver": cmd_adminserver,
+    "storageserver": cmd_storageserver,
+    "doctor": cmd_doctor,
+    "trace": cmd_trace,
+    "events": cmd_events,
+    "monitor": cmd_monitor,
+    "incident": cmd_incident,
     "status": cmd_status,
     "app": cmd_app,
     "accesskey": cmd_accesskey,

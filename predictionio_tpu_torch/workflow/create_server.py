@@ -453,9 +453,16 @@ class QueryAPI:
 
     def reload_async(self) -> threading.Thread:
         """``POST /reload``: the load on its own thread (returned, and
-        joined by :meth:`close`)."""
-        t = threading.Thread(target=self._reload, name="pio-reload",
-                             daemon=True)
+        joined by :meth:`close`). The thread runs under the request's
+        trace context, so a ``remote`` source's reads join the
+        ``/reload`` trace across the storage server."""
+        ctx = tracing.current()
+
+        def run():
+            with tracing.activate(ctx):
+                self._reload()
+
+        t = threading.Thread(target=run, name="pio-reload", daemon=True)
         self._reload_thread = t
         t.start()
         return t

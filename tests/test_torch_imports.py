@@ -129,6 +129,19 @@ FOLDIN_SLICE = [
 ]
 
 
+#: remote storage with retries, the circuit breaker and fault
+#: injection, the object-store models and the operator tools
+REMOTE_SLICE = [
+    "predictionio_tpu_torch.common.resilience",
+    "predictionio_tpu_torch.common.traceview",
+    "predictionio_tpu_torch.data.storage.remote",
+    "predictionio_tpu_torch.data.storage.s3",
+    "predictionio_tpu_torch.tools.doctor",
+    "predictionio_tpu_torch.tools.incident",
+    "predictionio_tpu_torch.tools.monitor",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -142,12 +155,13 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 97
+    assert int(names[-1]) == len(names) - 1 >= 103
     assert set(EVENT_SLICE) <= set(names[:-1])
     assert set(TEMPLATE_SLICE) <= set(names[:-1])
     assert set(OBSERVABILITY_SLICE) <= set(names[:-1])
     assert set(STORE_SLICE) <= set(names[:-1])
     assert set(FOLDIN_SLICE) <= set(names[:-1])
+    assert set(REMOTE_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

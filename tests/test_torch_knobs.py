@@ -37,7 +37,6 @@ REFUSED = {
     "PIO_TENANT_RATE": ["100"],
     "PIO_TENANT_HBM_BUDGET_MB": ["512"],
     "PIO_TENANT_HBM_HARD_CAP_MB": ["4096"],
-    "PIO_FAULT_SPEC": ["drop@server:0.5"],
 }
 
 UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
@@ -81,6 +80,7 @@ def test_unported_feature_is_refused_at_its_entry_points(
             knobs.EXPORT: ["export", "--appid", "1", "--output", missing],
             knobs.DASHBOARD: ["dashboard", *nowhere],
             knobs.ADMINSERVER: ["adminserver", *nowhere],
+            knobs.STORAGESERVER: ["storageserver", *nowhere],
             knobs.FOLDIN: ["foldin", "--engine-dir", missing]}
     assert sorted(argv) == sorted(knobs.ALL_VERBS)
     for verb in knob.verbs:
@@ -366,3 +366,145 @@ def test_aot_shape_knobs_are_inert(monkeypatch, name, value):
         knobs.refuse_unported(verb)
     assert aot.serve_buckets() == (1, 4, 16, 64)
     assert aot.warm_k(100) == aot.WARM_K == 10
+
+
+def _storage_server_key():
+    """The key ``pio storageserver`` serves with, its server stubbed out."""
+    from predictionio_tpu_torch.data.api import http
+
+    got = []
+    real = http.serve_forever
+    http.serve_forever = lambda api, **kw: got.append(api)
+    try:
+        assert cli.main(["storageserver", "--port", "0"]) == 0
+    finally:
+        http.serve_forever = real
+    return got[0].key
+
+
+def _remote_client(**props):
+    from predictionio_tpu_torch.data.storage import StorageClientConfig
+    from predictionio_tpu_torch.data.storage.remote import StorageClient
+    return StorageClient(StorageClientConfig(properties={
+        "URL": "http://127.0.0.1:1", **props}))
+
+
+def _breaker(attr):
+    from predictionio_tpu_torch.common.resilience import CircuitBreaker
+
+    def read():
+        CircuitBreaker.reset_registry()
+        try:
+            br = CircuitBreaker.for_endpoint("knob:1")
+            return br if attr is None else getattr(br, attr)
+        finally:
+            CircuitBreaker.reset_registry()
+    return read
+
+
+def _policy(attr):
+    from predictionio_tpu_torch.common.resilience import RetryPolicy
+    return lambda: getattr(RetryPolicy.from_env(), attr)
+
+
+def _fault_rolls():
+    """PIO_FAULT_SEED seeds the injector's draws (PIO_FAULT_SPEC set; the
+    injector is cached per spec value, so the spec is this test's own)."""
+    from predictionio_tpu_torch.common import resilience
+    resilience.clear()
+    return [resilience.active()._rng.random() for _ in range(3)]
+
+
+#: the rows that turned from inert or refused to read with the remote
+#: storage client, its retry policy, the circuit breaker and fault
+#: injection, each with a value that changes what the port does, the
+#: variables it needs beside it, and the function that shows it
+def _remote_reads():
+    import random
+    seeded = random.Random(11)
+    return {
+        "PIO_STORAGE_SERVER_KEY": ("s3kr1t", {}, _storage_server_key,
+                                   "s3kr1t"),
+        "PIO_RPC_RETRIES": ("4", {}, _policy("max_attempts"), 5),
+        "PIO_RPC_BACKOFF_MS": ("30", {}, _policy("base_delay_s"), 0.03),
+        "PIO_RPC_BACKOFF_MAX_MS": ("700", {}, _policy("max_delay_s"), 0.7),
+        "PIO_RPC_DEADLINE_MS": ("2500", {}, _policy("total_deadline_s"),
+                                2.5),
+        "PIO_RPC_WRITE_DEDUP": ("1", {}, lambda: _remote_client().write_dedup,
+                                True),
+        "PIO_RPC_POOL": ("3", {}, lambda: _remote_client()._pool._size, 3),
+        "PIO_BREAKER_ENABLED": ("1", {}, lambda: _breaker(None)() is not None,
+                                True),
+        "PIO_BREAKER_WINDOW_S": ("12", {"PIO_BREAKER_ENABLED": "1"},
+                                 _breaker("window_s"), 12.0),
+        "PIO_BREAKER_ERROR_RATE": ("0.2", {"PIO_BREAKER_ENABLED": "1"},
+                                   _breaker("error_threshold"), 0.2),
+        "PIO_BREAKER_MIN_CALLS": ("3", {"PIO_BREAKER_ENABLED": "1"},
+                                  _breaker("min_calls"), 3),
+        "PIO_BREAKER_OPEN_S": ("0.25", {"PIO_BREAKER_ENABLED": "1"},
+                               _breaker("open_s"), 0.25),
+        "PIO_FAULT_SEED": ("11", {"PIO_FAULT_SPEC": "drop:0.25@knob-seed"},
+                           _fault_rolls,
+                           [seeded.random() for _ in range(3)]),
+    }
+
+
+REMOTE_READS = sorted(_remote_reads())
+
+
+@pytest.mark.parametrize("name", REMOTE_READS)
+def test_remote_storage_and_resilience_variables_are_read(monkeypatch,
+                                                          name):
+    """The remote client's, the breaker's and the storage server's rows
+    turned from inert to read with their slice: refused by no verb, and
+    read with the reference's meaning."""
+    from predictionio_tpu_torch.common import resilience
+    _clear(monkeypatch)
+    value, beside, read, want = _remote_reads()[name]
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, value)
+    for k, v in beside.items():
+        monkeypatch.setenv(k, v)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    try:
+        assert read() == want
+    finally:
+        resilience.clear()
+
+
+def test_fault_spec_is_honoured_at_every_verb(monkeypatch):
+    """PIO_FAULT_SPEC turned from refused to read: no verb refuses it, and
+    the transport boundary injects what it asks for (here a pre-send drop
+    of every storage RPC, which an unreachable read then surfaces)."""
+    from predictionio_tpu_torch.common import resilience
+    _clear(monkeypatch)
+    assert knobs.KNOBS["PIO_FAULT_SPEC"].kind == knobs.READ
+    monkeypatch.setenv("PIO_FAULT_SPEC", "drop:1@client")
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    resilience.clear()
+    try:
+        inj = resilience.active()
+        assert inj is not None and inj.spec == "drop:1@client"
+        with pytest.raises(resilience.InjectedFault):
+            _remote_client().call("apps", "get_all")
+        assert inj.fired == {"drop": 2}     # the try and its one retry
+    finally:
+        resilience.clear()
+
+
+@pytest.mark.parametrize("kind,entity", [("remote", "Apps"),
+                                         ("s3", "Models")])
+def test_remote_and_s3_storage_types_are_no_longer_refused(kind, entity):
+    env = {"PIO_STORAGE_SOURCES_X_TYPE": kind,
+           "PIO_STORAGE_SOURCES_X_URL": "http://127.0.0.1:1",
+           "PIO_STORAGE_SOURCES_X_ENDPOINT": "http://127.0.0.1:1",
+           "PIO_STORAGE_SOURCES_X_BUCKET_NAME": "b",
+           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "X",
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "X"}
+    store = Storage(env=env)
+    dao = (store.get_meta_data_apps() if entity == "Apps"
+           else store.get_model_data_models())
+    assert type(dao).__name__ == {"remote": "Remote",
+                                  "s3": "S3"}[kind] + entity

@@ -114,3 +114,91 @@ def deploy_both(blob: bytes, batching: str = "on"):
 
 def query(user: str, num: int) -> bytes:
     return json.dumps({"user": user, "num": num}).encode()
+
+
+_SEVERITY = {"info": 0, "warn": 1, "red": 2}
+
+
+class RecordedDaemon:
+    """A daemon stand-in on 127.0.0.1 that answers recorded payloads, so
+    both packages' operator tools (``pio doctor``, ``trace``, ``events``,
+    ``monitor``, ``incident``) read the same bytes. ``routes`` maps a path
+    (no query) to ``(status, content type, body bytes)``; ``events`` is a
+    recorded journal (``journal.snapshot()["events"]``), filtered by
+    ``since_seq`` / ``level`` / ``category`` / ``limit`` as the journal
+    does; ``traces`` maps a trace id to its ``/traces.json`` entry.
+    Stop it with :meth:`close`."""
+
+    def __init__(self, routes=None, events=None, traces=None):
+        import threading
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        owner = self
+        self.routes = dict(routes or {})
+        self.events = list(events) if events is not None else None
+        self.traces = dict(traces or {})
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                u = urllib.parse.urlsplit(self.path)
+                q = dict(urllib.parse.parse_qsl(u.query))
+                status, ctype, body = owner.answer(u.path, q)
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def answer(self, path, q):
+        js = "application/json; charset=UTF-8"
+        if path == "/debug/events.json" and self.events is not None:
+            since = int(q.get("since_seq", 0))
+            floor = _SEVERITY.get(q.get("level") or "info", 0)
+            out = [e for e in self.events if e["seq"] > since
+                   and _SEVERITY.get(e["level"], 0) >= floor
+                   and (not q.get("category")
+                        or e["category"] == q["category"])]
+            out = out[-max(1, int(q.get("limit", 256))):]
+            last = max((e["seq"] for e in self.events), default=0)
+            return 200, js, json.dumps({
+                "enabled": True, "capacity": 1024, "lastSeq": last,
+                "events": out}).encode()
+        if path == "/traces.json" and self.traces:
+            want = q.get("trace_id")
+            traces = [t for tid, t in self.traces.items()
+                      if want is None or tid == want]
+            return 200, js, json.dumps({"traces": traces}).encode()
+        if path in self.routes:
+            return self.routes[path]
+        return 404, js, b'{"message": "not found"}'
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def record_routes(base_url: str, paths) -> dict:
+    """GET each path of a live daemon: ``{path without query: (status,
+    content type, body)}`` for :class:`RecordedDaemon`."""
+    import urllib.error
+    import urllib.request
+
+    out = {}
+    for path in paths:
+        try:
+            with urllib.request.urlopen(base_url + path, timeout=10) as r:
+                got = (r.status, r.headers.get("Content-Type"), r.read())
+        except urllib.error.HTTPError as e:
+            got = (e.code, e.headers.get("Content-Type"), e.read())
+        out[path.split("?", 1)[0]] = got
+    return out
