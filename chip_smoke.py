@@ -204,6 +204,31 @@ Phases (any failure raises and the script exits non-zero):
              reload (one tree over both daemons), ``pio monitor --once``
              (a row per daemon, QPS from the history rings) and ``pio
              undeploy``; the seconds of each step beside the card.
+12. shard  — block-sharded training and row-sharded serving on the store
+             phase's eventlog app (138,493 x 26,744 and the fold-in
+             step's events), rank 10, 10 iterations: explicit ALS through
+             ``als_dist.train_explicit_sharded`` over 4 shard slots of the
+             card, kernel A exactly 80 times (once per slot per
+             half-step), each call equal to its plain version at the
+             slot's shape, a rerun from the seed bit-identical and the
+             factors within the golden-train tolerance of a one-device
+             train; ``serve_dist`` at 1, 2 and 4 slots, b = 1 and 64, k
+             = 10, 100 and the whole catalog: B1 once per slot and B2
+             once a call, answers equal to the replicated B1 + B2 and to
+             the plain int8 path bit for bit, each call timed beside the
+             replicated one; ``pio train --coordinator 127.0.0.1:PORT
+             --num-processes 1 --process-id 0`` on NCCL, ``pio train
+             --devices -1`` streamed and in-core (kernel A 20 each; the
+             NCCL model equal to the in-core one-slot model bit for bit,
+             the streamed one within the tolerance); ``pio deploy
+             --shard-serving on --foldin on --telemetry`` under one
+             client's query stream: 8 unseen users folded through the
+             sharded scatter (their int8 rows == ``quantize_rows``), no
+             query dropped, every checked answer equal to the plain int8
+             path on the live sharded layout, B1 and B2 once per flush,
+             ``/debug/device.json``'s sharding block and ``pio doctor``'s
+             sharding line ok; ``POST /reload`` under 256 queries, none
+             dropped, still sharded; ``pio undeploy``.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -4277,6 +4302,469 @@ def _print_foldin(fold: dict) -> None:
           f"0 dropped; phase {fold['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: block-sharded training and row-sharded serving
+# ---------------------------------------------------------------------------
+
+#: the library train's shard slots on the card, and the serving meshes
+SHARD_SLOTS = 4
+SHARD_SERVE_SLOTS = (1, 2, 4)
+SHARD_SERVE_B = (1, 64)
+#: unseen users the sharded deploy folds in (20 ratings each)
+SHARD_FOLD_USERS = 8
+#: a sharded train against the single-device one: fp32 Gram sums cut at
+#: other chunk boundaries drift apart over 10 iterations as much as a
+#: single-device train at another chunk does (a CPU train of 1M ratings:
+#: 0.0016 and 0.0013 max abs), so the yardstick is that drift, measured
+#: in the run: the sharded factors within twice it of one device's, and
+#: the training RMSE within SHARD_RMSE_RTOL
+SHARD_DRIFT_X = 2.0
+SHARD_RMSE_RTOL = 1e-5
+#: the golden-train tolerance, reported beside (the share of entries
+#: outside it)
+SHARD_RTOL, SHARD_ATOL = 2e-3, 2e-4
+
+
+def phase_shard(work: str, seed: int, dev: torch.device) -> dict:
+    """Phase 12 on the store phase's eventlog app (ML-20M's 138,493 x
+    26,744 and the fold-in step's events), rank 10, 10 iterations."""
+    env = _eventlog_env(work)
+    names = (*env, "PIO_TRAIN_STREAM", "PIO_FOLDIN_CURSOR_DIR",
+             "PIO_TELEMETRY", "PIO_SERVE_SHARD")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.pop("PIO_SERVE_SHARD", None)
+    os.environ.update(env)
+    storage_mod.reset_storage()
+    t_phase = time.perf_counter()
+    try:
+        out = _phase_shard(work, seed, dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("shard: " + json.dumps(out), flush=True)
+    return out
+
+
+def _engine_params():
+    with open(ENGINE_JSON) as f:
+        p = json.load(f)["algorithms"][0]["params"]
+    return p["rank"], p["numIterations"], p["lambda"], p["seed"]
+
+
+def _close(a: torch.Tensor, b: torch.Tensor, drift: float) -> dict:
+    """``a`` against ``b``: the largest difference, within SHARD_DRIFT_X
+    times ``drift`` (the largest difference a reordering of the same sums
+    gives), and the share of entries outside the golden-train
+    tolerance."""
+    diff = (a - b).abs()
+    return {"max_abs_diff": float(diff.max()), "drift": drift,
+            "within": float(diff.max()) <= max(SHARD_DRIFT_X * drift, 1e-6),
+            "outside_golden_tol": float(
+                (diff > SHARD_ATOL + SHARD_RTOL * b.abs()).float().mean())}
+
+
+def _rmse(U, V, td) -> float:
+    n = td.n
+    return float(als.rmse(U, V, td.user_idx, td.item_idx, td.rating,
+                          np.ones(n, np.float32)))
+
+
+def _phase_shard(work: str, seed: int, dev: torch.device) -> dict:
+    from predictionio_tpu_torch.parallel import als_dist, serve_dist
+    from predictionio_tpu_torch.parallel import mesh as mesh_mod
+
+    store = storage_mod.get_storage()
+    rank, iters, lam, train_seed = _engine_params()
+    out = {"card": _smi(), "slots": SHARD_SLOTS}
+
+    # 1. the library: explicit ALS over 4 slots of the card
+    os.environ["PIO_TRAIN_STREAM"] = "off"
+    t0 = time.perf_counter()
+    td = DataSource(DataSourceParams(appName=STORE_APP)).read_training(
+        WorkflowContext(storage=store, device=dev))
+    read_s = time.perf_counter() - t0
+    n_u, n_i = len(td.user_vocab), len(td.item_vocab)
+    t0 = time.perf_counter()
+    # the layout sorted on the card: the deal reads it back to the host
+    data = als.prepare_ratings(td.user_idx, td.item_idx, td.rating, n_u, n_i,
+                               on_device=True, device=dev)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    mesh = mesh_mod.Mesh([dev] * SHARD_SLOTS)
+    checked, dealt = [], []
+
+    def against_plain(orig):
+        def f(A, b, reg):
+            x = orig(A, b, reg)
+            p = solve.solve_gj_plain(A, b, reg)
+            checked.append((int(A.shape[0]), bool(_bitwise_same(x, p).all()),
+                            float((x - p).abs().max())))
+            return x
+        return f
+
+    def timed_deal(orig):
+        def f(*a, **kw):
+            t = time.perf_counter()
+            su, si = orig(*a, **kw)
+            dealt.append((time.perf_counter() - t, su.nnz_per_dev.tolist(),
+                          si.nnz_per_dev.tolist(), su.rows_dev, si.rows_dev))
+            return su, si
+        return f
+
+    kw = dict(rank=rank, iterations=iters, lambda_=lam, seed=train_seed)
+    solve.reset_launches()                 # the library train starts here
+    with _wrapped((als, "solve_factors", against_plain)):
+        U4, V4 = als_dist.train_explicit_sharded(mesh, data, **kw)
+    torch.cuda.synchronize()
+    a_launches = solve.launches            # and ends here
+    if a_launches != SHARD_SLOTS * 2 * iters or len(checked) != a_launches:
+        raise AssertionError(f"kernel A launched {a_launches} times over "
+                             f"{SHARD_SLOTS} slots x {iters} iterations")
+    if not all(same for _n, same, _e in checked):
+        raise AssertionError(f"a slot's kernel A != plain: {checked}")
+    t0 = time.perf_counter()
+    with _wrapped((als_dist, "prepare_sharded", timed_deal)):
+        U4b, V4b = als_dist.train_explicit_sharded(mesh, data, **kw)
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t0
+    if not (torch.equal(U4, U4b) and torch.equal(V4, V4b)):
+        raise AssertionError("two sharded trains from one seed differ")
+    del U4b, V4b
+    # one device at its own chunk, and at the sharded trainer's: the
+    # drift that reordering the same sums gives
+    t0 = time.perf_counter()
+    U1, V1 = als.train_explicit(data, **kw, device=dev)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    U1c, V1c = als.train_explicit(data, **kw, chunk=1 << 16, device=dev)
+    drift = {"users": float((U1c - U1).abs().max()),
+             "items": float((V1c - V1).abs().max())}
+    del U1c, V1c
+    vs_single = {"users": _close(U4, U1, drift["users"]),
+                 "items": _close(V4, V1, drift["items"])}
+    rmse4, rmse1 = _rmse(U4, V4, td), _rmse(U1, V1, td)
+    vs_single["rmse"] = {"slots": rmse4, "one_device": rmse1}
+    if not (vs_single["users"]["within"] and vs_single["items"]["within"]
+            and abs(rmse4 - rmse1) <= SHARD_RMSE_RTOL * rmse1):
+        raise AssertionError(f"4-slot factors vs one device: {vs_single}")
+    deal_s, nnz_u, nnz_i, rows_u, rows_i = dealt[0]
+    out["library"] = {
+        "ratings": int(data.nnz), "users": n_u, "items": n_i,
+        "read_s": read_s, "layout_s": layout_s, "deal_s": deal_s,
+        "train_s": lib_s, "single_device_train_s": single_s,
+        "A_launches": a_launches,
+        "A_shapes": sorted({n for n, _s, _e in checked}),
+        "A_max_abs_err": max(e for _n, _s, e in checked),
+        "rows_per_slot": {"users": rows_u, "items": rows_i},
+        "nnz_per_slot": {"users": nnz_u, "items": nnz_i},
+        "rerun_bit_identical": True, "vs_single_device": vs_single}
+    print(f"shard: library train over {SHARD_SLOTS} slots of the card: "
+          f"{data.nnz} ratings, {n_u} x {n_i}; read {read_s:.3f} s, "
+          f"layout {layout_s:.3f} s, the LPT deal {deal_s:.3f} s, "
+          f"train (deal included) {lib_s:.3f} s against one device's "
+          f"{single_s:.3f} s; kernel A {a_launches} launches at n = "
+          f"{out['library']['A_shapes']}, each == plain; rerun "
+          f"bit-identical; vs one device {vs_single} ({_smi()})",
+          flush=True)
+
+    # 2. sharded serve at 1, 2 and 4 slots against the replicated B1 + B2
+    # and the plain int8 path, bit for bit
+    qf = quant.QuantizedFactors.from_factors(U4.cpu().numpy(),
+                                             V4.cpu().numpy())
+    del U1, V1
+    rep = quant.QuantizedServing.build(qf, device=dev)
+    rng = np.random.default_rng(seed + 41)
+    serve_rows = []
+    for n in SHARD_SERVE_SLOTS:
+        sf = serve_dist.shard_factors(
+            None, None, mesh=mesh_mod.Mesh([dev] * n, axis_name="shard"),
+            quant=qf)
+        for b in SHARD_SERVE_B:
+            ixs = rng.integers(0, n_u, size=b).astype(np.int32)
+            ixs_dev = torch.from_numpy(ixs).to(dev)
+            for k in (10, 100, n_i):
+                topk_fused.reset_launches()
+                sv, si = sf.topk(ixs, k)
+                torch.cuda.synchronize()
+                b1, b2 = topk_fused.launches, topk_fused.merge_launches
+                rv, ri = rep.topk(ixs, k)
+                pv, pi = quant.topk_for_users_quant(
+                    rep.u_q, rep.u_scale, rep.vt_q, rep.v_scale, ixs_dev,
+                    k=k, n_items=n_i)
+                if (b1, b2) != (n, 1):
+                    raise AssertionError(f"{n} slot(s): B1 {b1} / B2 {b2} "
+                                         "launches in one call")
+                for v, i, what in ((rv, ri, "replicated B1 + B2"),
+                                   (pv, pi, "the plain int8 path")):
+                    if not (bool(_bitwise_same(sv, v).all())
+                            and torch.equal(si, i)):
+                        raise AssertionError(
+                            f"{n} slot(s), b = {b}, k = {k}: the sharded "
+                            f"answer != {what}")
+            row = {"slots": n, "b": b, "ks": [10, 100, n_i],
+                   "B1_per_call": n, "B2_per_call": 1,
+                   "ms": _time_ms(lambda: sf.topk(ixs, 10), reps=100),
+                   "replicated_ms": _time_ms(lambda: rep.topk(ixs, 10),
+                                             reps=100)}
+            serve_rows.append(row)
+            print(f"shard: serve at {n} slot(s) of {sf.rows_dev_i} items, "
+                  f"b = {b}: answers == replicated B1 + B2 == plain at k "
+                  f"[10, 100, {n_i}]; B1 {n} + B2 1 launches a call; call "
+                  f"{row['ms']:.4f} ms (replicated {row['replicated_ms']:.4f}"
+                  f" ms, k = 10) ({_smi()})", flush=True)
+        del sf
+    out["serve"] = serve_rows
+    del rep, qf, U4, V4, data, td
+    serve_dist.record_state(None)
+    torch.cuda.empty_cache()
+
+    # 3. the CLI: a one-process NCCL job, then --devices -1 streamed and
+    # in-core
+    engine_dir = _engine_dir(work, "shard_engine", STORE_APP)
+    coordinator = f"127.0.0.1:{_free_port()}"
+    cli_trains, models = {}, {}
+    for name, extra, mode in (
+            ("coordinator", ["--coordinator", coordinator,
+                             "--num-processes", "1", "--process-id", "0"],
+             "off"),
+            ("devices_streamed", ["--devices", "-1"], "on"),
+            ("devices_in_core", ["--devices", "-1"], "off")):
+        als_algorithm._BIG_LAYOUT_CACHE.clear()    # each builds its layout
+        os.environ["PIO_TRAIN_STREAM"] = mode
+        instances = store.get_meta_data_engine_instances()
+        before = {r.id for r in instances.get_all()}
+        solve.reset_launches()                     # this train starts here
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "--engine-dir", engine_dir, *extra])
+        wall = time.perf_counter() - t0
+        launches = solve.launches                  # and ends here
+        backend = None
+        if name == "coordinator":
+            backend = torch.distributed.get_backend()
+            torch.distributed.destroy_process_group()
+            mesh_mod.init_distributed._done = None
+        if rc != 0 or launches != 2 * iters:
+            raise AssertionError(f"pio train ({name}) exited {rc} with "
+                                 f"{launches} kernel A launches")
+        (row,) = [r for r in instances.get_all() if r.id not in before]
+        (models[name],) = model_io.deserialize_models(
+            store.get_model_data_models().get(row.id).models)
+        cli_trains[name] = {
+            "instance": row.id, "wall_s": wall, "A_launches": launches,
+            "backend": backend, "stream": mode,
+            "phases_s": {k[len("phase_"):-len("_s")]: float(v)
+                         for k, v in row.runtime_conf.items()
+                         if k.startswith("phase_")}}
+    if cli_trains["coordinator"]["backend"] != (
+            "nccl" if dev.type == "cuda" else "gloo"):
+        raise AssertionError(f"the coordinator train ran on "
+                             f"{cli_trains['coordinator']['backend']}")
+    if not _same_factors(models["coordinator"], models["devices_in_core"]):
+        raise AssertionError("the NCCL job's model != the one-slot mesh's")
+    stream_vs = {
+        side: _close(torch.from_numpy(getattr(models["devices_streamed"],
+                                              side)),
+                     torch.from_numpy(getattr(models["devices_in_core"],
+                                              side)), drift[key])
+        for side, key in (("user_factors", "users"),
+                          ("item_factors", "items"))}
+    if not all(v["within"] for v in stream_vs.values()):
+        raise AssertionError(f"streamed vs in-core one-slot trains: "
+                             f"{stream_vs}")
+    out["cli"] = {"trains": cli_trains, "streamed_vs_in_core": stream_vs}
+    for name, t in cli_trains.items():
+        print(f"shard: pio train {name} (PIO_TRAIN_STREAM={t['stream']}"
+              f"{', ' + t['backend'] if t['backend'] else ''}): wall "
+              f"{t['wall_s']:.3f} s; phases " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in t["phases_s"].items())
+              + f"; kernel A {t['A_launches']} launches", flush=True)
+    print(f"shard: the NCCL job's model == the one-slot in-core model bit "
+          f"for bit; streamed vs in-core {stream_vs}", flush=True)
+
+    # 4. pio deploy --shard-serving on --foldin on under a query stream
+    out["deploy"] = _shard_deploy(work, store, engine_dir,
+                                  cli_trains["coordinator"]["instance"],
+                                  models["coordinator"], seed)
+    store.get_events().close()     # the folded users' events into chunks
+    return out
+
+
+def _served_sharded(model, user: str, k: int):
+    """The answer the server gives ``user`` at ``num`` k, from the plain
+    int8 path on the live sharded layout (its slots' item blocks side by
+    side; hits past the item vocab dropped)."""
+    sf = model.sharding
+    k = min(k, len(model.item_vocab))
+    vt = torch.cat([sf.item_shards[d][:, :sf.items_real(d)]
+                    for d in range(sf.n_shards)], dim=1).contiguous()
+    sv = torch.cat([sf.item_scales[d][:sf.items_real(d)]
+                    for d in range(sf.n_shards)])
+    vals, idx = quant.topk_for_users_quant(
+        sf.user_rows, sf.user_scales, vt, sv,
+        torch.tensor([model.user_vocab(user)], dtype=torch.int32,
+                     device=sf.device), k=k, n_items=sf.n_items)
+    inv = model.item_vocab.inverse()
+    n_real = len(model.item_vocab)
+    return {"itemScores": [{"item": inv(int(i)), "score": float(v)}
+                           for v, i in zip(vals[0].cpu().numpy(),
+                                           idx[0].cpu().numpy())
+                           if int(i) < n_real]}
+
+
+def _shard_deploy(work: str, store, engine_dir: str, iid: str, model,
+                  seed: int) -> dict:
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+    from predictionio_tpu_torch.tools import doctor
+
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    os.environ["PIO_FOLDIN_CURSOR_DIR"] = os.path.join(work, "cur_shard")
+    users = list(model.user_vocab.to_dict())
+    items = list(model.item_vocab.to_dict())
+    rng = np.random.default_rng(seed + 43)
+    new_users = [f"shard_u{j}" for j in range(SHARD_FOLD_USERS)]
+    events = [_rate(u, items[i], float(rng.integers(1, 11)) / 2)
+              for u in new_users
+              for i in rng.choice(len(items), size=FOLD_RATINGS,
+                                  replace=False)]
+    port, rcs = _free_port(), []
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            iid, "--ip", "127.0.0.1", "--port", str(port), "--serve-quant",
+            "on", "--shard-serving", "on", "--foldin", "on",
+            "--foldin-tick-ms", "100", "--telemetry"])), daemon=True)
+        t0 = time.perf_counter()
+        deploy.start()
+        ready_s = _wait_ready(port, deploy.is_alive, deadline_s=300)
+        (api,) = apis
+        m = api.models[0]
+        if m.sharding is None or m.sharding.dtype != "int8" \
+                or api._foldin_worker is None:
+            raise AssertionError("the deploy is not sharded int8 with "
+                                 "fold-in")
+        topk_fused.reset_launches()          # the serving path starts here,
+        solve.reset_launches()               # after the warm-up
+        es, es_port = http_mod.serve_background(
+            service.EventAPI(storage=store), "127.0.0.1", 0)
+        stream = _Stream(port, users, seed + 44)
+        try:
+            stream.wait_for(50)
+            _post_events(es_port, events)
+            fold_s = _wait_worker(
+                api, lambda st: st["usersFolded"] >= SHARD_FOLD_USERS
+                and st["cursorLag"] == 0 and not st["usersPending"],
+                "the sharded folds")
+            stream.wait_for(len(stream.answers) + 50)
+        finally:
+            stream_out = stream.close()
+            es.shutdown()
+            es.server_close()
+        b1, b2 = topk_fused.launches, topk_fused.merge_launches
+        a_folds = solve.launches
+        stats = api.handle("GET", "/")[1]   # the serving path ends here
+        flushes = stats["batching"]["batches"]
+        if stream_out["dropped"]:
+            raise AssertionError(f"the sharded deploy dropped queries: "
+                                 f"{stream_out}")
+        if flushes == 0 or b1 != flushes or b2 != flushes:
+            raise AssertionError(f"B1 {b1} / B2 {b2} launches for "
+                                 f"{flushes} flushes")
+        m = api.models[0]
+        worker = api._foldin_worker
+        c = _Client(port)
+        try:
+            for u in new_users:
+                ix = m.user_vocab(u)
+                q, s = quant.quantize_rows(worker._user_factors[ix][None])
+                sf = m.sharding
+                if (sf.user_rows[ix].cpu().numpy().tobytes() != q[0].tobytes()
+                        or sf.user_scales[ix].item() != float(s[0])):
+                    raise AssertionError(f"{u}: the sharded int8 row != "
+                                         "quantize_rows of the folded row")
+                status, payload, _t = c.call("POST", "/queries.json",
+                                             {"user": u, "num": 10})
+                if status != 200 or not payload["itemScores"] \
+                        or payload != _served_sharded(m, u, 10):
+                    raise AssertionError(f"{u} answered {status} {payload}")
+            for u, _st, payload, _t in stream.answers[:64]:
+                if payload != _served_sharded(m, u, 10):
+                    raise AssertionError(f"{u} in the stream: {payload}")
+            device = c.call("GET", "/debug/device.json")[1]
+        finally:
+            c.close()
+        if (device.get("sharding") or {}).get("shards") != 1:
+            raise AssertionError(f"/debug/device.json sharding: "
+                                 f"{device.get('sharding')}")
+        rc, text = _cli_out(["doctor", f"http://127.0.0.1:{port}"])
+        line = [ln for ln in text.splitlines()
+                if ln.strip().startswith("sharding")]
+        if len(line) != 1 or line[0].split()[1] != doctor.OK:
+            raise AssertionError(f"pio doctor's sharding line: {text}")
+
+        # POST /reload under FOLD_BURST queries on 16 clients
+        gen0 = api.generation
+        burst = [users[u] for u in rng.integers(0, len(users),
+                                                size=FOLD_BURST)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            futures = [pool.submit(_post, port, u, 10) for u in burst]
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{port}/reload", data=b"",
+                    method="POST"), timeout=30) as r:
+                reload_status = r.status
+            statuses = []
+            for f in futures:
+                try:
+                    statuses.append(f.result()[0])
+                except OSError as e:
+                    statuses.append(getattr(e, "code", repr(e)))
+        api._reload_thread.join(timeout=120)
+        reload_s = time.perf_counter() - t0
+        if reload_status != 200 or api.generation != gen0 + 1 \
+                or statuses != [200] * FOLD_BURST:
+            raise AssertionError(
+                f"POST /reload: {reload_status}, generation {gen0} -> "
+                f"{api.generation}, {sum(s != 200 for s in statuses)} of "
+                f"{FOLD_BURST} queries dropped")
+        if api.models[0].sharding is None:
+            raise AssertionError("the reload left the sharded layout")
+        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                     str(port)]) != 0:
+            raise AssertionError("pio undeploy failed")
+        deploy.join(timeout=60)
+    if rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}")
+    p50, p99 = _pct([a[3] for a in stream.answers])
+    out = {"ready_s": ready_s, "stream": stream_out, "flushes": flushes,
+           "B1_launches": b1, "B2_launches": b2, "A_fold_launches": a_folds,
+           "folded_users": SHARD_FOLD_USERS, "fold_s": fold_s,
+           "query_ms": {"p50": p50, "p99": p99},
+           "sharding": device["sharding"], "doctor_sharding": line[0].strip(),
+           "reload": {"s": reload_s, "burst": FOLD_BURST, "dropped": 0,
+                      "generation": [gen0, api.generation]}}
+    print(f"shard: pio deploy --shard-serving on --foldin on ready in "
+          f"{ready_s:.3f} s; {stream_out['queries']} streamed queries, 0 "
+          f"dropped, p50 {p50:.3f} ms p99 {p99:.3f} ms; B1 {b1} and B2 {b2} "
+          f"launches for {flushes} flushes; {SHARD_FOLD_USERS} unseen users "
+          f"folded through the sharded scatter in {fold_s:.3f} s (kernel A "
+          f"{a_folds} launches); doctor: {line[0].strip()}; POST /reload "
+          f"under {FOLD_BURST} queries in {reload_s:.3f} s, 0 dropped "
+          f"({_smi()})", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4334,6 +4822,7 @@ def main(argv=None) -> int:
         store_out["foldin"] = phase_store_foldin(work, args.seed, dev,
                                                  store_ctx)
         del store_ctx
+        shard_out = phase_shard(work, args.seed, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4370,6 +4859,9 @@ def main(argv=None) -> int:
         "foldin_merge_launches": store_out["foldin"]["B2_launches"],
         "remote_launches": remote_out["deploy"]["B1_launches"],
         "remote_merge_launches": remote_out["deploy"]["B2_launches"],
+        "shard_launches": shard_out["deploy"]["B1_launches"],
+        "shard_merge_launches": shard_out["deploy"]["B2_launches"],
+        "shard_serve": shard_out["serve"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
         "by_bucket": rows,
@@ -4411,6 +4903,10 @@ def main(argv=None) -> int:
         "foldin_by_bucket": store_out["foldin"]["kernel_a"],
         "remote_launches": [t["solve_gj_launches"]
                             for t in remote_out["trains"]],
+        "shard_launches": shard_out["library"]["A_launches"],
+        "shard_cli_launches": [t["A_launches"] for t in
+                               shard_out["cli"]["trains"].values()],
+        "shard": {k: v for k, v in shard_out.items() if k != "serve"},
         "store": store_out,
         "remote": remote_out,
         "observe": observe["profiled_train"],

@@ -93,6 +93,9 @@ _quant_state: Optional[Dict[str, Any]] = None
 _aot_state: Optional[Dict[str, Any]] = None
 #: most recent fold-in worker state (realtime/foldin.py via note_foldin)
 _foldin_state: Optional[Dict[str, Any]] = None
+#: most recent sharded-serving layout (parallel/serve_dist.py via
+#: note_sharding); /debug/device.json and `pio doctor` read it
+_sharding_state: Optional[Dict[str, Any]] = None
 
 
 def _warmup_flush_count() -> int:
@@ -181,6 +184,15 @@ def note_aot(summary: Optional[Dict[str, Any]]) -> None:
     global _aot_state
     with _lock:
         _aot_state = dict(summary) if summary is not None else None
+
+
+def note_sharding(summary: Optional[Dict[str, Any]]) -> None:
+    """Record (or with None, clear) the deploy's sharded-serving layout
+    (shard count, merge strategy, per-shard bytes) for the debug
+    surface."""
+    global _sharding_state
+    with _lock:
+        _sharding_state = dict(summary) if summary is not None else None
 
 
 def note_foldin(summary: Optional[Dict[str, Any]]) -> None:
@@ -468,9 +480,9 @@ def install() -> bool:
 def debug_snapshot() -> Dict[str, Any]:
     """The ``GET /debug/device.json`` payload. With telemetry off the
     subsystem is dormant and the payload says only that. The
-    ``aot`` block is the deploy's warm-up and ``foldin`` the fold-in
-    worker's state (null while those are off); ``sharding`` stays null
-    until sharded serving is ported. ``breakers`` lists the shared
+    ``aot`` block is the deploy's warm-up, ``sharding`` the sharded
+    layout and ``foldin`` the fold-in worker's state (null while those
+    are off). ``breakers`` lists the shared
     circuit breakers' stats (common/resilience.py)."""
     if not telemetry.on():
         return {"telemetry": False}
@@ -488,6 +500,8 @@ def debug_snapshot() -> Dict[str, Any]:
         aot_state = dict(_aot_state) if _aot_state is not None else None
         foldin_state = (dict(_foldin_state)
                         if _foldin_state is not None else None)
+        sharding_state = (dict(_sharding_state)
+                          if _sharding_state is not None else None)
     watchdog["compilesTotal"] = compiles_total()
     watchdog["postWarmupRecompiles"] = post_warmup_recompiles()
     with CircuitBreaker._registry_lock:
@@ -498,7 +512,7 @@ def debug_snapshot() -> Dict[str, Any]:
         "telemetry": True,
         "watchdog": watchdog,
         "aot": aot_state,
-        "sharding": None,
+        "sharding": sharding_state,
         "quant": quant_state,
         "foldin": foldin_state,
         "devices": devices,

@@ -78,7 +78,6 @@ _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
 _Q4 = "queue 1 item 4 (the read and ingest path)"
 _Q5B = "queue 1 item 5b (the host-vs-device serving probe)"
-_Q6 = "queue 1 item 6 (distributed training and sharded serving)"
 _Q7 = "queue 1 item 7 (the router, multi-tenancy and the fleet tools)"
 
 KNOBS: Dict[str, Knob] = {
@@ -137,8 +136,8 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SERVE_DEVICE_MS": _unported(
         "the inline single-query device path and its host-vs-device "
         "latency probe", _Q5B),
-    "PIO_SERVE_SHARD": _unported("row-sharded serving", _Q6,
-                                 also_off=("auto",)),
+    "PIO_SERVE_SHARD": _read(
+        "row-sharded serving (parallel/serve_dist.py): auto / on / off"),
     "PIO_SERVE_QUANT": _read("quantized serving"),
     "PIO_SERVE_QUANT_RECALL_MIN": _read("the recall probe's floor"),
     "PIO_SERVE_FUSED": _read("the fused top-k kernel"),

@@ -17,13 +17,21 @@ gathered on the factors' device (a trained model's, or the device policy's
 for a loaded model's numpy factors) and ranked by one fp32
 ``topk.topk_scores_batch``.
 
+Training over a mesh (``ctx.mesh``: ``pio train --devices`` or a
+multi-process ``--coordinator`` job) runs ``parallel.als_dist``: the
+layout is dealt over the mesh's slots (the sorted layout read back for
+the LPT deal, or, for a streamed read, ``shard_staged_coo`` straight from
+the staged COO), and each half-step runs kernel A once per slot.
+
 A deployed model serves from the port's device: quantized (int8 factors
 with per-row scales, top-k through the fused kernel) when the deploy's
-serve-quant mode says so, else fp32 factors with a stable top-k. Unlike
-the JAX package, a failed quantization or kernel fails the deploy; it
-never falls back to fp32 behind the operator's back. The "auto" mode's
-ranking-parity refusal stays: it is the documented gate, and it logs
-why.
+serve-quant mode says so, else fp32 factors with a stable top-k; and
+row-sharded (``parallel.serve_dist``: B1 once per slot, one B2) when the
+deploy's shard-serving mode says so. Unlike the JAX package, a failed
+quantization, sharded layout or kernel fails the deploy; it never falls
+back to fp32 or to the replicated layout behind the operator's back. The
+"auto" mode's ranking-parity refusal stays: it is the documented gate,
+and it logs why.
 """
 
 from __future__ import annotations
@@ -73,9 +81,11 @@ class ALSModel:
     package's ALSModel so its blobs load field for field
     (workflow/model_io.py). A trained model holds torch tensors on the
     train device; a loaded one numpy. ``quant`` is serve-time state: the
-    QuantizedServing layout when the deploy quantized; the factors then
-    stay host numpy. ``sharding`` is never set by the port (sharded
-    serving is a later slice); it exists because the blobs carry it."""
+    QuantizedServing layout when the deploy quantized; ``sharding`` the
+    ``serve_dist.ShardedFactors`` layout (int8 or fp32) when the deploy
+    sharded. With either, the factors stay host fp32 numpy (the fold-in
+    worker's gather sources and the eval path's input); persisted blobs
+    carry neither."""
     rank: int
     user_factors: "np.ndarray | torch.Tensor"   # (n_users, rank)
     item_factors: "np.ndarray | torch.Tensor"   # (n_items, rank)
@@ -137,13 +147,14 @@ def _layout_cache_enabled() -> bool:
     return os.environ.get("PIO_ALS_LAYOUT_CACHE", "1") != "0"
 
 
-def _layout_meta(td, device: torch.device):
+def _layout_meta(td, device: torch.device, slots: int = 0):
     # "raw" fingerprints hash the raw chunk columns (streamed AND in-core
     # reads of a chunked source, so the two share entries); "enc" hashes
     # the encoded host arrays (reads with no chunk stream). The kind keeps
     # the two digest keyspaces from ever comparing.
     kind = "raw" if getattr(td, "_stream_digest", None) else "enc"
-    return (str(device), kind, td.n, len(td.user_vocab), len(td.item_vocab))
+    return (str(device), slots, kind, td.n, len(td.user_vocab),
+            len(td.item_vocab))
 
 
 def _layout_crc(td) -> bytes:
@@ -159,23 +170,25 @@ def _layout_crc(td) -> bytes:
     return h.digest()
 
 
-def _big_layout_cached(td, device: torch.device):
+def _big_layout_cached(td, device: torch.device, slots: int = 0):
     """-> (data or None, digest or None); the digest comes back when it
     was computed, so the store that follows a miss never hashes twice."""
     if not _layout_cache_enabled() or not _BIG_LAYOUT_CACHE:
         return None, None
     meta, crc, data = _BIG_LAYOUT_CACHE[0]
-    if meta != _layout_meta(td, device):
+    if meta != _layout_meta(td, device, slots):
         return None, None
     got = _layout_crc(td)
     return (data, got) if got == crc else (None, got)
 
 
-def _big_layout_store(td, device: torch.device, data, crc=None) -> None:
+def _big_layout_store(td, device: torch.device, data, crc=None,
+                      slots: int = 0) -> None:
     if _layout_cache_enabled():
         if crc is None:
             crc = _layout_crc(td)
-        _BIG_LAYOUT_CACHE[:] = [(_layout_meta(td, device), crc, data)]
+        _BIG_LAYOUT_CACHE[:] = [(_layout_meta(td, device, slots), crc,
+                                 data)]
 
 
 def staging_wanted() -> bool:
@@ -200,7 +213,7 @@ def stream_wanted() -> bool:
     return mode == "on" or staging_wanted()
 
 
-def _ensure_layout(td, device: torch.device) -> als.ALSData:
+def _ensure_layout(td, device: torch.device, mesh=None):
     """The sorted COO layout of one TrainingData on ``device``, through
     both cache tiers (the train's ``layout`` phase body, shared with
     ``prepare_layout``; the layout is rank-independent).
@@ -211,16 +224,23 @@ def _ensure_layout(td, device: torch.device) -> als.ALSData:
     fingerprint, so repeat trains over an unchanged event store skip the
     layout. The retained device memory (about 0.5 GB at 20M ratings) is
     bounded at one entry, evicted before a replacement is built;
-    ``PIO_ALS_LAYOUT_CACHE=0`` retains nothing."""
+    ``PIO_ALS_LAYOUT_CACHE=0`` retains nothing.
+
+    With a ``mesh`` the in-core layout is the same one, which
+    ``als_dist`` deals over the slots at train time; a streamed read's
+    staged COO goes straight into the slots (``shard_staged_coo``), the
+    ``PreshardedData`` being the cached layout. Either is keyed on the
+    slot count too."""
+    slots = mesh.size if mesh is not None else 0
     cacheable = td.n <= int(os.environ.get("PIO_ALS_BIG_LAYOUT_MIN",
                                            2_000_000))
-    key = ("als_layout", str(device))
+    key = ("als_layout", str(device), slots)
     cached = getattr(td, "_pio_layout_cache", None) if cacheable else None
     big_crc = None
     if cached is not None and cached[0] == key:
         data = cached[1]
     else:
-        data, big_crc = _big_layout_cached(td, device)
+        data, big_crc = _big_layout_cached(td, device, slots)
     if data is not None:
         LAYOUT_STATS["hits"] += 1
         return data
@@ -239,10 +259,18 @@ def _ensure_layout(td, device: torch.device) -> als.ALSData:
         u_in, i_in, r_in = staged
     else:
         u_in, i_in, r_in = td.user_idx, td.item_idx, td.rating
-    data = als.prepare_ratings(
-        u_in, i_in, r_in,
-        n_users=len(td.user_vocab), n_items=len(td.item_vocab),
-        on_device=True, device=device)
+    if mesh is not None and td.streamed:
+        from predictionio_tpu_torch.parallel import als_dist
+        data = als_dist.shard_staged_coo(
+            mesh, u_in, i_in, r_in, n_users=len(td.user_vocab),
+            n_items=len(td.item_vocab))
+    else:
+        # sorted on the device; a mesh's LPT deal reads it back to the
+        # host at train time
+        data = als.prepare_ratings(
+            u_in, i_in, r_in,
+            n_users=len(td.user_vocab), n_items=len(td.item_vocab),
+            on_device=True, device=device)
     del u_in, i_in, r_in
     # the staged mirrors are dead once the layout exists: free them (the
     # pinned host buffers after their copies land)
@@ -254,7 +282,7 @@ def _ensure_layout(td, device: torch.device) -> als.ALSData:
     if cacheable:
         td._pio_layout_cache = (key, data)
     else:
-        _big_layout_store(td, device, data, crc=big_crc)
+        _big_layout_store(td, device, data, crc=big_crc, slots=slots)
     return data
 
 
@@ -282,17 +310,28 @@ class ALSAlgorithm(Algorithm):
         seed = self.ap.seed if self.ap.seed is not None else (
             np.random.SeedSequence().entropy % (2 ** 31))
         dev = device_mod.resolve(getattr(ctx, "device", None))
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None:
+            dev = mesh.local_device
         with ctx.phase("layout"):
-            data = _ensure_layout(td, dev)
+            data = _ensure_layout(td, dev, mesh)
         checkpointer = None
         ckpt_dir = getattr(ctx, "checkpoint_dir", None)
         if self.ap.checkpointInterval and ckpt_dir:
             checkpointer = FactorCheckpointer(ckpt_dir)
-        U, V = als.train_explicit(
-            data, rank=self.ap.rank, iterations=self.ap.numIterations,
-            lambda_=self.ap.lambda_, seed=int(seed),
-            checkpoint_every=self.ap.checkpointInterval,
-            checkpointer=checkpointer, device=dev)
+        if mesh is not None:
+            from predictionio_tpu_torch.parallel import als_dist
+            U, V = als_dist.train_explicit_sharded(
+                mesh, data, rank=self.ap.rank,
+                iterations=self.ap.numIterations, lambda_=self.ap.lambda_,
+                seed=int(seed), checkpoint_every=self.ap.checkpointInterval,
+                checkpointer=checkpointer)
+        else:
+            U, V = als.train_explicit(
+                data, rank=self.ap.rank, iterations=self.ap.numIterations,
+                lambda_=self.ap.lambda_, seed=int(seed),
+                checkpoint_every=self.ap.checkpointInterval,
+                checkpointer=checkpointer, device=dev)
         return ALSModel(
             rank=self.ap.rank, user_factors=U, item_factors=V,
             user_vocab=td.user_vocab, item_vocab=td.item_vocab)
@@ -306,13 +345,20 @@ class ALSAlgorithm(Algorithm):
         if td.n == 0:
             return
         dev = device_mod.resolve(getattr(ctx, "device", None))
+        mesh = getattr(ctx, "mesh", None)
+        if mesh is not None:
+            dev = mesh.local_device
         with ctx.phase("layout"):
-            _ensure_layout(td, dev)
+            _ensure_layout(td, dev, mesh)
 
     def prepare_serving(self, model: ALSModel) -> ALSModel:
-        """Quantize and lay the factors out on the deploy's device when
-        serve-quant resolves on (``quant.deploy_scope``); otherwise put
-        the fp32 factors on the device."""
+        """Quantize when serve-quant resolves on (``quant.deploy_scope``),
+        then lay the factors out row-sharded when shard-serving resolves
+        on (``serve_dist.deploy_scope``), int8 or fp32; otherwise put the
+        quantized layout or the fp32 factors on the deploy's device. A
+        failed sharded layout raises: no replicated fallback."""
+        from predictionio_tpu_torch.parallel import serve_dist
+
         dev = quant_mod.scoped_device()
         U = host_f32(model.user_factors)
         V = host_f32(model.item_factors)
@@ -328,6 +374,12 @@ class ALSAlgorithm(Algorithm):
                     "(recall@%d=%.4f < %.2f floor); serving fp32",
                     parity["k"], parity["recall"], quant_mod.recall_floor())
                 qf = None
+        if serve_dist.serving_enabled():
+            return ALSModel(
+                rank=model.rank, user_factors=U, item_factors=V,
+                user_vocab=model.user_vocab, item_vocab=model.item_vocab,
+                sharding=serve_dist.shard_factors(U, V, quant=qf,
+                                                  device=dev))
         if qf is not None:
             return ALSModel(
                 rank=model.rank, user_factors=U, item_factors=V,
@@ -341,14 +393,19 @@ class ALSAlgorithm(Algorithm):
 
     def aot_serving_programs(self, model: ALSModel, buckets):
         """The deploy's warm-up (``serving/aot.py``): one batched top-k
-        per bucket, B1 + B2 on the card for a quantized model, and the
-        inline single-query path once, each on row 0 (in bounds) and
-        ending in the host copy, as a flush does."""
+        per bucket, B1 + B2 on the card for a quantized model (B1 per
+        shard and one B2 for a sharded one, whose inline query rides
+        bucket 1), and the inline single-query path once, each on row 0
+        (in bounds) and ending in the host copy, as a flush does."""
         from predictionio_tpu_torch.serving import aot
 
+        k = aot.warm_k(len(model.item_vocab))
+        sharding = model.sharding
+        if sharding is not None:
+            from predictionio_tpu_torch.parallel import serve_dist
+            return serve_dist.sharded_program_specs(sharding, buckets, [k])
         out = []
         quant = model.quant
-        k = aot.warm_k(len(model.item_vocab))
         for b in buckets:
             pix = np.zeros(b, dtype=np.int32)
             if quant is not None:
@@ -389,7 +446,11 @@ class ALSAlgorithm(Algorithm):
         if k <= 0:
             return PredictedResult(())
         quant = model.quant
-        if quant is not None:
+        if model.sharding is not None:
+            # the inline query rides the sharded serve at b = 1
+            vals, idx = _to_host(*model.sharding.topk([user_ix], k))
+            vals, idx = vals[0], idx[0]
+        elif quant is not None:
             vals, idx = _to_host(*quant.topk_one(user_ix, k))
         else:
             vals, idx = _to_host(*topk.topk_for_user(
@@ -422,7 +483,12 @@ class ALSAlgorithm(Algorithm):
             pix = np.zeros(bucket_for(len(valid)), dtype=np.int32)
             pix[:len(valid)] = [ix for _qx, _q, ix in valid]
         quant = model.quant
-        if quant is not None:
+        if model.sharding is not None:
+            # B1 once per slot into one B2 (int8), or the fp32 twin
+            with waterfall.stage("execute"):
+                vals, idx = _to_host(*model.sharding.topk(pix, k))
+            waterfall.note("shards", model.sharding.n_shards)
+        elif quant is not None:
             with waterfall.stage("execute"):
                 vals, idx = _to_host(*quant.topk(pix, k))
             waterfall.note("quant", "int8")

@@ -1,5 +1,5 @@
 """Streaming ALS fold-in: events become servable factors in seconds (port
-of ``predictionio_tpu/realtime/foldin.py``, replicated layouts).
+of ``predictionio_tpu/realtime/foldin.py``).
 
 A user who signed up a minute ago has events in the store and nothing in
 the model until the next ``pio train``. This module is the speed layer
@@ -28,8 +28,11 @@ that closes the gap:
   (:func:`scatter_user_rows`) swapped in by one reference assignment;
   the int8 layout re-quantizes exactly the touched rows
   (``QuantizedServing.apply_user_rows``) and swaps a new
-  ``QuantizedServing`` in the same way; host numpy factors (the
-  standalone runner's unserved model) take in-place row writes. New
+  ``QuantizedServing`` in the same way; the row-sharded layout routes
+  each row to its owning slot (``ShardedFactors.apply_user_rows``, int8
+  or fp32) and the new ``ShardedFactors`` swaps in as one reference;
+  host numpy factors (the standalone runner's unserved model) take
+  in-place row writes. New
   users append into headroom rows padded at deploy
   (:func:`pad_capacity`, ``PIO_FOLDIN_HEADROOM``), so shapes never
   change; when the headroom runs out, the worker falls back to the
@@ -45,8 +48,7 @@ that closes the gap:
   outcome counters, two drift probes, and a ``foldin`` journal
   category, on ``GET /`` and ``/debug/device.json``.
 
-The row-sharded branch of the reference (``serve_dist``) waits for the
-port's sharded serving. ``PIO_FOLDIN=0`` (the default is off;
+``PIO_FOLDIN=0`` (the default is off;
 ``pio deploy --foldin on`` or ``PIO_FOLDIN=1`` opts in) keeps every
 endpoint byte-identical.
 
@@ -720,6 +722,9 @@ class FoldinWorker:
 
     @staticmethod
     def _resolve_capacity(model: Any) -> int:
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            return int(sharding.n_users)
         quant = getattr(model, "quant", None)
         if quant is not None:
             return int(quant.u_q.shape[0])
@@ -1057,6 +1062,12 @@ class FoldinWorker:
             # the host fp32 mirror: the ITEM solves' gather source (for
             # the quantized and host layouts it IS model.user_factors)
             mirror[ixs] = rows
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            with devicewatch.attribution("foldin_publish", phase="foldin"):
+                new = sharding.apply_user_rows(ixs, rows)
+            model.sharding = new       # the swap queries dispatch on
+            return
         quant = getattr(model, "quant", None)
         if quant is not None:
             with devicewatch.attribution("foldin_publish", phase="foldin"):
@@ -1085,6 +1096,12 @@ class FoldinWorker:
         mirror = self._item_factors
         if mirror is not None and mirror.shape[0] > int(ixs.max()):
             mirror[ixs] = rows
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            with devicewatch.attribution("foldin_publish", phase="foldin"):
+                new = sharding.apply_item_rows(ixs, rows)
+            model.sharding = new
+            return
         quant = getattr(model, "quant", None)
         if quant is not None:
             with devicewatch.attribution("foldin_publish", phase="foldin"):
@@ -1101,6 +1118,9 @@ class FoldinWorker:
     @staticmethod
     def _published_row(model: Any, ix: int) -> np.ndarray:
         """The user row a query ranks with, dequantized where int8."""
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            return sharding.user_row(ix)
         quant = getattr(model, "quant", None)
         if quant is not None:
             q = quant.u_q[ix].cpu().numpy()
@@ -1115,6 +1135,9 @@ class FoldinWorker:
     def _published_item_row(model: Any, ix: int) -> np.ndarray:
         """The item row a query ranks with (the int8 layout serves the
         items TRANSPOSED)."""
+        sharding = getattr(model, "sharding", None)
+        if sharding is not None:
+            return sharding.item_row(ix)
         quant = getattr(model, "quant", None)
         if quant is not None:
             q = quant.vt_q[:, ix].cpu().numpy()

@@ -12,7 +12,9 @@ ready, the deploy
 
 - launches B1 + B2 once for every bucket the batcher can flush
   (``aot_serving_programs`` on the algorithm; a model served on the host
-  contributes nothing), and the inline path once;
+  contributes nothing; a row-sharded one launches B1 once per shard and
+  one B2, ``parallel/serve_dist.py::sharded_program_specs``), and the
+  inline path once;
 - launches kernel A once for every fold-in bucket when fold-in is on
   (``realtime/foldin.py::solve_programs``);
 - then marks the device watch's serving warmup done, so a kernel build

@@ -15,13 +15,15 @@
     python -m predictionio_tpu_torch.tools.cli train [--engine-dir DIR]
         [--variant engine.json] [--synthetic N [--synthetic-seed S]]
         [--resume-from ID] [--no-auto-resume] [--batch LABEL]
-        [--profile DIR] [--telemetry] [--trace]
+        [--devices N] [--coordinator HOST:PORT --num-processes N
+        --process-id I] [--profile DIR] [--telemetry] [--trace]
     python -m predictionio_tpu_torch.tools.cli eval EVALUATION_CLASS
         [ENGINE_PARAMS_GENERATOR_CLASS] [--engine-dir DIR] [--batch LABEL]
         [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
         [--engine-instance-id ID] [--ip HOST] [--port PORT]
-        [--aot auto|on|off] [--foldin on|off] [--foldin-tick-ms MS]
+        [--aot auto|on|off] [--shard-serving auto|on|off]
+        [--foldin on|off] [--foldin-tick-ms MS]
         [--foldin-headroom N] [--foldin-item-headroom N]
         [--telemetry] [--trace] [--waterfall] [--profile-dir DIR] ...
     python -m predictionio_tpu_torch.tools.cli foldin [--engine-dir DIR]
@@ -46,12 +48,17 @@
         adminserver} ...
 
 ``train``, ``eval`` and ``deploy`` run on the card unless
-``PIO_TORCH_DEVICE=cpu`` asks for the CPU; the event server, the storage
+``PIO_TORCH_DEVICE=cpu`` asks for the CPU. ``train --devices N`` (-1:
+all) trains block-sharded over a mesh of the world's devices, one per
+process; ``--coordinator`` joins a ``torch.distributed`` job (NCCL on the
+card, gloo on the CPU) where every process runs the same command with
+its own ``--process-id``. ``deploy --shard-serving on`` serves from
+row-sharded factors. The event server, the storage
 server, the app and key commands, ``import``, ``export`` and the
 operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
 ``incident``, which read live daemons over HTTP) work on the host and
 never touch the card. A reference variable that asks for a feature the port lacks
-(``knobs.py``: ``PIO_SERVE_SHARD=1``, ``PIO_TRANSPORT=async``, ...)
+(``knobs.py``: ``PIO_SERVE_DEVICE_MS=3``, ``PIO_TRANSPORT=async``, ...)
 makes the verb exit 1 with a message naming it,
 before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
 ``PIO_TELEMETRY``, ``PIO_TRACE`` and ``PIO_WATERFALL`` to 1, as in the
@@ -94,10 +101,30 @@ def _apply_telemetry_env(args) -> None:
         os.environ["PIO_TRACE"] = "1"
 
 
-def cmd_train(args) -> int:
+def _make_context(batch: str = "", devices: int = 0,
+                  profile_dir: Optional[str] = None,
+                  coordinator: str = "", num_processes: int = 0,
+                  process_id: int = 0):
+    """The train's context: a mesh when ``devices`` asks for more than
+    one device (-1: the whole world) or a ``coordinator`` joins a job."""
     from predictionio_tpu_torch.workflow.context import (
         WorkflowContext, WorkflowParams,
     )
+    mesh = None
+    if coordinator:
+        from predictionio_tpu_torch.parallel.mesh import init_distributed
+        init_distributed(coordinator, num_processes, process_id)
+        if not devices:
+            devices = -1  # the whole job's mesh
+    if devices and (devices > 1 or devices < 0):
+        from predictionio_tpu_torch.parallel.mesh import get_mesh
+        mesh = get_mesh(None if devices < 0 else devices)
+    return WorkflowContext(
+        workflow_params=WorkflowParams(batch=batch, profile_dir=profile_dir),
+        mesh=mesh)
+
+
+def cmd_train(args) -> int:
     from predictionio_tpu_torch.workflow.core_workflow import run_train
     from predictionio_tpu_torch.workflow.workflow_utils import (
         get_engine, read_engine_variant,
@@ -111,12 +138,22 @@ def cmd_train(args) -> int:
     if args.no_auto_resume:
         os.environ["PIO_AUTO_RESUME"] = "0"
     _apply_telemetry_env(args)
+    if args.coordinator:
+        if args.num_processes < 1:
+            _error("--coordinator requires --num-processes >= 1")
+            return 1
+        if not 0 <= args.process_id < args.num_processes:
+            _error("--process-id must be in [0, --num-processes)")
+            return 1
     engine_dir = os.path.abspath(args.engine_dir)
     variant = read_engine_variant(engine_dir, args.variant)
     engine = get_engine(variant["engineFactory"], base_dir=engine_dir)
     engine_params = engine.engine_params_from_json(variant)
-    ctx = WorkflowContext(workflow_params=WorkflowParams(
-        batch=args.batch, profile_dir=args.profile or None))
+    ctx = _make_context(batch=args.batch, devices=args.devices,
+                        profile_dir=args.profile or None,
+                        coordinator=args.coordinator,
+                        num_processes=args.num_processes,
+                        process_id=args.process_id)
     instance_id = run_train(
         ctx, engine, engine_params,
         engine_id=variant.get("id", "default"),
@@ -188,6 +225,7 @@ def cmd_deploy(args) -> int:
         batch_max_queue=args.batch_max_queue,
         drain_grace_s=args.drain_grace_s,
         serve_quant=args.serve_quant,
+        shard_serving=args.shard_serving,
         aot=args.aot,
         foldin=args.foldin,
         foldin_tick_ms=args.foldin_tick_ms,
@@ -527,6 +565,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--synthetic-seed", type=int, default=None,
                     help="seed for --synthetic (default 7; sets "
                          "PIO_SYNTHETIC_SEED)")
+    sp.add_argument("--devices", type=int, default=0,
+                    help="train block-sharded over the first N devices "
+                         "of the job (default: one device; -1 = all)")
+    sp.add_argument("--coordinator", default="",
+                    help="host:port of process 0 for a multi-process "
+                         "train; run the same command in every process "
+                         "with its own --process-id (torch.distributed: "
+                         "NCCL on the card, gloo on the CPU)")
+    sp.add_argument("--num-processes", type=int, default=0,
+                    help="processes in the multi-process job")
+    sp.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank in [0, --num-processes)")
     sp.add_argument("--profile", default="",
                     help="write a torch.profiler Chrome trace of the "
                          "train (and telemetry_phases.json) to this "
@@ -563,6 +613,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "scales through the fused kernel (auto = on the "
                          "card, gated by the ranking-parity probe; "
                          "PIO_SERVE_QUANT overrides)")
+    sp.add_argument("--shard-serving", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="row-shard the deployed factor matrices over the "
+                         "job's devices and serve top-k from the shards "
+                         "(B1 per shard, one B2; bit-identical answers; "
+                         "auto = multi-card worlds only, replicated "
+                         "during /reload; PIO_SERVE_SHARD overrides)")
     sp.add_argument("--aot", choices=("auto", "on", "off"), default="auto",
                     help="run every bucket's serving call and, with "
                          "fold-in, kernel A at every fold-in bucket once "

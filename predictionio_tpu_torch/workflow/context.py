@@ -4,9 +4,9 @@
 One context per run. It owns the WorkflowParams (batch label), the
 Storage handle engines read events
 through, the device the run trains on (``device.resolve``: the card
-unless the caller asks for the CPU), and the per-phase wall-clock table
-that ``run_train`` stores in the EngineInstance row. Single process: the
-reference's mesh and multi-host fields have no counterpart yet.
+unless the caller asks for the CPU), the mesh a sharded train runs over
+(``parallel.mesh.Mesh``; None trains on one device), and the per-phase
+wall-clock table that ``run_train`` stores in the EngineInstance row.
 """
 
 from __future__ import annotations
@@ -39,10 +39,14 @@ class WorkflowContext:
         workflow_params: Optional[WorkflowParams] = None,
         storage: Optional[Storage] = None,
         device: device_mod.DeviceLike = None,
+        mesh=None,
     ):
         self.workflow_params = workflow_params or WorkflowParams()
         self._storage = storage
-        self.device = device_mod.resolve(device)
+        self.device = (mesh.local_device if mesh is not None
+                       else device_mod.resolve(device))
+        #: the train's mesh (``pio train --devices`` / ``--coordinator``)
+        self.mesh = mesh
         #: iteration-checkpoint directory (set by run_train)
         self.checkpoint_dir: Optional[str] = None
         self.phase_seconds: Dict[str, float] = {}

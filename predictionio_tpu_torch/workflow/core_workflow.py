@@ -6,8 +6,12 @@ A train run: insert EngineInstance(INIT), ``engine.train``, serialize the
 models into the Models store keyed by the instance id, mark COMPLETED with
 the phase table in ``runtime_conf``. A failure marks the row ERROR and
 keeps its iteration snapshots, which the next run of the same
-engine/variant resumes from (auto-resume). Single process: the
-reference's multi-host branches have no counterpart yet.
+engine/variant resumes from (auto-resume). In a multi-process job
+(``pio train --coordinator``) every rank runs the train (the sharded
+trainer's collectives need all of them), but only rank 0 writes the
+ledger row and the model blob; the others train and return "". A resume
+is refused there, and iteration snapshots are off on every rank: each
+rank would snapshot and restore on its own.
 
 ``WorkflowParams.profile_dir`` (``pio train --profile DIR``) wraps the
 train in a ``common/profiling.trace`` capture, a Chrome trace of the
@@ -38,6 +42,7 @@ from predictionio_tpu_torch.controller.evaluation import (
 from predictionio_tpu_torch.data.storage import (
     EngineInstance, EvaluationInstance, Model,
 )
+from predictionio_tpu_torch.parallel import mesh as mesh_mod
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.checkpoint import (
     FactorCheckpointer, latest_step_in, run_checkpoint_dir,
@@ -87,9 +92,21 @@ def run_train(
     (CoreWorkflow.runTrain, CoreWorkflow.scala:45-101). ``resume_from``
     names a failed run whose iteration snapshots seed this one."""
     knobs.refuse_unported(knobs.TRAIN)
+    multiprocess = mesh_mod.is_multiprocess()
+    if multiprocess:
+        if resume_from:
+            raise ValueError(
+                "resume_from is not supported on multi-process jobs: "
+                "iteration snapshots are per process, so ranks would "
+                "restore divergent factors. Re-run the training from "
+                "scratch.")
+        ctx.checkpoint_dir = None   # one segment on every rank
+        if mesh_mod.process_index() != 0:
+            engine.train(ctx, engine_params)
+            return ""
     instances = ctx.storage.get_meta_data_engine_instances()
-    if resume_from is None and os.environ.get("PIO_AUTO_RESUME",
-                                              "1") != "0":
+    if resume_from is None and not multiprocess and os.environ.get(
+            "PIO_AUTO_RESUME", "1") != "0":
         auto = _find_auto_resume(instances, engine_id, engine_variant)
         if auto:
             logger.info(
@@ -110,7 +127,8 @@ def run_train(
     logger.info("EngineInstance %s created (INIT)", instance_id)
     # a resumed run reuses the crashed run's directory, so its snapshots
     # are the ones consulted
-    ctx.checkpoint_dir = run_checkpoint_dir(resume_from or instance_id)
+    ctx.checkpoint_dir = (None if multiprocess
+                          else run_checkpoint_dir(resume_from or instance_id))
     try:
         profile_dir = ctx.workflow_params.profile_dir
         if profile_dir:
@@ -153,7 +171,8 @@ def run_train(
             logger.info("Phase wall-clock:\n%s", "\n".join(
                 f"  {k.ljust(width)}  {v:8.3f}s" for k, v in phases.items()))
         # the model blob persists the final state; snapshots are scratch
-        FactorCheckpointer(ctx.checkpoint_dir).clear()
+        if ctx.checkpoint_dir:
+            FactorCheckpointer(ctx.checkpoint_dir).clear()
         return instance_id
     except Exception:
         row = instances.get(instance_id)

@@ -54,6 +54,12 @@ server serves without it. ``GET /`` carries ``aot`` and ``foldin`` blocks
 only when those are live: with both off every endpoint is byte-identical
 to a server without them.
 
+Sharded serving (``parallel/serve_dist.py``, ``ServerConfig.shard_serving``,
+``PIO_SERVE_SHARD``): the load's ``prepare_serving`` runs inside the
+shard-serving scope (flagged on a reload, where "auto" stays replicated),
+a sharded layout sets ``pio_serve_shards`` and the ``sharding`` block of
+``GET /`` and ``/debug/device.json``, and a failed one fails the load.
+
 Multi-tenancy, partitions, plugins and feedback of the JAX server arrive
 in later slices.
 """
@@ -80,6 +86,7 @@ from predictionio_tpu_torch.common import (
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage import Storage, get_storage
 from predictionio_tpu_torch.ops import quant as serve_quant
+from predictionio_tpu_torch.parallel import serve_dist
 from predictionio_tpu_torch.realtime import foldin as foldin_mod
 from predictionio_tpu_torch.serving import (
     BatcherClosed, MicroBatcher, ServerSaturated, aot, batch_capable,
@@ -144,6 +151,10 @@ class ServerConfig:
     #: int8 on the card when the ranking-parity probe passes;
     #: PIO_SERVE_QUANT overrides
     serve_quant: str = "auto"
+    #: row-sharded serving (parallel/serve_dist.py): "on" shards over the
+    #: job's devices, "off" never, "auto" on a multi-card world and not
+    #: during a /reload; PIO_SERVE_SHARD overrides
+    shard_serving: str = "auto"
     #: the warm-up before ready (serving/aot.py): "on" always, "off"
     #: never, "auto" on the card; PIO_AOT=0/1 overrides
     aot: str = "auto"
@@ -221,6 +232,7 @@ class QueryAPI:
         self._draining = threading.Event()
         self._batcher: Optional[MicroBatcher] = None
         self._quant_state: Optional[Dict[str, Any]] = None
+        self._shard_state: Optional[Dict[str, Any]] = None
         self._aot_state: Optional[Dict[str, Any]] = None
         #: the realtime fold-in worker: one per server, re-bound to each
         #: model generation by the load
@@ -314,20 +326,36 @@ class QueryAPI:
                                     worker.item_headroom_hint())
             foldin_prep = foldin_mod.pad_capacity(
                 models, headroom, algorithms, item_headroom=item_headroom)
-        with serve_quant.deploy_scope(self.config.serve_quant,
-                                      device=self.device):
+        # the shard-serving and serve-quant scopes: prepare_serving
+        # resolves the deploy's modes inside them. A reload is flagged so
+        # sharding's "auto" stays replicated while the swap holds both
+        # models ("on" stays sharded: the operator's explicit call)
+        is_reload = getattr(self, "engine_instance", None) is not None
+        with serve_dist.deploy_scope(self.config.shard_serving,
+                                     reload=is_reload, device=self.device), \
+                serve_quant.deploy_scope(self.config.serve_quant,
+                                         device=self.device):
             models = [a.prepare_serving(m)
                       for a, m in zip(algorithms, models)]
             quant_requested = serve_quant.serving_enabled()
+        shard_state = next(
+            (m.sharding.summary() for m in models
+             if getattr(m, "sharding", None) is not None), None)
+        serve_dist.record_state(shard_state)
         quant_state = next(
             ({"enabled": True, **m.quant.summary()} for m in models
              if getattr(m, "quant", None) is not None), None)
+        if quant_state is None:
+            quant_state = next(
+                ({"enabled": True, "sharded": True,
+                  **m.sharding.quant_summary()} for m in models
+                 if getattr(m, "sharding", None) is not None
+                 and m.sharding.dtype == "int8"), None)
         if quant_state is None and quant_requested:
             quant_state = {"enabled": False, "fellBack": True}
         serve_quant.record_state(quant_state)
         aot_state = self._warm_up(algorithms, models, foldin_prep)
         batcher = self._make_batcher(algorithms, models, serving)
-        is_reload = getattr(self, "engine_instance", None) is not None
         with self._lock:
             self.engine_instance = instance
             self.engine = engine
@@ -336,18 +364,13 @@ class QueryAPI:
             self.models = models
             self.serving = serving
             self._quant_state = quant_state
+            self._shard_state = shard_state
             self._aot_state = aot_state
             old_batcher, self._batcher = self._batcher, batcher
         if old_batcher is not None:   # reload: drain in-flight, then retire
             old_batcher.close()
         self.time_to_ready_s = time.perf_counter() - t_load
         self._m_time_to_ready.set(self.time_to_ready_s)
-        # the port serves replicated: the sharded-serving gauge reads 0
-        reg = telemetry.registry()
-        reg.gauge(
-            "pio_serve_shards",
-            "Serving shards the deployed factor matrices are split over "
-            "(0 = replicated single-device serving)").labels().set(0.0)
         self.generation += 1
         logger.info("Engine instance %s deployed on %s (%d algorithm(s), "
                     "batching %s, warm-up %s) in %.2fs", instance.id,
@@ -619,6 +642,10 @@ class QueryAPI:
                           "timeToReadyS": (round(self.time_to_ready_s, 3)
                                            if self.time_to_ready_s
                                            is not None else None)}
+        if self._shard_state is not None:
+            # only when sharded serving is live: replicated deploys keep
+            # the key set
+            out["sharding"] = {"enabled": True, **self._shard_state}
         if self._quant_state is not None:
             out["quant"] = self._quant_state
         worker = self._foldin_worker

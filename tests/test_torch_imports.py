@@ -142,6 +142,15 @@ REMOTE_SLICE = [
 ]
 
 
+#: block-sharded training and row-sharded serving on torch.distributed
+PARALLEL_SLICE = [
+    "predictionio_tpu_torch.parallel",
+    "predictionio_tpu_torch.parallel.als_dist",
+    "predictionio_tpu_torch.parallel.mesh",
+    "predictionio_tpu_torch.parallel.serve_dist",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -155,13 +164,14 @@ def _run_blocked(code):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     names = _run_blocked(_PROBE)
     # every module of the slices was walked, not an empty package
-    assert int(names[-1]) == len(names) - 1 >= 103
+    assert int(names[-1]) == len(names) - 1 >= 107
     assert set(EVENT_SLICE) <= set(names[:-1])
     assert set(TEMPLATE_SLICE) <= set(names[:-1])
     assert set(OBSERVABILITY_SLICE) <= set(names[:-1])
     assert set(STORE_SLICE) <= set(names[:-1])
     assert set(FOLDIN_SLICE) <= set(names[:-1])
     assert set(REMOTE_SLICE) <= set(names[:-1])
+    assert set(PARALLEL_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

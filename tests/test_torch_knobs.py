@@ -32,7 +32,6 @@ MEM = {
 REFUSED = {
     "PIO_TRANSPORT": ["async"],
     "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
-    "PIO_SERVE_SHARD": ["1", "on"],
     "PIO_DEPLOY_PARTITION": ["1/4"],
     "PIO_TENANT_RATE": ["100"],
     "PIO_TENANT_HBM_BUDGET_MB": ["512"],
@@ -130,6 +129,38 @@ def test_accepted_deploy_reaches_the_instance_lookup(monkeypatch):
     with pytest.raises(Exception) as e:
         QueryAPI(config=ServerConfig(device="cpu"), storage=Storage(env=MEM))
     assert "ROADMAP" not in str(e.value)
+
+
+#: PIO_SERVE_SHARD since sharded serving landed: each value an operator
+#: might set, and the mode it resolves to (None: refused as malformed)
+SERVE_SHARD_READS = {"1": "on", "on": "on", "On": "on", "0": "off",
+                     "off": "off", "OFF": "off", "auto": "auto",
+                     "AUTO": "auto", "sometimes": None}
+
+
+@pytest.mark.parametrize("value", sorted(SERVE_SHARD_READS))
+def test_serve_shard_is_read_as_the_reference_reads_it(monkeypatch, value):
+    from predictionio_tpu.parallel import serve_dist as jsd
+    from predictionio_tpu_torch.parallel import serve_dist
+
+    _clear(monkeypatch)
+    assert knobs.KNOBS["PIO_SERVE_SHARD"].kind == knobs.READ
+    monkeypatch.setenv("PIO_SERVE_SHARD", value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)       # never refused
+    want = SERVE_SHARD_READS[value]
+    if want is None:
+        with pytest.raises(ValueError, match="auto/on/off"):
+            jsd.configured_mode("off")
+        with pytest.raises(ValueError, match="auto/on/off"):
+            serve_dist.configured_mode("off")
+        return
+    # the variable wins over the deploy's config, in both packages
+    for config in ("on", "off", "auto", None):
+        assert serve_dist.configured_mode(config) == want
+        assert jsd.configured_mode(config) == want
+    with serve_dist.deploy_scope("off", device="cpu"):
+        assert serve_dist.serving_enabled() is (want == "on")
 
 
 #: the variables this port reads since the event server and the daemons'
