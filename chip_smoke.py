@@ -77,7 +77,7 @@ Phases (any failure raises and the script exits non-zero):
              beside phase 6's with them off.
 7. quickstart — the port's CLI in process, on the SQLite store: ``pio
              app new`` with a fixed key, ``app channel-new`` and a
-             rate-only ``accesskey new``; ``pio import`` of 1,000,000
+             rate-only ``accesskey new``; ``pio import`` of 500,000
              seeded rate events (6,900 users x 26,744 items, the ML-20M
              catalog) from a JSON-lines file; ``pio eventserver`` on
              127.0.0.1 (in the main thread, its client in another): a
@@ -89,6 +89,37 @@ Phases (any failure raises and the script exits non-zero):
              ``{"user": "1", "num": 4}`` with 4 itemScores equal to the
              plain int8 path, B1 and B2 once per flush; ``pio
              undeploy``.
+7b. fleet  — the serving fleet on phase 5's model (and the quickstart's),
+             every server on 127.0.0.1 port 0 in this process, every
+             replica's or tenant's B1 and B2 counted from 0 after its
+             deploy was ready and required once each a flush, no B1
+             launched from a ``pio-http`` thread, one CUDA stream: (a)
+             phase 6's 64 sequential and 64 concurrent queries against a
+             deploy on the threaded and on the async transport, each
+             answer phase 6's bytes, the client latency split into the
+             server's total (``/debug/slow.json``) and the transport's
+             rest; (b) ``pio router``'s ``RouterAPI`` over two full
+             replicas: 256 queries from 8 clients byte-equal to a direct
+             query of a replica, one replica shut down after a quarter of
+             them (0 dropped, the failovers counted); then ``POST
+             /reload`` through the router under 8 clients moving a fresh
+             pair to a newer instance (phase 5's factors, items negated,
+             8 rows cloned across the item midpoint): 0 dropped, every
+             answer one generation's direct bytes, each client's
+             generations monotone; (c) ``--partition 0/2`` and ``1/2`` of
+             that instance behind the router: at num 10, 100 and the
+             whole catalog the merged bytes equal a full replica's, with
+             scores tied across the boundary, each partition's B1 ==
+             plain at its own item count; (d) ``pio deploy --engines`` with the 20M
+             model and the quickstart model: 401 for a missing and an
+             unknown key, 429 past the quickstart tenant's rate, each
+             tenant's bytes (``pio_tenant_model_bytes``) beside the
+             card's allocation of its install, and a third tenant past
+             ``PIO_TENANT_HBM_HARD_CAP_MB`` refused with
+             ``torch.cuda.memory_allocated`` unchanged from the start of
+             its load; (e) an output blocker's rewrite in every answer, a
+             sniffer that sees every query, and ``--feedback`` storing
+             one ``predict`` event per query through a port event server.
 8. eval    — ``pio eval`` through the port's CLI, in process, on the
              quickstart's app: the reference's grid (ranks 5/10/20 x
              1/5/10 iterations, kFold 5) under RecommendationEvaluation
@@ -146,7 +177,7 @@ Phases (any failure raises and the script exits non-zero):
              copy), each under torch.profiler with kernel A 20 times, the
              three models bit-identical, their phases and the device's
              idle share printed beside phase 5's and the quickstart's;
-             ``pio import`` of the quickstart's 1,000,000-event file into
+             ``pio import`` of the quickstart's 500,000-event file into
              an eventlog app (events/s beside the SQLite import's) and
              ``pio train`` from it (kernel A 20 times, read_io beside
              SQLite's); ``head_cursor``, 1,000 events through the event
@@ -166,7 +197,11 @@ Phases (any failure raises and the script exits non-zero):
              rows ``quantize_rows`` of them, every answer equal to the
              plain int8 path, B1 and B2 once per flush, no query dropped,
              freshness and tick times, one row's history read timed and
-             profiled; then a redeploy with PIO_FOLDIN_HEADROOM=8 and 16
+             profiled, and a fresh store's first read (every index
+             sidecar loaded) and its second timed; numpy's version and
+             the eventlog chunks loaded whole instead of mapped (none
+             allowed) printed after the store phase and after this step;
+             then a redeploy with PIO_FOLDIN_HEADROOM=8 and 16
              unseen users (the reload fallback: generation + 1, all
              folded, none dropped) and ``POST /reload`` under 256
              concurrent queries (generation + 1, none dropped). The
@@ -240,6 +275,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import datetime as _dt
 import http.client
 import io
@@ -256,6 +292,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -306,7 +343,10 @@ N_RATINGS = 20_000_263                          # ML-20M's rating count
 TILE = 512
 BUCKETS = (1, 4, 16, 64)
 # the eval phase: ML-20M's catalog, users and ratings cut (PERF.md §4)
-EVAL_USERS, EVAL_RATINGS = 6_900, 1_000_000
+#: the quickstart app the eval and the store phase read: 500,000 rate
+#: events, cut from 1,000,000 (most of its time is the SQLite import)
+#: to keep the whole smoke well inside its time limit
+EVAL_USERS, EVAL_RATINGS = 6_900, 500_000
 EVAL_APP, EVAL_K_FOLD, EVAL_QUERY_NUM = "SmokeEval", 5, 10
 EVAL_RANKS, EVAL_ITERS = (5, 10, 20), (1, 5, 10)
 # the quickstart, whose app the eval then reads
@@ -1963,9 +2003,881 @@ def phase_quickstart(work: str, seed: int, dev: torch.device):
                                    "n": QS_QUERIES},
                       "flushes": flushes, "B1_launches": launches,
                       "B2_launches": merge_launches},
+           "instance_id": row.id,
            "phase_s": time.perf_counter() - t_phase}
     print("quickstart: " + json.dumps(out), flush=True)
     return train_launches, launches, merge_launches, n_default, out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the serving fleet: both transports, the router, a partition
+# fleet, a multi-tenant deploy, plugins and feedback
+# ---------------------------------------------------------------------------
+
+#: the fleet's own engine id: its replicas deploy the latest COMPLETED
+#: instance of it, so a POST /reload moves them to a newer one
+FLEET_ENGINE = "smoke-fleet"
+FLEET_CLIENTS = 8
+FLEET_ROUTER_QUERIES = 256
+#: the partition fleet's nums; the whole catalog is the third
+FLEET_NUMS = (10, 100)
+FLEET_PARTITION_USERS = 8
+#: item rows of the reload's model cloned across the 0/2 | 1/2 boundary
+#: (row lo + j is row lo - 1 - j), so every user's scores tie across it
+FLEET_CLONES = 8
+FLEET_APP, FLEET_KEY = "SmokeFleet20M", "smoke-fleet-key"
+FLEET_CAP_APP, FLEET_CAP_KEY = "SmokeFleetCap", "smoke-fleet-cap-key"
+FLEET_FEEDBACK_APP, FLEET_FEEDBACK_KEY = ("SmokeFleetFeedback",
+                                          "smoke-fleet-feedback-key")
+FLEET_QS_RATE = 4.0              # the quickstart tenant's queries per s
+FLEET_ENV = {"PIO_TRACE": "1", "PIO_WATERFALL": "1", "PIO_SLOW_RING": "512"}
+#: the tenants step reads pio_tenant_model_bytes off /metrics
+FLEET_TENANT_ENV = {"PIO_TELEMETRY": "1"}
+
+
+class _Launches:
+    """B1 and B2 launches per serving layout, while the block runs: B1 is
+    keyed by the item block it scores (``vt_q``'s address, one per
+    replica or tenant), B2 by the B1 launched before it on the same
+    thread. A reload's warm-up (the ``pio-reload`` thread) is counted
+    apart from the flushes. Records the launching threads' names and CUDA
+    streams over the whole block."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.by = collections.defaultdict(lambda: [0, 0])
+        self.warm = collections.defaultdict(lambda: [0, 0])
+        self.threads = collections.Counter()
+        self.streams = set()
+        self.local = threading.local()
+
+    def clear(self):
+        """Zero the counts; the threads and streams seen stay."""
+        with self.lock:
+            self.by.clear()
+            self.warm.clear()
+
+    def of(self, *layouts) -> tuple:
+        """B1 and B2 launched by flushes on these layouts, summed."""
+        with self.lock:
+            got = [self.by.get(qs.vt_q.data_ptr(), (0, 0)) for qs in layouts]
+        return tuple(sum(c[i] for c in got) for i in (0, 1))
+
+    def warm_of(self, qs) -> tuple:
+        """B1 and B2 launched by a reload's warm-up on this layout."""
+        with self.lock:
+            return tuple(self.warm.get(qs.vt_q.data_ptr(), (0, 0)))
+
+    def wrap(self):
+        def b1(orig):
+            def run(u_q, u_scale, vt_q, *a, **kw):
+                out = orig(u_q, u_scale, vt_q, *a, **kw)
+                name = threading.current_thread().name
+                table = self.warm if name == "pio-reload" else self.by
+                self.local.key = (table, vt_q.data_ptr())
+                with self.lock:
+                    table[vt_q.data_ptr()][0] += 1
+                    self.threads[name] += 1
+                    self.streams.add(
+                        torch.cuda.current_stream(vt_q.device).cuda_stream)
+                return out
+            return run
+
+        def b2(orig):
+            def run(*a, **kw):
+                out = orig(*a, **kw)
+                table, key = getattr(self.local, "key", (self.by, None))
+                with self.lock:
+                    table[key][1] += 1
+                return out
+            return run
+
+        return _wrapped((topk_fused, "_launch", b1),
+                        (topk_fused, "_launch_merge", b2))
+
+
+def _fleet_serve(api, transport: str = "async"):
+    """``api`` on 127.0.0.1, port 0, on ``transport``: (server, port)."""
+    from predictionio_tpu_torch.data.api import http as http_mod
+    server = http_mod.make_server(api, "127.0.0.1", 0, transport=transport)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    _wait_ready(port, lambda: True)
+    return server, port
+
+
+def _fleet_stop(*pairs) -> None:
+    """Shut down each (server, api) pair: the server drains, then the
+    api's batcher."""
+    for server, api in pairs:
+        server.shutdown()
+        server.server_close()
+        api.close()
+
+
+def _fleet_api(store, **cfg):
+    cfg.setdefault("serve_quant", "on")
+    return create_server.QueryAPI(create_server.ServerConfig(**cfg),
+                                  storage=store)
+
+
+def _raw_post(port: int, body: bytes, path: str = "/queries.json",
+              headers=None):
+    """(status, raw bytes, seconds) of one POST; an HTTP error's status
+    is returned, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body, method="POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def _qbody(user: str, num: int) -> bytes:
+    return json.dumps({"user": user, "num": num}).encode()
+
+
+def _batches(api_or_batcher) -> int:
+    """The flushes a deploy's (or a tenant's) batcher has run."""
+    stats = (api_or_batcher.handle("GET", "/")[1]["batching"]
+             if hasattr(api_or_batcher, "handle")
+             else api_or_batcher.stats())
+    return stats["batches"]
+
+
+def _require_flushes(name: str, api_or_batcher, counts: tuple,
+                     since: int = 0) -> int:
+    """The flushes since ``since``; raises unless B1 and B2 (``counts``,
+    over the same window) launched once each a flush."""
+    flushes = _batches(api_or_batcher) - since
+    if flushes == 0 or counts != (flushes, flushes):
+        raise AssertionError(f"{name}: B1 / B2 launched {counts} times for "
+                             f"{flushes} flushes (want one each a flush)")
+    return flushes
+
+
+def phase_fleet(work: str, store, iid: str, users, seed: int, served: dict,
+                qs_iid: str, dev: torch.device) -> dict:
+    """The serving fleet on the card, every replica a port QueryAPI whose
+    flushes run B1 + B2: (a) phase 6's traffic on the threaded and the
+    async transport, (b) the router over two full replicas through a
+    replica's shutdown and a ``/reload``, (c) a two-partition fleet behind
+    the router, (d) a two-tenant ``pio deploy --engines`` with admission
+    and the memory cap, (e) plugins and feedback."""
+    from predictionio_tpu_torch.common import tracing, waterfall
+    from predictionio_tpu_torch.data.storage import AccessKey, App, Model
+
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in
+             (*FLEET_ENV, *FLEET_TENANT_ENV, "PIO_TENANT_HBM_HARD_CAP_MB")}
+    os.environ.update(FLEET_ENV)
+    launches = _Launches()
+    out = {}
+    try:
+        with launches.wrap():
+            out["transports"] = _fleet_transports(
+                store, iid, users, seed, served, launches, tracing,
+                waterfall)
+            # the fleet's own instances: A (phase 5's model) now, B (the
+            # reload's model) later
+            instances = store.get_meta_data_engine_instances()
+            models = store.get_model_data_models()
+            row = instances.get(iid)
+            blob = models.get(iid).models
+            now = _dt.datetime.now(tz=_dt.timezone.utc)
+            fleet_row = dataclasses.replace(
+                row, id="", engine_id=FLEET_ENGINE,
+                engine_variant=FLEET_ENGINE, start_time=now, end_time=now)
+            inst_a = instances.insert(fleet_row)
+            models.insert(Model(inst_a, blob))
+            (m1,) = model_io.deserialize_models(blob)
+            V2 = -als_algorithm.host_f32(m1.item_factors)
+            n_items = len(m1.item_vocab)
+            lo = n_items // 2             # partition 1/2's first row
+            V2[lo:lo + FLEET_CLONES] = V2[lo - FLEET_CLONES:lo][::-1]
+            blob_b = model_io.serialize_models([dataclasses.replace(
+                m1, user_factors=als_algorithm.host_f32(m1.user_factors),
+                item_factors=V2)])
+
+            def insert_b():
+                t = _dt.datetime.now(tz=_dt.timezone.utc)
+                b = instances.insert(dataclasses.replace(
+                    fleet_row, start_time=t, end_time=t))
+                models.insert(Model(b, blob_b))
+                return b
+
+            out["router"], inst_b, direct = _fleet_router(
+                store, users, seed, launches, insert_b)
+            try:
+                out["partition"] = _fleet_partition(
+                    store, inst_b, users, seed, launches, direct, dev,
+                    (*FLEET_NUMS, n_items))
+            finally:
+                _fleet_stop((direct["server"], direct["api"]))
+            apps = store.get_meta_data_apps()
+            keys = store.get_meta_data_access_keys()
+            for app, key in ((FLEET_APP, FLEET_KEY),
+                             (FLEET_CAP_APP, FLEET_CAP_KEY),
+                             (FLEET_FEEDBACK_APP, FLEET_FEEDBACK_KEY)):
+                app_id = apps.insert(App(0, app, None))
+                keys.insert(AccessKey(key, app_id, ()))
+            os.environ.update(FLEET_TENANT_ENV)
+            out["tenants"] = _fleet_tenants(
+                work, store, iid, qs_iid, inst_b, users, seed, launches,
+                direct)
+            out["plugins"] = _fleet_plugins(store, iid, users, seed,
+                                            launches)
+        threads = dict(launches.threads)
+        if any(name.startswith("pio-http") for name in threads) \
+                or len(launches.streams) != 1:
+            raise AssertionError(
+                f"B1 launched from threads {threads} on streams "
+                f"{launches.streams}: device work left the batchers")
+        out["launch_threads"] = threads
+        out["launch_streams"] = len(launches.streams)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: B1 launched on threads {out['launch_threads']}, one "
+          f"CUDA stream; phase {out['phase_s']:.1f} s", flush=True)
+    print("fleet: " + json.dumps(out), flush=True)
+    return out
+
+
+def _fleet_launches(out: dict) -> dict:
+    """B1 and B2 launches over the fleet's served windows (each counted
+    from 0 after its deploys were ready), summed over its replicas and
+    tenants."""
+    rows = [{"B1": t["flushes"], "B2": t["flushes"]}
+            for t in out["transports"].values()]
+    rows += list(out["router"]["kill"]["launches"].values())
+    rows += out["partition"]["launches"]
+    rows += list(out["tenants"]["launches"].values())
+    rows.append({"B1": out["plugins"]["flushes"],
+                 "B2": out["plugins"]["flushes"]})
+    return {k: sum(r[k] for r in rows) for k in ("B1", "B2")}
+
+
+def _fleet_transports(store, iid, users, seed, served, launches, tracing,
+                      waterfall) -> dict:
+    """(a) phase 6's 64 sequential and 64 concurrent queries against one
+    deploy on each transport: the same bytes as phase 6, B1 = B2 =
+    flushes, and the client latency split into the server's total and the
+    transport's rest (joined on each request's trace id)."""
+    seq, burst, _profiled = _path_queries(users, seed)
+    out, raws = {}, {}
+    for transport in ("threaded", "async"):
+        tracing.clear()
+        waterfall.clear()
+        api = _fleet_api(store, engine_instance_id=iid)
+        server, port = _fleet_serve(api, transport)
+        launches.clear()
+        lat, got = {}, {}
+
+        def one(tag, q):
+            status, _p, dt_s, raw = _post(port, q[0], q[1], trace=tag)
+            lat[tag] = dt_s
+            got.setdefault(q, []).append((status, raw))
+
+        try:
+            for i, q in enumerate(seq):
+                one(f"seq{i:04d}", q)
+            with ThreadPoolExecutor(max_workers=16) as pool:
+                list(pool.map(lambda iq: one(f"con{iq[0]:04d}", iq[1]),
+                              enumerate(burst)))
+            slow = json.loads(_get(port, "/debug/slow.json?limit=1024")[2])
+            flushes = _require_flushes(f"{transport} transport", api,
+                                       launches.of(api.models[0].quant))
+        finally:
+            _fleet_stop((server, api))
+        for q, answers in got.items():
+            for status, raw in answers:
+                if status != 200 or raw != served["raw"][q]:
+                    raise AssertionError(
+                        f"{transport}: {q} answered differently from "
+                        "phase 6")
+        raws[transport] = {q: a[0][1] for q, a in got.items()}
+        recs = slow["requests"]
+        if len(recs) != len(seq) + len(burst):
+            raise AssertionError(f"{transport}: slow ring holds "
+                                 f"{len(recs)} requests")
+        split = {}
+        for mode, tag in (("sequential", "seq"), ("concurrent", "con")):
+            mine = [r for r in recs if r["traceId"].startswith(tag)]
+            split[mode] = {k: _stage_split(mine, lat)[k]
+                           for k in ("client", "total", "transport")}
+        out[transport] = {"flushes": flushes, "split_ms": split}
+        print(f"fleet: {transport} transport: {len(lat)} queries in "
+              f"{flushes} flushes, B1 = B2 = {flushes}, the bytes of phase "
+              "6; ms p50/p99 " + "; ".join(
+                  f"{mode} " + ", ".join(
+                      f"{k} {v['p50']:.3f}/{v['p99']:.3f}"
+                      for k, v in sp.items())
+                  for mode, sp in split.items()), flush=True)
+    if raws["threaded"] != raws["async"]:
+        raise AssertionError("the transports answered with different bytes")
+    return out
+
+
+def _fleet_router(store, users, seed, launches, insert_b):
+    """(b) the router over two full replicas of the fleet's instance A:
+    256 queries from 8 clients byte-equal to a direct query of a replica,
+    one replica shut down mid-stream; then over a fresh pair, ``POST
+    /reload`` through the router while the clients query (instance B is
+    the newer one): none dropped, every answer one generation's direct
+    bytes, each client's generations monotone."""
+    from predictionio_tpu_torch.workflow import router as router_mod
+
+    rng = np.random.default_rng(seed + 41)
+    distinct = [users[u] for u in rng.choice(len(users), size=64,
+                                             replace=False)]
+    stream = [distinct[j % 64] for j in range(FLEET_ROUTER_QUERIES)]
+    a = _fleet_api(store, engine_id=FLEET_ENGINE,
+                   engine_variant=FLEET_ENGINE)
+    b = _fleet_api(store, engine_id=FLEET_ENGINE,
+                   engine_variant=FLEET_ENGINE)
+    sa, pa = _fleet_serve(a)
+    sb, pb = _fleet_serve(b)
+    gen1 = {u: _raw_post(pa, _qbody(u, 10))[1] for u in distinct}
+    launches.clear()
+    since_a = _batches(a)
+    router = router_mod.RouterAPI(router_mod.RouterConfig(
+        backends=(f"http://127.0.0.1:{pa}", f"http://127.0.0.1:{pb}"),
+        health_ms=100.0))
+    sr, pr = _fleet_serve(router, "threaded")
+    done = collections.Counter()
+    lock = threading.Lock()
+    killed = threading.Event()
+    results = {}
+
+    def client(c, queries, on_step=None):
+        res = []
+        for j, u in enumerate(queries):
+            status, raw, dt_s = _raw_post(pr, _qbody(u, 10))
+            res.append((u, status, raw, dt_s))
+            with lock:
+                done["n"] += 1
+            if on_step is not None:
+                on_step()
+        results[c] = res
+
+    killer = threading.Thread(target=sb.shutdown, daemon=True)
+
+    def maybe_kill():
+        with lock:
+            if done["n"] < FLEET_ROUTER_QUERIES // 4 or killed.is_set():
+                return
+            killed.set()
+        killer.start()
+
+    per = FLEET_ROUTER_QUERIES // FLEET_CLIENTS
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(
+            c, stream[c * per:(c + 1) * per], maybe_kill))
+            for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        status = router.handle("GET", "/")[1]
+        counts = {"a": launches.of(a.models[0].quant),
+                  "b": launches.of(b.models[0].quant)}
+        flushes = {"a": _require_flushes("replica a", a, counts["a"],
+                                         since_a),
+                   "b": _require_flushes("replica b", b, counts["b"])}
+    finally:
+        _fleet_stop((sr, router))
+        if killed.is_set():
+            killer.join(timeout=60)
+        else:
+            sb.shutdown()
+        sb.server_close()
+        b.close()
+    if not killed.is_set():
+        raise AssertionError("router: replica b was never shut down")
+    answers = [r for res in results.values() for r in res]
+    bad = [(u, s) for u, s, raw, _t in answers
+           if s != 200 or raw != gen1[u]]
+    if len(answers) != FLEET_ROUTER_QUERIES or bad:
+        raise AssertionError(f"router: {len(answers)} answers, "
+                             f"{len(bad)} not the direct bytes: {bad[:3]}")
+    lat = [t for *_x, t in answers]
+    kill = {"queries": len(answers), "dropped": 0, "wall_s": wall,
+            "failovers": status["failoverCount"],
+            "shed": status["shedCount"],
+            "client_ms": dict(zip(("p50", "p99"), _pct(lat))),
+            "launches": {k: {"B1": v[0], "B2": v[1], "flushes": flushes[k]}
+                         for k, v in counts.items()}}
+    print(f"fleet: router over 2 replicas: {len(answers)} queries from "
+          f"{FLEET_CLIENTS} clients, replica b shut down after "
+          f"{FLEET_ROUTER_QUERIES // 4}: 0 dropped, every answer the "
+          f"direct bytes, {kill['failovers']} failovers, "
+          f"{kill['shed']} shed; client p50/p99 "
+          f"{kill['client_ms']['p50']:.3f}/{kill['client_ms']['p99']:.3f} "
+          f"ms; B1/B2/flushes a {counts['a']}/{flushes['a']}, b "
+          f"{counts['b']}/{flushes['b']}", flush=True)
+
+    # the reload barrier under load, over a and a fresh replica c
+    c_api = _fleet_api(store, engine_id=FLEET_ENGINE,
+                       engine_variant=FLEET_ENGINE)
+    sc, pc = _fleet_serve(c_api)
+    launches.clear()
+    # each replica's generation-1 layout and batcher, and that batcher's
+    # flushes so far: the barrier's window spans both generations
+    gen1_of = {k: (api.models[0].quant, api._batcher, _batches(api._batcher))
+               for k, api in (("a", a), ("c", c_api))}
+    router = router_mod.RouterAPI(router_mod.RouterConfig(
+        backends=(f"http://127.0.0.1:{pa}", f"http://127.0.0.1:{pc}"),
+        health_ms=100.0))
+    sr, pr = _fleet_serve(router, "threaded")
+    stop_at = threading.Event()
+    results = {}
+
+    def streamer(c):
+        res, j = [], 0
+        while not stop_at.is_set() and j < 2000:
+            u = distinct[(c * 8 + j) % 64]
+            status, raw, _t = _raw_post(pr, _qbody(u, 10))
+            res.append((u, status, raw))
+            j += 1
+        results[c] = res
+
+    try:
+        threads = [threading.Thread(target=streamer, args=(c,))
+                   for c in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        inst_b = insert_b()
+        t0 = time.perf_counter()
+        status, raw, _t = _raw_post(pr, b"", path="/reload")
+        if status != 200:
+            raise AssertionError(f"router /reload answered {status} {raw}")
+        deadline = time.perf_counter() + 120
+        while True:
+            st = router.handle("GET", "/")[1]["reload"]
+            if st.get("active") is False and "ok" in st:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"reload barrier stuck: {st}")
+            time.sleep(0.05)
+        barrier_s = time.perf_counter() - t0
+        if not st["ok"]:
+            raise AssertionError(f"reload barrier failed: {st}")
+        time.sleep(0.5)
+        stop_at.set()
+        for t in threads:
+            t.join(timeout=120)
+        gens = (a.generation, c_api.generation)
+        counts, warm, flushes = {}, {}, {}
+        for k, api in (("a", a), ("c", c_api)):
+            q1, old, since = gen1_of[k]
+            q2, new = api.models[0].quant, api._batcher
+            if q2 is q1 or new is old:
+                raise AssertionError(f"reload: replica {k} kept its "
+                                     "generation-1 layout or batcher")
+            counts[k] = launches.of(q1, q2)
+            warm[k] = launches.warm_of(q2)
+            # the retired batcher's flushes since the clear, then the
+            # new one's: one B1 + one B2 each, on either layout
+            flushes[k] = _batches(old) - since + _batches(new)
+            if flushes[k] == 0 or counts[k] != (flushes[k], flushes[k]):
+                raise AssertionError(
+                    f"reload: replica {k}: B1 / B2 launched {counts[k]} "
+                    f"times for {flushes[k]} flushes over both generations")
+            aot_state = api._aot_state
+            want_warm = len(aot_state["buckets"]) if aot_state else 0
+            if warm[k] != (want_warm, want_warm):
+                raise AssertionError(
+                    f"reload: replica {k}'s warm-up launched B1 / B2 "
+                    f"{warm[k]} times for {want_warm} buckets")
+    finally:
+        stop_at.set()
+        _fleet_stop((sr, router))
+    gen2 = {u: _raw_post(pa, _qbody(u, 10))[1] for u in distinct}
+    n, per_client = 0, []
+    for c, res in results.items():
+        seen = []
+        for u, status, raw in res:
+            n += 1
+            g = 1 if raw == gen1[u] else 2 if raw == gen2[u] else None
+            if status != 200 or g is None:
+                raise AssertionError(f"reload: client {c} got {status} "
+                                     "with bytes of neither generation")
+            seen.append(g)
+        if seen != sorted(seen):
+            raise AssertionError(f"reload: client {c} went back a "
+                                 "generation")
+        per_client.append((seen.count(1), seen.count(2)))
+    if gens != (2, 2) or not all(c2 for _c1, c2 in per_client):
+        raise AssertionError(f"reload: generations {gens}, per client "
+                             f"{per_client}")
+    reload_out = {"queries": n, "dropped": 0, "barrier_s": barrier_s,
+                  "per_client_gen1_gen2": per_client,
+                  "generations": list(gens),
+                  "launches": {k: {"B1": v[0], "B2": v[1],
+                                   "flushes": flushes[k],
+                                   "warm_up": list(warm[k])}
+                               for k, v in counts.items()}}
+    print(f"fleet: POST /reload through the router under {FLEET_CLIENTS} "
+          f"clients: {n} queries, 0 dropped, every answer a generation's "
+          f"direct bytes, each client's generations monotone "
+          f"{per_client}; barrier {barrier_s:.3f} s; replicas now at "
+          f"generation {gens}; B1/B2/flushes over both generations a "
+          f"{counts['a']}/{flushes['a']}, c {counts['c']}/{flushes['c']}, "
+          f"reload warm-up B1/B2 a {warm['a']}, c {warm['c']}", flush=True)
+    _fleet_stop((sc, c_api))
+    direct = {"port": pa, "server": sa, "api": a, "gen1": gen1}
+    return {"kill": kill, "reload": reload_out}, inst_b, direct
+
+
+def _fleet_partition(store, inst_b, users, seed, launches, direct, dev,
+                     nums):
+    """(c) partitions 0/2 and 1/2 of instance B behind the router: at
+    ``nums`` (10, 100 and the whole catalog) the merged bytes equal a's
+    (a full deploy of B since the reload), for users whose scores tie
+    across the boundary; each partition's B1 once against its plain
+    version at its own item count."""
+    from predictionio_tpu_torch.workflow import router as router_mod
+
+    parts = [_fleet_api(store, engine_instance_id=inst_b,
+                        partition=f"{i}/2") for i in range(2)]
+    served_parts = [_fleet_serve(p) for p in parts]
+    router = router_mod.RouterAPI(router_mod.RouterConfig(
+        backends=tuple(f"http://127.0.0.1:{p}" for _s, p in served_parts),
+        health_ms=100.0))
+    sr, pr = _fleet_serve(router, "threaded")
+    rng = np.random.default_rng(seed + 43)
+    who = [users[u] for u in rng.choice(len(users),
+                                        size=FLEET_PARTITION_USERS,
+                                        replace=False)]
+    lo = parts[1]._partition_state["lo"]
+    try:
+        deadline = time.perf_counter() + 30
+        while not router.handle("GET", "/")[1].get(
+                "partitions", {}).get("complete"):
+            if time.perf_counter() > deadline:
+                raise AssertionError("partition map never completed")
+            time.sleep(0.05)
+        launches.clear()
+        ties, n, lat = 0, 0, []
+        for u in who:
+            for num in nums:
+                body = _qbody(u, num)
+                want = _raw_post(direct["port"], body)[1]
+                status, got, dt_s = _raw_post(pr, body)
+                lat.append(dt_s)
+                n += 1
+                if status != 200 or got != want:
+                    raise AssertionError(
+                        f"partition fleet: {u} num={num} differs from the "
+                        "full replica")
+                if num == nums[-1]:
+                    ids = {s["item"]: s["score"]
+                           for s in json.loads(got)["itemScores"]}
+                    inv = direct["api"].models[0].item_vocab
+                    low = {ids[k] for k in ids if inv(k) < lo}
+                    high = {ids[k] for k in ids if inv(k) >= lo}
+                    ties += len(low & high)
+        counts = [launches.of(p.models[0].quant) for p in parts]
+        flushes = [_require_flushes(f"partition {i}/2", p, c)
+                   for i, (p, c) in enumerate(zip(parts, counts))]
+        # each partition's B1 against its plain version at its own
+        # item count, outside the counted window
+        b1 = []
+        for p in parts:
+            q = p.models[0].quant
+            ixs = torch.tensor([p.models[0].user_vocab(u) for u in who],
+                               dtype=torch.int32, device=dev)
+            v, i = topk_fused.score_mask_topk_candidates(
+                q.u_q, q.u_scale, q.vt_q, q.v_scale, ixs, k_local=10,
+                n_items=q.n_items, tile=q.tile)
+            pv, pi = topk_fused.score_mask_topk_candidates_plain(
+                q.u_q[ixs.long()], q.u_scale[ixs.long()], q.vt_q,
+                q.v_scale, k_local=10, n_items=q.n_items, tile=q.tile)
+            if not (torch.equal(v, pv) and torch.equal(i, pi)):
+                raise AssertionError("a partition's B1 != plain")
+            b1.append(q.n_items)
+    finally:
+        _fleet_stop((sr, router), *[(s, p) for (s, _port), p
+                                    in zip(served_parts, parts)])
+    if ties == 0:
+        raise AssertionError("no score tied across the partition boundary")
+    out = {"queries": n, "users": len(who), "nums": list(nums),
+           "ties_across_boundary": ties, "lo": lo,
+           "client_ms": dict(zip(("p50", "p99"), _pct(lat))),
+           "launches": [{"B1": c[0], "B2": c[1], "flushes": f}
+                        for c, f in zip(counts, flushes)],
+           "B1_vs_plain_items": b1}
+    print(f"fleet: partitions 0/2 + 1/2 (items [0, {lo}) and [{lo}, "
+          f"{nums[-1]})) behind the router: {n} queries at num "
+          f"{list(nums)} byte-identical to the full replica, "
+          f"{ties} score ties across the boundary in the whole-catalog "
+          f"answers; B1/B2/flushes per partition {out['launches']}; each "
+          f"partition's B1 == plain at {b1} items; client p50/p99 "
+          f"{out['client_ms']['p50']:.3f}/{out['client_ms']['p99']:.3f} ms",
+          flush=True)
+    return out
+
+
+def _fleet_tenants(work, store, iid, qs_iid, inst_b, users, seed, launches,
+                   direct) -> dict:
+    """(d) ``pio deploy --engines`` with the 20M model and the quickstart
+    model: 401 for an unknown key, 429 past the quickstart tenant's rate,
+    B1 = B2 = flushes per tenant, each tenant's bytes beside the card's
+    allocation of its install; then the same two and a third tenant with
+    the hard cap between them: refused before anything of it is placed."""
+    from predictionio_tpu_torch.serving import registry as registry_mod
+
+    conf = [{"name": "ml20m", "accessKey": FLEET_KEY,
+             "engineInstanceId": iid},
+            {"name": "quickstart", "accessKey": QS_KEY,
+             "engineInstanceId": qs_iid, "rate": FLEET_QS_RATE,
+             "burst": FLEET_QS_RATE}]
+    path = os.path.join(work, "engines.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    mem = collections.defaultdict(dict)
+
+    def build(orig):
+        def run(api, spec, **kw):
+            torch.cuda.synchronize()
+            mem[spec.name]["entry"] = torch.cuda.memory_allocated()
+            return orig(api, spec, **kw)
+        return run
+
+    def reserve(orig):
+        def run(reg, name, nbytes):
+            torch.cuda.synchronize()
+            mem[name]["before"] = torch.cuda.memory_allocated()
+            mem[name]["projected"] = int(nbytes)
+            try:
+                return orig(reg, name, nbytes)
+            except ValueError:
+                torch.cuda.synchronize()
+                mem[name]["refused"] = torch.cuda.memory_allocated()
+                raise
+        return run
+
+    def install(orig):
+        def run(reg, servable):
+            torch.cuda.synchronize()
+            mem[servable.name]["after"] = torch.cuda.memory_allocated()
+            mem[servable.name]["model_bytes"] = servable.model_bytes
+            return orig(reg, servable)
+        return run
+
+    apis, rcs = [], []
+
+    def capture(orig):
+        def run(api, *a, **kw):
+            apis.append(api)
+            return orig(api, *a, **kw)
+        return run
+
+    port = _free_port()
+    with _wrapped((registry_mod.ModelRegistry, "reserve", reserve),
+                  (registry_mod.ModelRegistry, "install", install),
+                  (create_server, "serve", capture)):
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engines", path, "--ip", "127.0.0.1", "--port",
+            str(port), "--serve-quant", "on"])), daemon=True)
+        deploy.start()
+        _wait_ready(port, deploy.is_alive, deadline_s=300)
+    (api,) = apis
+    launches.clear()
+    rng = np.random.default_rng(seed + 47)
+    ml_users = [users[u] for u in rng.choice(len(users), size=32,
+                                             replace=False)]
+    try:
+        unknown = _raw_post(port, _qbody(ml_users[0], 10),
+                            path="/queries.json?accessKey=bogus")
+        missing = _raw_post(port, _qbody(ml_users[0], 10))
+        if unknown[0] != 401 or missing[0] != 401:
+            raise AssertionError(f"admission: {unknown[0]} / {missing[0]}")
+        ml = {}
+        with ThreadPoolExecutor(max_workers=FLEET_CLIENTS) as pool:
+            for u, r in zip(ml_users, pool.map(lambda u: _raw_post(
+                    port, _qbody(u, 10),
+                    path=f"/queries.json?accessKey={FLEET_KEY}"),
+                    ml_users)):
+                ml[u] = r
+        qs_model = api.registry.get("quickstart").models[0]
+        qs_user = next(iter(qs_model.user_vocab.to_dict()))
+        qs = [_raw_post(port, _qbody(qs_user, 4),
+                        path=f"/queries.json?accessKey={QS_KEY}")
+              for _ in range(int(FLEET_QS_RATE) + 4)]
+        tenants = {name: api.registry.get(name)
+                   for name in ("ml20m", "quickstart")}
+        counts = {n: launches.of(s.models[0].quant)
+                  for n, s in tenants.items()}
+        flushes = {n: _require_flushes(f"tenant {n}", s.batcher, counts[n])
+                   for n, s in tenants.items()}
+        status = api.handle("GET", "/")[1]
+        metrics = _get(port, "/metrics")[2].decode()
+    finally:
+        if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                     str(port)]) != 0:
+            raise AssertionError("pio undeploy failed")
+        deploy.join(timeout=60)
+    if rcs != [0]:
+        raise AssertionError(f"pio deploy --engines exited {rcs}")
+    for u, (st, raw, _t) in ml.items():
+        if st != 200 or raw != direct["gen1"].get(u, raw) or \
+                json.loads(raw) != _served(tenants["ml20m"].models[0], u, 10):
+            raise AssertionError(f"tenant ml20m: {u} answered {st}")
+    ok = [r for r in qs if r[0] == 200]
+    limited = [r for r in qs if r[0] == 429]
+    want = _served(qs_model, qs_user, 4)
+    if not ok or not limited or len(ok) + len(limited) != len(qs) or any(
+            json.loads(raw) != want for _s, raw, _t in ok):
+        raise AssertionError(f"tenant quickstart: {[r[0] for r in qs]}")
+    tenant_bytes = {n: int(float(v)) for n, v in _samples(
+        metrics, "pio_tenant_model_bytes").items()}
+    installs = {n: {"model_bytes": mem[n]["model_bytes"],
+                    "projected_bytes": mem[n]["projected"],
+                    "memory_allocated_delta": mem[n]["after"]
+                    - mem[n]["before"]} for n in tenants}
+    if sorted(tenant_bytes.values()) != sorted(
+            i["model_bytes"] for i in installs.values()):
+        raise AssertionError(f"pio_tenant_model_bytes {tenant_bytes}")
+    print(f"fleet: pio deploy --engines (ml20m, quickstart): unknown key "
+          f"401, missing key 401; ml20m {len(ml)} queries from "
+          f"{FLEET_CLIENTS} clients, the direct bytes; quickstart "
+          f"{len(ok)} answered and {len(limited)} 429 past "
+          f"{FLEET_QS_RATE:g}/s; B1/B2/flushes {counts} / {flushes}; "
+          f"installs {installs}; pio_tenant_model_bytes {tenant_bytes}; "
+          f"total {status['modelBytesTotal']}", flush=True)
+
+    # a third tenant past the hard cap: refused before its placement
+    conf3 = conf + [{"name": "capped", "accessKey": FLEET_CAP_KEY,
+                     "engineInstanceId": inst_b}]
+    placed = sum(i["model_bytes"] for i in installs.values())
+    third = installs["ml20m"]["projected_bytes"]
+    cap_mb = (placed + third // 2) / (1024 * 1024)
+    os.environ["PIO_TENANT_HBM_HARD_CAP_MB"] = repr(cap_mb)
+    specs = registry_mod.parse_tenant_specs(conf3)
+    mem.clear()
+    with _wrapped((registry_mod.ModelRegistry, "reserve", reserve),
+                  (registry_mod.ModelRegistry, "install", install),
+                  (create_server.QueryAPI, "_build_servable", build)):
+        try:
+            capped = create_server.QueryAPI(create_server.ServerConfig(
+                serve_quant="on", tenants=specs), storage=store)
+            capped.close()
+            raise AssertionError("the third tenant was not refused")
+        except ValueError as e:
+            refusal = str(e)
+    os.environ.pop("PIO_TENANT_HBM_HARD_CAP_MB", None)
+    m3 = mem["capped"]
+    if "hard HBM cap" not in refusal or "after" in m3 \
+            or not m3["entry"] == m3["before"] == m3["refused"]:
+        raise AssertionError(f"cap: {refusal} {dict(m3)}")
+    cap = {"cap_mb": cap_mb, "refusal": refusal,
+           "memory_allocated_at_its_load": m3["entry"],
+           "memory_allocated_before": m3["before"],
+           "memory_allocated_after_refusal": m3["refused"],
+           "projected_bytes": m3["projected"]}
+    print(f"fleet: a third tenant with the hard cap at {cap_mb:.3f} MiB: "
+          f"refused ({refusal}); memory_allocated {m3['entry']} when its "
+          f"load began, {m3['before']} at its check and {m3['refused']} "
+          "after the refusal", flush=True)
+    return {"admission": {"unknown": unknown[0], "missing": missing[0],
+                          "quickstart_ok": len(ok),
+                          "quickstart_429": len(limited)},
+            "launches": {n: {"B1": c[0], "B2": c[1], "flushes": flushes[n]}
+                         for n, c in counts.items()},
+            "installs": installs, "tenant_model_bytes": tenant_bytes,
+            "cap": cap}
+
+
+def _fleet_plugins(store, iid, users, seed, launches) -> dict:
+    """(e) an output blocker that keeps three items and marks the answer,
+    a sniffer that records every query, and feedback to a port event
+    server: one ``predict`` event per query in the feedback app."""
+    from predictionio_tpu_torch.data.api import EventAPI
+    from predictionio_tpu_torch.workflow import server_plugins
+
+    class Top3(server_plugins.EngineServerPlugin):
+        plugin_name = "top3"
+        plugin_type = server_plugins.OUTPUT_BLOCKER
+
+        def process(self, inst, query_obj, prediction, ctx):
+            return {**prediction, "itemScores":
+                    prediction["itemScores"][:3], "blocked": True}
+
+    class Seen(server_plugins.EngineServerPlugin):
+        plugin_name = "seen"
+        plugin_type = server_plugins.OUTPUT_SNIFFER
+
+        def __init__(self):
+            self.users = []
+
+        def process(self, inst, query_obj, prediction, ctx):
+            self.users.append(query_obj["user"])
+
+    seen = Seen()
+    es = EventAPI(storage=store)
+    es_server, es_port = _fleet_serve(es, "threaded")
+    api = create_server.QueryAPI(
+        create_server.ServerConfig(
+            serve_quant="on", engine_instance_id=iid, feedback=True,
+            event_server_ip="127.0.0.1", event_server_port=es_port,
+            access_key=FLEET_FEEDBACK_KEY),
+        storage=store, plugin_context=server_plugins.
+        EngineServerPluginContext([Top3(), seen]))
+    server, port = _fleet_serve(api)
+    launches.clear()
+    rng = np.random.default_rng(seed + 53)
+    who = [users[u] for u in rng.choice(len(users), size=16,
+                                        replace=False)]
+    app_id = store.get_meta_data_apps().get_by_name(FLEET_FEEDBACK_APP).id
+    try:
+        answers = {u: _raw_post(port, _qbody(u, 10)) for u in who}
+        flushes = _require_flushes("plugins deploy", api,
+                                   launches.of(api.models[0].quant))
+        model = api.models[0]
+        deadline = time.perf_counter() + 30
+        while True:
+            events = list(store.get_events().find(
+                app_id, event_names=["predict"]))
+            if len(events) >= len(who) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        _fleet_stop((server, api))
+        es_server.shutdown()
+        es_server.server_close()
+    for u, (status, raw, _t) in answers.items():
+        want = _served(model, u, 10)
+        want = {**want, "itemScores": want["itemScores"][:3],
+                "blocked": True}
+        if status != 200 or json.loads(raw) != want:
+            raise AssertionError(f"plugins: {u} answered {status} {raw}")
+    if sorted(seen.users) != sorted(who):
+        raise AssertionError(f"the sniffer saw {seen.users}")
+    # feedback carries the answer as it was before the blockers ran
+    by_user = {e.properties.get("query")["user"]: e for e in events}
+    if len(events) != len(who) or set(by_user) != set(who) or any(
+            e.properties.get("prediction") != _served(model, u, 10)
+            for u, e in by_user.items()):
+        raise AssertionError(f"feedback: {len(events)} predict events for "
+                             f"{len(who)} queries")
+    print(f"fleet: plugins: {len(who)} queries, each answer the blocker's "
+          f"rewrite of the plain int8 path, the sniffer saw all "
+          f"{len(seen.users)}; --feedback stored {len(events)} predict "
+          f"events; B1 = B2 = {flushes} flushes", flush=True)
+    return {"queries": len(who), "sniffed": len(seen.users),
+            "feedback_events": len(events), "flushes": flushes}
 
 
 def _solve_row(name: str, A, b, reg) -> dict:
@@ -3379,6 +4291,18 @@ def _fold_traffic(api, port, store, users, model, seed) -> dict:
             worker._gather_ratings(u, m.item_vocab)
             ms.append((time.perf_counter() - t0) * 1e3)
         gather_ms[kind] = ms
+    # the first read after a deploy: a fresh DAO loads every chunk's
+    # index sidecar before its first answer, then reads warm
+    fresh = storage_mod.Storage().get_events()
+    events_dao, worker._events = worker._events, fresh
+    try:
+        first_read_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            worker._gather_ratings(trained[0], m.item_vocab)
+            first_read_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        worker._events = events_dao
     # and where a trained user's read spends it (host Python, cProfile)
     import cProfile
     import pstats
@@ -3402,6 +4326,7 @@ def _fold_traffic(api, port, store, users, model, seed) -> dict:
         "freshness_s": {"p50": fresh.get("p50S"), "p99": fresh.get("p99S"),
                         "observed": fresh.get("observed")},
         "gather_ms": gather_ms, "gather_profile": gather_profile,
+        "first_read_after_deploy_ms": first_read_ms,
         "distinct_new_user_answers": distinct,
         "new_item_rank_for_a_rater": item_rank,
         "state": {k: state[k] for k in ("usersFolded", "itemsFolded",
@@ -3511,8 +4436,25 @@ def phase_store(work: str, seed: int, dev: torch.device, synth: dict,
                 os.environ[k] = v
         storage_mod.reset_storage()
     out["phase_s"] = time.perf_counter() - t_phase
+    out["chunk_map"] = _chunk_map_state("store")
     print("store: " + json.dumps(out), flush=True)
     return out, ctx
+
+
+def _chunk_map_state(where: str) -> dict:
+    """numpy's version and the eventlog chunks this process loaded whole
+    instead of mapping (by reason); any such chunk fails the run."""
+    from predictionio_tpu_torch.data.storage import eventlog
+    state = {"numpy": np.__version__,
+             "fallbacks": eventlog.chunk_map_fallbacks(),
+             "by_reason": dict(eventlog.CHUNK_MAP_FALLBACKS)}
+    print(f"{where}: numpy {state['numpy']}, eventlog chunks loaded whole "
+          f"instead of mapped: {state['fallbacks']} {state['by_reason']}",
+          flush=True)
+    if state["fallbacks"]:
+        raise AssertionError(f"{where}: the eventlog chunk map fell back: "
+                             f"{state['by_reason']}")
+    return state
 
 
 def _phase_store(work, seed, dev, synth, qs_out) -> dict:
@@ -3687,6 +4629,7 @@ def phase_store_foldin(work: str, seed: int, dev: torch.device,
         store = storage_mod.get_storage()
         fold = phase_foldin(work, store, ctx["iid"], ctx["model"], seed, dev)
         _print_foldin(fold)
+        fold["chunk_map"] = _chunk_map_state("foldin")
         store.get_events().close()
     finally:
         for k, v in saved.items():
@@ -4272,7 +5215,10 @@ def _print_foldin(fold: dict) -> None:
           f"{[round(x, 1) for x in fold['gather_ms']['trained']]}, unseen "
           f"users {[round(x, 1) for x in fold['gather_ms']['unseen']]}; "
           f"one trained user's read under cProfile (function, cumulative "
-          f"ms, calls): {fold['gather_profile']}", flush=True)
+          f"ms, calls): {fold['gather_profile']}; a fresh DAO's first "
+          f"read (every index sidecar loaded) and its second, ms: "
+          f"{[round(x, 1) for x in fold['first_read_after_deploy_ms']]}",
+          flush=True)
     print(f"foldin: {fold['events']} events posted (the users' "
           f"{fold['post_s']:.3f} s); the users' folds live "
           f"{fold['converge_s'][0]:.3f} s after their post, the items' "
@@ -4811,6 +5757,8 @@ def main(argv=None) -> int:
                                 served, dev)
         (qs_solve_launches, qs_launches, qs_merge_launches, n_app_events,
          qs_out) = phase_quickstart(work, args.seed, dev)
+        fleet_out = phase_fleet(work, store, iid, users, args.seed, served,
+                                qs_out["instance_id"], dev)
         eval_launches, eval_solve_rows, eval_out = phase_eval(
             work, args.seed, dev, n_app_events)
         (sim_launches, ecom_launches, tpl_solve_rows,
@@ -4861,6 +5809,8 @@ def main(argv=None) -> int:
         "remote_merge_launches": remote_out["deploy"]["B2_launches"],
         "shard_launches": shard_out["deploy"]["B1_launches"],
         "shard_merge_launches": shard_out["deploy"]["B2_launches"],
+        "fleet_launches": _fleet_launches(fleet_out),
+        "fleet": fleet_out,
         "shard_serve": shard_out["serve"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},

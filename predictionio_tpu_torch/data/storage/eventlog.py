@@ -117,6 +117,35 @@ def _wal_fsync_mode() -> str:
 WAL_GROUP_STATS: Dict[str, float] = {
     "commits": 0, "events": 0, "flush_s": 0.0, "max_events": 0}
 
+#: chunks whose columns could not be memory-mapped and were loaded whole
+#: instead, by reason (``compressed``, ``fortran``, ``object``,
+#: ``local_header``, ``header:<exception>``); mirrored by the
+#: ``pio_eventlog_chunk_map_fallbacks_total{reason}`` counter when
+#: PIO_TELEMETRY=1, with one journal event per chunk
+CHUNK_MAP_FALLBACKS: Dict[str, int] = {}
+_CHUNK_MAP_LOCK = threading.Lock()
+
+
+def chunk_map_fallbacks() -> int:
+    """Chunks loaded whole since the process started (all reasons)."""
+    with _CHUNK_MAP_LOCK:
+        return sum(CHUNK_MAP_FALLBACKS.values())
+
+
+def _count_chunk_map_fallback(path: str, reason: str) -> None:
+    with _CHUNK_MAP_LOCK:
+        CHUNK_MAP_FALLBACKS[reason] = CHUNK_MAP_FALLBACKS.get(reason, 0) + 1
+    logger.warning("eventlog: chunk %s loaded whole (%s)", path, reason)
+    journal.emit(
+        "eventlog", f"chunk columns loaded whole, not mapped ({reason})",
+        level=journal.WARN, path=path, reason=reason)
+    from predictionio_tpu_torch.common import telemetry
+    if telemetry.on():
+        telemetry.registry().counter(
+            "pio_eventlog_chunk_map_fallbacks_total",
+            "eventlog chunks loaded whole instead of memory-mapped",
+            labelnames=("reason",)).labels(reason=reason).inc()
+
 
 def _wal_line(e: Event) -> str:
     """One WAL record: the event's wire dict as one compact JSON line
@@ -514,7 +543,7 @@ class _Shard:
             return cols
         path = self.chunk_path(seq)
         cols = _mmap_npz_columns(path)
-        if cols is None:  # compressed or unparseable: materialize fully
+        if cols is None:  # counted with its reason: materialize fully
             with np.load(path, allow_pickle=False) as data:
                 cols = {k: data[k] for k in data.files}
         # materialize the extras offsets eagerly: every later point read
@@ -540,42 +569,58 @@ class _Shard:
 def _mmap_npz_columns(path: str) -> Optional[Dict[str, np.ndarray]]:
     """Map every STORED (uncompressed) member of an .npz as a read-only
     np.memmap at its data offset. Returns None if any member is
-    compressed or the npy headers don't parse (legacy files)."""
+    compressed, Fortran-ordered or object-typed, or its headers don't
+    parse; each such chunk is counted with its reason
+    (``CHUNK_MAP_FALLBACKS``). The npy headers are read with numpy's
+    public readers, chosen by the member's format version."""
     import struct
     import zipfile
 
-    try:
-        cols: Dict[str, np.ndarray] = {}
-        with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
-            for info in zf.infolist():
-                if info.compress_type != zipfile.ZIP_STORED:
-                    return None
-                # local file header: sig(4) ver(2) flg(2) cmp(2) time(4)
-                # crc(4) csize(4) usize(4) fnlen(2) extralen(2)
-                f.seek(info.header_offset)
-                lh = f.read(30)
-                if lh[:4] != b"PK\x03\x04":
-                    return None
-                fnlen, extralen = struct.unpack("<HH", lh[26:30])
-                data_off = info.header_offset + 30 + fnlen + extralen
-                # .npy member header
-                f.seek(data_off)
-                version = np.lib.format.read_magic(f)
-                shape, fortran, dtype = \
-                    np.lib.format._read_array_header(f, version)
-                if fortran or dtype.hasobject:
-                    return None
-                arr_off = f.tell()
-                name = info.filename[:-4] if info.filename.endswith(".npy") \
-                    else info.filename
-                if int(np.prod(shape, dtype=np.int64)) == 0:
-                    cols[name] = np.empty(shape, dtype=dtype)
+    fmt = np.lib.format
+    cols: Dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                _count_chunk_map_fallback(path, "compressed")
+                return None
+            # local file header: sig(4) ver(2) flg(2) cmp(2) time(4)
+            # crc(4) csize(4) usize(4) fnlen(2) extralen(2)
+            f.seek(info.header_offset)
+            lh = f.read(30)
+            if lh[:4] != b"PK\x03\x04":
+                _count_chunk_map_fallback(path, "local_header")
+                return None
+            fnlen, extralen = struct.unpack("<HH", lh[26:30])
+            data_off = info.header_offset + 30 + fnlen + extralen
+            # .npy member header: 1.0 has a 2-byte length, 2.0 and 3.0
+            # a 4-byte one (3.0 only widens the header's text encoding
+            # to utf-8, which the dict of a numeric column never needs)
+            f.seek(data_off)
+            try:
+                version = fmt.read_magic(f)
+                if version == (1, 0):
+                    shape, fortran, dtype = fmt.read_array_header_1_0(f)
                 else:
-                    cols[name] = np.memmap(path, mode="r", dtype=dtype,
-                                           shape=shape, offset=arr_off)
-        return cols
-    except Exception:
-        return None
+                    shape, fortran, dtype = fmt.read_array_header_2_0(f)
+            except (ValueError, OSError) as e:
+                _count_chunk_map_fallback(
+                    path, f"header:{type(e).__name__}")
+                return None
+            if fortran:
+                _count_chunk_map_fallback(path, "fortran")
+                return None
+            if dtype.hasobject:
+                _count_chunk_map_fallback(path, "object")
+                return None
+            arr_off = f.tell()
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            if int(np.prod(shape, dtype=np.int64)) == 0:
+                cols[name] = np.empty(shape, dtype=dtype)
+            else:
+                cols[name] = np.memmap(path, mode="r", dtype=dtype,
+                                       shape=shape, offset=arr_off)
+    return cols
 
 
 def _extra_offsets(data) -> np.ndarray:

@@ -16,9 +16,10 @@ of the JAX package), in one of three kinds:
   ``run_train``, ``run_evaluation`` and ``QueryAPI``) when such a variable is set to a value that turns the
   feature on, naming the variable, the feature and the ROADMAP item that
   brings it. Unset, ``0``
-  and ``off`` (and the reference's own word for "off" where it has one,
-  such as ``PIO_TRANSPORT=threaded``) stay accepted. A row's refusal goes
-  when its slice lands.
+  and ``off`` stay accepted. A row's refusal goes when its slice lands.
+
+Of the 118 rows, 90 are read, 27 inert and one refused
+(``PIO_SERVE_DEVICE_MS``).
 
 ``PIO_TORCH_DEVICE`` and ``PIO_TORCH_KERNEL_DIR`` are the port's own and
 have no row.
@@ -38,7 +39,7 @@ TRAIN, EVAL, DEPLOY = "train", "eval", "deploy"
 EVENTSERVER, IMPORT, EXPORT = "eventserver", "import", "export"
 DASHBOARD, ADMINSERVER, FOLDIN = "dashboard", "adminserver", "foldin"
 STORAGESERVER = "storageserver"
-#: the verbs that serve HTTP
+#: the verbs that serve HTTP (``pio router`` too, which refuses nothing)
 DAEMONS = (DEPLOY, EVENTSERVER, DASHBOARD, ADMINSERVER, STORAGESERVER)
 ALL_VERBS = (TRAIN, EVAL, DEPLOY, EVENTSERVER, IMPORT, EXPORT, DASHBOARD,
              ADMINSERVER, STORAGESERVER, FOLDIN)
@@ -76,9 +77,9 @@ _NO_VERB = "a daemon the port has no verb for"
 _TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
-_Q4 = "queue 1 item 4 (the read and ingest path)"
 _Q5B = "queue 1 item 5b (the host-vs-device serving probe)"
-_Q7 = "queue 1 item 7 (the router, multi-tenancy and the fleet tools)"
+_ROUTER = "pio router (workflow/router.py)"
+_TENANTS = "multi-tenant deploys (serving/registry.py)"
 
 KNOBS: Dict[str, Knob] = {
     # storage
@@ -97,10 +98,12 @@ KNOBS: Dict[str, Knob] = {
     "PIO_WAL_GROUP_MS": _read("the eventlog WAL's group-commit window"),
     "PIO_WAL_FSYNC": _read("the eventlog WAL's fsync mode"),
     # transport and event server
-    "PIO_TRANSPORT": _unported("the async HTTP transport", _Q4,
-                               verbs=DAEMONS, also_off=("threaded",)),
-    "PIO_TRANSPORT_WORKERS": _inert("tunes the async transport"),
-    "PIO_TRANSPORT_PIPELINE": _inert("tunes the async transport"),
+    "PIO_TRANSPORT": _read(
+        "the HTTP transport of every daemon and the router: threaded or "
+        "async (data/api/http.py)"),
+    "PIO_TRANSPORT_WORKERS": _read("the async transport's handler threads"),
+    "PIO_TRANSPORT_PIPELINE": _read(
+        "the async transport's pipelined requests per connection"),
     "PIO_BATCH_EVENTS_MAX": _read(
         "the event server's cap on items per batch request"),
     "PIO_BATCH_BULK_INSERT": _read(
@@ -170,21 +173,23 @@ KNOBS: Dict[str, Knob] = {
         "PIO_TORCH_KERNEL_DIR"),
     "PIO_COMPILE_CACHE_MIN_S": _inert("the XLA compile cache"),
     # router and tenants
-    "PIO_ROUTER_HEALTH_MS": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_DEADLINE_MS": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_MAX_INFLIGHT": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_TENANT_MAX_INFLIGHT": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_CACHE": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_CACHE_MB": _inert("the router: " + _NO_VERB),
-    "PIO_ROUTER_CACHE_TTL_MS": _inert("the router: " + _NO_VERB),
-    "PIO_DEPLOY_PARTITION": _unported("partition-routed deploys", _Q7),
-    "PIO_TENANT_RATE": _unported(
-        "per-access-key admission of multi-tenant deploys", _Q7),
-    "PIO_TENANT_BURST": _inert("tunes per-access-key admission"),
-    "PIO_TENANT_HBM_BUDGET_MB": _unported(
-        "the multi-tenant registry's per-tenant memory budget", _Q7),
-    "PIO_TENANT_HBM_HARD_CAP_MB": _unported(
-        "the multi-tenant registry's memory hard cap", _Q7),
+    "PIO_ROUTER_HEALTH_MS": _read(_ROUTER + ": the membership poll"),
+    "PIO_ROUTER_DEADLINE_MS": _read(_ROUTER + ": the per-query deadline"),
+    "PIO_ROUTER_MAX_INFLIGHT": _read(_ROUTER + ": the admission ceiling"),
+    "PIO_ROUTER_TENANT_MAX_INFLIGHT": _read(
+        _ROUTER + ": the per-tenant admission ceiling"),
+    "PIO_ROUTER_CACHE": _read(_ROUTER + ": the response cache (on / off)"),
+    "PIO_ROUTER_CACHE_MB": _read(_ROUTER + ": the response cache's budget"),
+    "PIO_ROUTER_CACHE_TTL_MS": _read(
+        _ROUTER + ": the response cache's entry lifetime"),
+    "PIO_DEPLOY_PARTITION": _read(
+        "the partition-routed deploy scope i/N (pio deploy --partition)"),
+    "PIO_TENANT_RATE": _read(_TENANTS + ": the per-access-key rate"),
+    "PIO_TENANT_BURST": _read(_TENANTS + ": the per-access-key burst"),
+    "PIO_TENANT_HBM_BUDGET_MB": _read(
+        _TENANTS + ": the per-tenant soft memory budget"),
+    "PIO_TENANT_HBM_HARD_CAP_MB": _read(
+        _TENANTS + ": the memory hard cap, checked before placement"),
     # remote storage resilience
     "PIO_RPC_RETRIES": _read(_RPC + ": retries after the first try"),
     "PIO_RPC_BACKOFF_MS": _read(_RPC + ": the full-jitter backoff's base"),

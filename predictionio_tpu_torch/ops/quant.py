@@ -311,6 +311,23 @@ def _quantized_rows(ixs, rows_fp32):
 # the device layout
 # ---------------------------------------------------------------------------
 
+def padded_items(n_items: int, tile: int) -> int:
+    """The item columns the int8 layout holds: ``n_items`` rounded up to
+    the fused kernel's tile."""
+    return -(-max(n_items, 1) // tile) * tile
+
+
+def layout_bytes(n_users: int, n_items: int, rank: int, *,
+                 int8: bool) -> int:
+    """Bytes the replicated serving layout of factors of these dims
+    holds on the device, known before anything is placed: the four
+    tensors of :meth:`QuantizedServing.build` (int8), or the two fp32
+    matrices."""
+    if not int8:
+        return _F32 * rank * (n_users + n_items)
+    n_pad = padded_items(n_items, topk_fused.serve_tile())
+    return (rank + _F32) * n_users + (rank + _F32) * n_pad
+
 @dataclasses.dataclass
 class QuantizedServing:
     """One model's quantized factors on the serving device. The item
@@ -337,7 +354,7 @@ class QuantizedServing:
         dev = device_mod.resolve(device)
         tile = topk_fused.serve_tile()
         n_items = qf.n_items
-        n_pad = -(-max(n_items, 1) // tile) * tile
+        n_pad = padded_items(n_items, tile)
         vt = np.zeros((qf.rank, n_pad), dtype=np.int8)
         vt[:, :n_items] = qf.v_q.T
         sv = np.zeros((n_pad,), dtype=np.float32)

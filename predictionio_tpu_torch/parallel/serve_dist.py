@@ -194,6 +194,28 @@ def _rows_dev(n: int, n_dev: int) -> int:
     return max(-(-n // n_dev), 1)
 
 
+def _padded(n: int, tile: int) -> int:
+    return -(-n // tile) * tile
+
+
+def layout_bytes(n_users: int, n_items: int, rank: int, *, int8: bool,
+                 mesh: Optional[Mesh] = None) -> int:
+    """Bytes :func:`shard_factors` places in this process for factors of
+    these dims, known before it runs: per local slot, the user rows and
+    the item block (int8 with their fp32 scales, the item block padded
+    to the tile, or fp32)."""
+    if mesh is None:
+        mesh = mesh_mod.get_mesh(None, axis_name=AXIS,
+                                 device=scoped_device())
+    rows_u = _rows_dev(n_users, mesh.size)
+    rows_i = _rows_dev(n_items, mesh.size)
+    n_slots = len(mesh.local_slots)
+    if not int8:
+        return n_slots * 4 * rank * (rows_u + rows_i)
+    n_pad = _padded(rows_i, topk_fused.serve_tile())
+    return (rank + 4) * (n_slots * rows_u + n_slots * n_pad)
+
+
 @dataclasses.dataclass
 class ShardedFactors:
     """One model's factors laid out for sharded serving on ``mesh``.
@@ -395,7 +417,7 @@ def shard_factors(user_factors, item_factors,
     for d in slots:
         blk = V[d * rows_i:(d + 1) * rows_i]
         if quant is not None:
-            n_pad = -(-rows_i // tile) * tile
+            n_pad = _padded(rows_i, tile)
             vt = np.zeros((rank, n_pad), dtype=np.int8)
             vt[:, :blk.shape[0]] = blk.T
             sv = np.zeros((n_pad,), dtype=np.float32)

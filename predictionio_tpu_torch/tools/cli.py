@@ -21,11 +21,18 @@
         [ENGINE_PARAMS_GENERATOR_CLASS] [--engine-dir DIR] [--batch LABEL]
         [--output-best-engine-params best.json]
     python -m predictionio_tpu_torch.tools.cli deploy [--engine-dir DIR]
-        [--engine-instance-id ID] [--ip HOST] [--port PORT]
-        [--aot auto|on|off] [--shard-serving auto|on|off]
-        [--foldin on|off] [--foldin-tick-ms MS]
-        [--foldin-headroom N] [--foldin-item-headroom N]
+        [--engine-instance-id ID] [--engines CONF_JSON] [--ip HOST]
+        [--port PORT] [--partition I/N] [--feedback
+        [--event-server-ip HOST] [--event-server-port PORT]
+        [--accesskey KEY]] [--aot auto|on|off]
+        [--shard-serving auto|on|off] [--foldin on|off]
+        [--foldin-tick-ms MS] [--foldin-headroom N]
+        [--foldin-item-headroom N]
         [--telemetry] [--trace] [--waterfall] [--profile-dir DIR] ...
+    python -m predictionio_tpu_torch.tools.cli router --backends URL,...
+        [--ip HOST] [--port PORT] [--health-ms MS] [--deadline-ms MS]
+        [--max-inflight N] [--cache on|off] [--cache-mb N]
+        [--cache-ttl-ms MS] [--telemetry] [--trace]
     python -m predictionio_tpu_torch.tools.cli foldin [--engine-dir DIR]
         [--engine-instance-id ID] [--tick-ms MS] [--max-ticks N]
     python -m predictionio_tpu_torch.tools.cli undeploy [--ip HOST]
@@ -53,13 +60,18 @@ all) trains block-sharded over a mesh of the world's devices, one per
 process; ``--coordinator`` joins a ``torch.distributed`` job (NCCL on the
 card, gloo on the CPU) where every process runs the same command with
 its own ``--process-id``. ``deploy --shard-serving on`` serves from
-row-sharded factors. The event server, the storage
+row-sharded factors; ``deploy --partition i/N`` serves partition i of N
+of the item rows, ``deploy --engines conf.json`` hosts several tenants,
+and ``router`` fans queries out over replicas (a partition fleet's
+answers merged). Every daemon, the router included, serves on the
+threaded transport or, with ``PIO_TRANSPORT=async``, on the asyncio
+one. The event server, the storage
 server, the app and key commands, ``import``, ``export`` and the
 operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
 ``incident``, which read live daemons over HTTP) work on the host and
 never touch the card. A reference variable that asks for a feature the port lacks
-(``knobs.py``: ``PIO_SERVE_DEVICE_MS=3``, ``PIO_TRANSPORT=async``, ...)
-makes the verb exit 1 with a message naming it,
+(``knobs.py``: ``PIO_SERVE_DEVICE_MS=3``) makes the verb exit 1 with a
+message naming it,
 before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
 ``PIO_TELEMETRY``, ``PIO_TRACE`` and ``PIO_WATERFALL`` to 1, as in the
 reference. Storage is configured as in the reference (zero
@@ -213,12 +225,28 @@ def cmd_deploy(args) -> int:
         # where POST /debug/profile captures land
         os.environ["PIO_PROFILE_DIR"] = args.profile_dir
     engine_dir = os.path.abspath(args.engine_dir)
-    variant = read_engine_variant(engine_dir, args.variant)
+    tenants = ()
+    if args.engines:
+        # multi-tenant: each tenant's spec names its own engine; the
+        # engine directory's engine.json is not read
+        from predictionio_tpu_torch.serving.registry import (
+            load_engines_conf,
+        )
+        tenants = load_engines_conf(args.engines)
+        variant = {}
+    else:
+        variant = read_engine_variant(engine_dir, args.variant)
     config = ServerConfig(
         engine_instance_id=args.engine_instance_id,
         engine_dir=engine_dir,
         engine_id=variant.get("id", "default"),
         engine_variant=variant.get("id", "default"),
+        tenants=tenants,
+        partition=args.partition,
+        feedback=args.feedback,
+        event_server_ip=args.event_server_ip,
+        event_server_port=args.event_server_port,
+        access_key=args.accesskey,
         batching=args.batching,
         batch_max_size=args.batch_max_size,
         batch_max_delay_ms=args.batch_max_delay_ms,
@@ -235,6 +263,31 @@ def cmd_deploy(args) -> int:
     api = QueryAPI(config=config)
     _info(f"Engine is deployed and running. Engine API is live at "
           f"http://{args.ip}:{args.port}.")
+    serve(api, host=args.ip, port=args.port)
+    return 0
+
+
+def cmd_router(args) -> int:
+    """The fleet front door (workflow/router.py): /queries.json fanned
+    out to N query-server replicas with health-driven membership,
+    per-request failover, load shedding and the coordinated /reload
+    barrier; a partition fleet's answers scattered and merged."""
+    from predictionio_tpu_torch.workflow.router import (
+        RouterAPI, RouterConfig, serve,
+    )
+    _apply_telemetry_env(args)
+    config = RouterConfig(
+        backends=tuple(_parse_targets(args.backends, flag="--backends")),
+        ip=args.ip, port=args.port,
+        health_ms=args.health_ms,
+        deadline_ms=args.deadline_ms,
+        max_inflight=args.max_inflight,
+        cache=args.cache,
+        cache_mb=args.cache_mb,
+        cache_ttl_ms=args.cache_ttl_ms)
+    api = RouterAPI(config)
+    _info(f"Router is started at {args.ip}:{args.port} over "
+          f"{len(api.backends)} backend(s).")
     serve(api, host=args.ip, port=args.port)
     return 0
 
@@ -594,8 +647,26 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("deploy", help="deploy the latest engine instance")
     engine_flags(sp)
     sp.add_argument("--engine-instance-id", default=None)
+    sp.add_argument("--engines", default=None, metavar="CONF_JSON",
+                    help="multi-tenant deploy: a JSON file of tenant "
+                         "specs (serving/registry.py); one process hosts "
+                         "N engine instances, each with its own batcher "
+                         "queue, memory budget and access-key admission")
     sp.add_argument("--ip", default="localhost")
     sp.add_argument("--port", type=int, default=8000)
+    sp.add_argument("--partition", default="",
+                    help="partition-routed deploy scope i/N (e.g. 0/2): "
+                         "serve only the owned contiguous item rows; "
+                         "`pio router` scatters each query over all N "
+                         "partitions and merges the answers exactly "
+                         "(PIO_DEPLOY_PARTITION overrides an empty value)")
+    sp.add_argument("--feedback", action="store_true",
+                    help="post each answered query as a predict event "
+                         "to the event server")
+    sp.add_argument("--event-server-ip", default="localhost")
+    sp.add_argument("--event-server-port", type=int, default=7070)
+    sp.add_argument("--accesskey", default=None,
+                    help="the feedback events' access key")
     sp.add_argument("--batching", choices=("auto", "on", "off"),
                     default="auto",
                     help="micro-batch concurrent queries (auto: on for "
@@ -661,6 +732,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tick in ms (0 = PIO_FOLDIN_TICK_MS or 250)")
     sp.add_argument("--max-ticks", type=int, default=0,
                     help="stop after N ticks (0 = run until Ctrl-C)")
+
+    sp = sub.add_parser(
+        "router",
+        help="start the replica-fleet front door: fan /queries.json out "
+             "to N query-server replicas with failover, load shedding "
+             "and the coordinated /reload barrier (workflow/router.py)")
+    sp.add_argument("--backends", required=True,
+                    help="comma-separated query-server base URLs, e.g. "
+                         "http://host:8000,http://host:8001")
+    sp.add_argument("--ip", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=8100)
+    sp.add_argument("--health-ms", type=float, default=0.0,
+                    help="membership poll cadence in ms (0 = "
+                         "PIO_ROUTER_HEALTH_MS or 500)")
+    sp.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-query deadline budget in ms, propagated "
+                         "as X-PIO-Deadline-Ms (0 = "
+                         "PIO_ROUTER_DEADLINE_MS or 2000)")
+    sp.add_argument("--max-inflight", type=int, default=0,
+                    help="admission ceiling before 503 + Retry-After "
+                         "(0 = PIO_ROUTER_MAX_INFLIGHT or 256)")
+    sp.add_argument("--cache", choices=("on", "off"), default="",
+                    help="front-door response cache keyed by (tenant, "
+                         "query bytes, model generation) (default "
+                         "PIO_ROUTER_CACHE or off)")
+    sp.add_argument("--cache-mb", type=int, default=0,
+                    help="response-cache budget in MB (0 = "
+                         "PIO_ROUTER_CACHE_MB or 16)")
+    sp.add_argument("--cache-ttl-ms", type=float, default=0.0,
+                    help="response-cache entry TTL in ms (0 = "
+                         "PIO_ROUTER_CACHE_TTL_MS or 5000)")
+    telemetry_flags(sp)
 
     sp = sub.add_parser("undeploy", help="stop a deployed engine server")
     sp.add_argument("--ip", default="localhost")
@@ -863,6 +966,7 @@ _DISPATCH = {
     "eval": cmd_eval,
     "deploy": cmd_deploy,
     "foldin": cmd_foldin,
+    "router": cmd_router,
     "undeploy": cmd_undeploy,
     "profile": cmd_profile,
     "eventserver": cmd_eventserver,

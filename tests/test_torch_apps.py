@@ -307,9 +307,9 @@ def test_dashboard_lists_completed_evaluations(port_store):
     assert api.handle("GET", "/engine_instances/zzz.json")[0] == 404
     assert api.handle("POST", "/")[0] == 405
     from predictionio_tpu_torch.data.api.http import dispatch_request
-    status, data, ctype, _ = dispatch_request(api, "GET", "/", b"", {})
-    assert (status, ctype) == (200, "text/html; charset=UTF-8")
-    assert b"my.Evaluation" in data
+    out = dispatch_request(api, "GET", "/", b"", {})
+    assert (out.status, out.ctype) == (200, "text/html; charset=UTF-8")
+    assert b"my.Evaluation" in out.data
 
 
 @pytest.mark.parametrize("api_cls", [AdminAPI, DashboardAPI])

@@ -120,9 +120,10 @@ class Pair:
         """One request through both; returns (status, reference JSON,
         port JSON). Without ``mask`` the answers must be byte-identical."""
         out = ref_dispatch(self.ref, method, target, body, dict(headers or {}))
-        status, data, ctype, _extra = dispatch_request(
+        got = dispatch_request(
             self.port, method, port_target or target, body,
             dict(headers or {}))
+        status, data, ctype = got.status, got.data, got.ctype
         if not mask:
             assert (status, data, ctype) == (out.status, out.data, out.ctype)
         else:
@@ -425,8 +426,8 @@ def test_telemetry_routes_are_the_documented_difference(route):
     ref_tracing.clear()
     tracing.clear()
     ref = ref_dispatch(p.ref, "GET", route, b"", {})
-    status, data, ctype, _extra = dispatch_request(p.port, "GET", route,
-                                                   b"", {})
+    got = dispatch_request(p.port, "GET", route, b"", {})
+    status, data, ctype = got.status, got.data, got.ctype
     assert (status, ctype) == (ref.status, ref.ctype)
     assert status == 200
     if route == "/traces.json":
@@ -442,9 +443,9 @@ def test_telemetry_routes_are_the_documented_difference(route):
     # content type and keys
     ref = ref_dispatch(p.ref, "GET", "/debug/history.json", b"", {})
     got = dispatch_request(p.port, "GET", "/debug/history.json", b"", {})
-    assert (got[0], got[2]) == (ref.status, ref.ctype)
-    assert got[0] == 200
-    assert sorted(json.loads(got[1])) == sorted(json.loads(ref.data))
+    assert (got.status, got.ctype) == (ref.status, ref.ctype)
+    assert got.status == 200
+    assert sorted(json.loads(got.data)) == sorted(json.loads(ref.data))
 
 
 def _wire(port, method, target, body=None):

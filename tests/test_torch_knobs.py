@@ -30,12 +30,7 @@ MEM = {
 
 #: values that turn each unported feature on, as an operator would set them
 REFUSED = {
-    "PIO_TRANSPORT": ["async"],
     "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
-    "PIO_DEPLOY_PARTITION": ["1/4"],
-    "PIO_TENANT_RATE": ["100"],
-    "PIO_TENANT_HBM_BUDGET_MB": ["512"],
-    "PIO_TENANT_HBM_HARD_CAP_MB": ["4096"],
 }
 
 UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
@@ -125,10 +120,135 @@ def test_accepted_deploy_reaches_the_instance_lookup(monkeypatch):
     fails on the empty store instead."""
     _clear(monkeypatch)
     monkeypatch.setenv("PIO_SERVE_SHARD", "auto")
-    monkeypatch.setenv("PIO_TRANSPORT", "threaded")
+    monkeypatch.setenv("PIO_TRANSPORT", "async")
     with pytest.raises(Exception) as e:
         QueryAPI(config=ServerConfig(device="cpu"), storage=Storage(env=MEM))
     assert "ROADMAP" not in str(e.value)
+
+
+def _router_config(port_side: bool):
+    if port_side:
+        from predictionio_tpu_torch.workflow.router import RouterConfig
+    else:
+        from predictionio_tpu.workflow.router import RouterConfig
+    return RouterConfig(backends=("http://127.0.0.1:1",)).resolved()
+
+
+def _fleet_reads(port_side: bool):
+    """Each fleet row's reader in one package: the transport helpers,
+    the router's resolved config, the tenants' admission limits, budget
+    and cap."""
+    if port_side:
+        from predictionio_tpu_torch.data.api import http
+        from predictionio_tpu_torch.serving import registry
+    else:
+        from predictionio_tpu.data.api import http
+        from predictionio_tpu.serving import registry
+
+    def limits():
+        ctl = registry.AdmissionController(None, {})
+        return ctl._limits_for("t")
+
+    def budget():
+        spec = registry.TenantSpec(name="t")
+        return registry.ServableModel(
+            name="t", spec=spec, instance=None, engine=None,
+            engine_params=None, algorithms=[], models=[],
+            serving=None).hbm_budget_mb
+
+    def router(field):
+        return lambda: getattr(_router_config(port_side), field)
+
+    return {
+        "PIO_TRANSPORT": lambda: http.transport_mode(),
+        "PIO_TRANSPORT_WORKERS": http._executor_workers,
+        "PIO_TRANSPORT_PIPELINE": http._pipeline_window,
+        "PIO_ROUTER_HEALTH_MS": router("health_ms"),
+        "PIO_ROUTER_DEADLINE_MS": router("deadline_ms"),
+        "PIO_ROUTER_MAX_INFLIGHT": router("max_inflight"),
+        "PIO_ROUTER_TENANT_MAX_INFLIGHT": router("tenant_max_inflight"),
+        "PIO_ROUTER_CACHE": lambda: _router_config(port_side).cache_on,
+        "PIO_ROUTER_CACHE_MB": router("cache_mb"),
+        "PIO_ROUTER_CACHE_TTL_MS": router("cache_ttl_ms"),
+        "PIO_TENANT_RATE": limits,
+        "PIO_TENANT_BURST": limits,
+        "PIO_TENANT_HBM_BUDGET_MB": budget,
+        "PIO_TENANT_HBM_HARD_CAP_MB": lambda: registry.ModelRegistry(
+        ).hard_cap_mb,
+    }
+
+
+#: the rows read since the async transport, the router, partitions and
+#: tenants landed (they were refused or inert before), each with two
+#: values an operator would set and what the port then does
+FLEET_READS = {
+    "PIO_TRANSPORT": [("async", "async"), ("threaded", "threaded")],
+    "PIO_TRANSPORT_WORKERS": [("3", 3), ("0", None)],
+    "PIO_TRANSPORT_PIPELINE": [("4", 4), ("junk", 16)],
+    "PIO_ROUTER_HEALTH_MS": [("50", 50.0), ("-1", 500.0)],
+    "PIO_ROUTER_DEADLINE_MS": [("750", 750.0), ("", 2000.0)],
+    "PIO_ROUTER_MAX_INFLIGHT": [("8", 8), ("0", 256)],
+    "PIO_ROUTER_TENANT_MAX_INFLIGHT": [("2", 2), ("x", 0)],
+    "PIO_ROUTER_CACHE": [("on", True), ("off", False)],
+    "PIO_ROUTER_CACHE_MB": [("4", 4), ("0", 16)],
+    "PIO_ROUTER_CACHE_TTL_MS": [("100", 100.0), ("0", 5000.0)],
+    "PIO_DEPLOY_PARTITION": [("1/4", None), ("0/2", None)],
+    "PIO_TENANT_RATE": [("100", (100.0, 200.0)), ("2.5", (2.5, 5.0))],
+    "PIO_TENANT_BURST": [("7", (0.0, 7.0)), ("0", (0.0, 1.0))],
+    "PIO_TENANT_HBM_BUDGET_MB": [("512", 512.0), ("", None)],
+    "PIO_TENANT_HBM_HARD_CAP_MB": [("4096", 4096.0), ("junk", None)],
+}
+
+
+@pytest.mark.parametrize("name,value,want", [
+    (name, value, want) for name in sorted(FLEET_READS)
+    for value, want in FLEET_READS[name]])
+def test_fleet_variables_are_read_at_their_entry_points(
+        monkeypatch, name, value, want):
+    """Each row turned from refused or inert to read: never refused, and
+    read by the port as the reference reads it."""
+    from predictionio_tpu_torch.serving.registry import TenantSpec
+
+    _clear(monkeypatch)
+    assert knobs.KNOBS[name].kind == knobs.READ
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)       # never refused
+    if name == "PIO_DEPLOY_PARTITION":
+        # the deploy reads it: a partition scope cannot host tenants
+        with pytest.raises(ValueError, match="single-engine deploy"):
+            QueryAPI(config=ServerConfig(device="cpu",
+                                         tenants=(TenantSpec(name="a"),)),
+                     storage=Storage(env=MEM))
+        return
+    if name == "PIO_TRANSPORT_WORKERS" and want is None:
+        import os
+        want = min(32, (os.cpu_count() or 1) * 4)
+    got = _fleet_reads(True)[name]()
+    assert got == want == _fleet_reads(False)[name]()
+    if name == "PIO_TRANSPORT":
+        # every daemon builds its server on the transport the row names
+        from predictionio_tpu_torch.data.api import http
+        server = http.make_server(object(), "127.0.0.1", 0)
+        try:
+            assert (type(server).__name__ == "AsyncHTTPServer") is (
+                value == "async")
+        finally:
+            server.server_close()
+            if value == "async":
+                server._sock.close()
+
+
+@pytest.mark.parametrize("verb", ["eventserver", "dashboard",
+                                  "adminserver", "storageserver"])
+def test_a_misspelt_transport_fails_the_daemon(monkeypatch, capsys, verb):
+    """PIO_TRANSPORT is read where each daemon builds its server: a value
+    that names no transport exits 1 before anything is served."""
+    _clear(monkeypatch)
+    monkeypatch.setenv("PIO_TRANSPORT", "asynch")
+    assert cli.main([verb, "--ip", "127.0.0.1", "--port", "0"]) == 1
+    assert "PIO_TRANSPORT must be 'threaded' or 'async'" in \
+        capsys.readouterr().err
 
 
 #: PIO_SERVE_SHARD since sharded serving landed: each value an operator

@@ -112,7 +112,7 @@ def test_wire_parity_with_foldin_and_warm_up_off(monkeypatch):
                 ("GET", "/debug/device.json", b""), ("GET", "/nope", b"")):
             want = ref_dispatch(japi, method, path, body, {})
             got = dispatch_request(tapi, method, path, body, {})
-            assert (got[0], got[1], got[2]) == (
+            assert (got.status, got.data, got.ctype) == (
                 want.status, want.data, want.ctype), path
         jkeys = set(japi.handle("GET", "/")[1])
         tkeys = set(tapi.handle("GET", "/")[1])

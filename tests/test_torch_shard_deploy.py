@@ -112,10 +112,10 @@ def test_sharded_deploy_answers_the_replicated_bytes(quant):
         assert (sh.get("dtype") == "int8") == (quant == "on")
         if quant == "on":
             assert st["quant"]["sharded"] and st["quant"]["shards"] == 1
-        metrics = dispatch_request(api, "GET", "/metrics", b"", {})[1]
+        metrics = dispatch_request(api, "GET", "/metrics", b"", {}).data
         assert b"\npio_serve_shards 1\n" in metrics
         dev = json.loads(dispatch_request(api, "GET", "/debug/device.json",
-                                          b"", {})[1])
+                                          b"", {}).data)
         assert dev["sharding"]["shards"] == 1
         scraped = {"url": "in-process"}
         for key, path in (("healthz", "/healthz"), ("readyz", "/readyz"),
@@ -126,7 +126,7 @@ def test_sharded_deploy_answers_the_replicated_bytes(quant):
                           ("history", "/debug/history.json"),
                           ("events", "/debug/events.json")):
             got = dispatch_request(api, "GET", path, b"", {})
-            scraped[key] = {"status": got[0], "body": got[1].decode()}
+            scraped[key] = {"status": got.status, "body": got.data.decode()}
         line = {c: (s, d) for c, s, d in doctor.diagnose(scraped)}
         state, detail = line["sharding"]
         assert state == doctor.OK, detail

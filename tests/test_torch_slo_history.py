@@ -111,7 +111,7 @@ def test_daemons_expose_the_same_families(fresh, monkeypatch):
         body = util.query("u3", 4)
         want = ref_dispatch(japi, "POST", "/queries.json", body, {})
         got = dispatch_request(tapi, "POST", "/queries.json", body, {})
-        assert got[0] == want.status == 200
+        assert got.status == want.status == 200
         for wall_ms in (1_000, 2_000):
             ref_history.recorder().tick(wall_ms=wall_ms)
             history.recorder().tick(wall_ms=wall_ms)
@@ -119,7 +119,7 @@ def test_daemons_expose_the_same_families(fresh, monkeypatch):
             want = ref_dispatch(ref_api, "GET", "/metrics", b"", {})
             got = dispatch_request(api, "GET", "/metrics", b"", {})
             ref_fams = _families(want.data.decode())
-            fams = _families(got[1].decode())
+            fams = _families(got.data.decode())
             assert fams == ref_fams, (name, sorted(ref_fams ^ fams))
             for family in ("pio_slo_latency_threshold_ms", "pio_slo_target",
                            "pio_slo_error_budget_remaining",
@@ -130,9 +130,9 @@ def test_daemons_expose_the_same_families(fresh, monkeypatch):
                                 {})
             got = dispatch_request(api, "GET", "/debug/history.json", b"",
                                    {})
-            assert (got[0], got[2]) == (want.status, want.ctype)
-            snap = json.loads(got[1])
-            assert got[0] == 200 and snap["enabled"] is True
+            assert (got.status, got.ctype) == (want.status, want.ctype)
+            snap = json.loads(got.data)
+            assert got.status == 200 and snap["enabled"] is True
             assert [s["t"] for s in snap["samples"]] == [1_000, 2_000]
             assert sorted(snap) == sorted(json.loads(want.data))
     finally:

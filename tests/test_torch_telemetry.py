@@ -304,8 +304,8 @@ def test_daemon_telemetry_routes_match_the_reference(daemons, monkeypatch,
         port.set_enabled(on)
     for method, target in DAEMON_ROUTES:
         want = ref_dispatch(ref_api, method, target, b"", {})
-        status, data, ctype, _extra = dispatch_request(api, method, target,
-                                                       b"", {})
+        got = dispatch_request(api, method, target, b"", {})
+        status, data, ctype = got.status, got.data, got.ctype
         assert (status, ctype) == (want.status, want.ctype), (daemon, target)
         if target == "/metrics":
             lines = data.decode().splitlines()
@@ -338,19 +338,20 @@ def test_queries_and_events_keep_their_bytes_with_the_knobs_on(
     for on in (False, True):
         for mod in (telemetry, tracing, waterfall):
             mod.set_enabled(on)
-        got = [dispatch_request(api, "POST", "/queries.json", b, {})[:3]
-               for b in bodies]
-        got.append(dispatch_request(ev_api, "POST",
-                                    "/events.json?accessKey=key", event,
-                                    {})[:3])
+        outs = [dispatch_request(api, "POST", "/queries.json", b, {})
+                for b in bodies]
+        outs.append(dispatch_request(ev_api, "POST",
+                                     "/events.json?accessKey=key", event,
+                                     {}))
+        got = [(o.status, o.data, o.ctype) for o in outs]
         answers.append(got)
     assert answers[0] == answers[1]
     assert all(a[0] == 200 for a in answers[0][:-1])
     assert answers[0][-1][:2] == (201, b'{"eventId": "e1"}')
     status = dispatch_request(api, "GET", "/", b"", {})
     ref_status = dispatch_request(_ref_api, "GET", "/", b"", {})
-    keys = json.loads(status[1])
-    want = json.loads(ref_status[1])
+    keys = json.loads(status.data)
+    want = json.loads(ref_status.data)
     assert sorted(keys["batching"]) == sorted(want["batching"])
     assert keys["quant"] == want["quant"]
 
@@ -368,11 +369,9 @@ def test_event_server_scrape_never_touches_the_card(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, forbidden)
     telemetry.set_enabled(True)
     api = service.EventAPI(storage=Storage(env=util.MEM))
-    status, data, ctype, _ = dispatch_request(api, "GET", "/metrics", b"",
-                                              {})
-    assert status == 200 and "pio_live_arrays 0" in data.decode()
-    assert "pio_hbm_bytes_in_use" not in data.decode()
-    status, data, _c, _ = dispatch_request(api, "GET", "/debug/device.json",
-                                           b"", {})
-    assert status == 200 and json.loads(data)["devices"] == []
+    out = dispatch_request(api, "GET", "/metrics", b"", {})
+    assert out.status == 200 and "pio_live_arrays 0" in out.data.decode()
+    assert "pio_hbm_bytes_in_use" not in out.data.decode()
+    out = dispatch_request(api, "GET", "/debug/device.json", b"", {})
+    assert out.status == 200 and json.loads(out.data)["devices"] == []
     assert torch.cuda.is_initialized() is False

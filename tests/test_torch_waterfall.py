@@ -146,7 +146,7 @@ def test_deploys_record_the_same_stages_and_spans(deployed, monkeypatch):
             hdr = {"X-PIO-Trace": f"t{k:03d}-0"}
             out = dispatch(api, "POST", "/queries.json",
                            util.query(u, n), hdr)
-            bodies.append(out.data if hasattr(out, "data") else out[1])
+            bodies.append(out.data)
         recs = {r["traceId"]: r for r in wf.slow_snapshot(64)["requests"]}
         traces = {t["traceId"]: _span_tree(t["spans"])
                   for t in tr.snapshot(limit=64)["traces"]}
