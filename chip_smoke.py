@@ -77,7 +77,7 @@ Phases (any failure raises and the script exits non-zero):
              beside phase 6's with them off.
 7. quickstart — the port's CLI in process, on the SQLite store: ``pio
              app new`` with a fixed key, ``app channel-new`` and a
-             rate-only ``accesskey new``; ``pio import`` of 500,000
+             rate-only ``accesskey new``; ``pio import`` of 250,000
              seeded rate events (6,900 users x 26,744 items, the ML-20M
              catalog) from a JSON-lines file; ``pio eventserver`` on
              127.0.0.1 (in the main thread, its client in another): a
@@ -177,7 +177,7 @@ Phases (any failure raises and the script exits non-zero):
              copy), each under torch.profiler with kernel A 20 times, the
              three models bit-identical, their phases and the device's
              idle share printed beside phase 5's and the quickstart's;
-             ``pio import`` of the quickstart's 500,000-event file into
+             ``pio import`` of the quickstart's 250,000-event file into
              an eventlog app (events/s beside the SQLite import's) and
              ``pio train`` from it (kernel A 20 times, read_io beside
              SQLite's); ``head_cursor``, 1,000 events through the event
@@ -264,6 +264,42 @@ Phases (any failure raises and the script exits non-zero):
              ``/debug/device.json``'s sharding block and ``pio doctor``'s
              sharding line ok; ``POST /reload`` under 256 queries, none
              dropped, still sharded; ``pio undeploy``.
+13. control — continuous training and the fleet autopilot on the store
+             phase's eventlog app, after its fold-in step (rank 10, 10
+             iterations, engine.json): (a) ``pio train`` of a control
+             engine (the live generation), 2,000 rate events through the
+             event server (40 unseen users among them), ``pio train`` of a
+             second engine over the same store (the comparison), then a
+             quantized deploy with fold-in under one client's query
+             stream, and the loop ``pio deploy --autotrain`` embeds
+             attached to it (volume threshold 1,000): it must decide
+             ``volume``, retrain on its own thread (kernel A 20 times on
+             that thread, each == plain bit for bit), pass both gates and
+             publish through the in-place swap (generation + 1); the
+             candidate equal to the comparison train bit for bit at the
+             same training cursor; 8 unseen users' events posted after
+             the retrain's read and before the publish, each served after
+             the rebase at the candidate's cursor and equal to the plain
+             int8 path; B1 = B2 = the flushes of both generations, plus
+             one each a bucket in the publish's warm-up; 0 dropped; the
+             cycle's split, the query p50 / p99 before and during the
+             retrain, and ``memory_allocated`` before, during and after
+             the swap (after: back to one model's worth); (b) a
+             staleness-triggered cycle retraining at lambda 1,000: the
+             score gate refuses it, its row reads REJECTED, the
+             generation stays and 24 answers keep their bytes; (c) the
+             autopilot over ``pio router`` of two in-process replicas of
+             the published model: a scale-up through
+             SubprocessReplicaPool (a ``pio deploy`` child on the card,
+             quantized, its answers the replicas' bytes, its time to
+             ready), the child (its query route 150 ms slower under
+             PIO_FAULT_SPEC) quarantined as a latency outlier and
+             readmitted, then drained under a light stream with 0
+             dropped; one ladder rung under a burn of a tight
+             PIO_SLO_LATENCY_MS, the exact thresholds restored once it
+             stops, exactly one profile capture whose trace holds B1 and
+             B2 and no sort; a dry run that journals a would-have
+             scale-up and leaves the router's status byte-identical.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -343,10 +379,10 @@ N_RATINGS = 20_000_263                          # ML-20M's rating count
 TILE = 512
 BUCKETS = (1, 4, 16, 64)
 # the eval phase: ML-20M's catalog, users and ratings cut (PERF.md §4)
-#: the quickstart app the eval and the store phase read: 500,000 rate
+#: the quickstart app the eval and the store phase read: 250,000 rate
 #: events, cut from 1,000,000 (most of its time is the SQLite import)
 #: to keep the whole smoke well inside its time limit
-EVAL_USERS, EVAL_RATINGS = 6_900, 500_000
+EVAL_USERS, EVAL_RATINGS = 6_900, 250_000
 EVAL_APP, EVAL_K_FOLD, EVAL_QUERY_NUM = "SmokeEval", 5, 10
 EVAL_RANKS, EVAL_ITERS = (5, 10, 20), (1, 5, 10)
 # the quickstart, whose app the eval then reads
@@ -2030,6 +2066,15 @@ FLEET_CAP_APP, FLEET_CAP_KEY = "SmokeFleetCap", "smoke-fleet-cap-key"
 FLEET_FEEDBACK_APP, FLEET_FEEDBACK_KEY = ("SmokeFleetFeedback",
                                           "smoke-fleet-feedback-key")
 FLEET_QS_RATE = 4.0              # the quickstart tenant's queries per s
+#: the membership poll of the routers over in-process replicas (the
+#: kill, the reload barrier, the partitions, the autopilot): the
+#: router's default (PIO_ROUTER_HEALTH_MS), so a probe times out after
+#: 2 s. Replicas, router and clients share this interpreter, so a
+#: replica's reload slows every probe; a 100 ms poll's 0.5 s timeout let
+#: one probe of the replica serving alone in the reload barrier expire,
+#: and the router ejected it and shed. The reload step prints each
+#: replica's longest probe
+FLEET_HEALTH_MS = 500.0
 FLEET_ENV = {"PIO_TRACE": "1", "PIO_WATERFALL": "1", "PIO_SLOW_RING": "512"}
 #: the tenants step reads pio_tenant_model_bytes off /metrics
 FLEET_TENANT_ENV = {"PIO_TELEMETRY": "1"}
@@ -2138,6 +2183,14 @@ def _raw_post(port: int, body: bytes, path: str = "/queries.json",
 
 def _qbody(user: str, num: int) -> bytes:
     return json.dumps({"user": user, "num": num}).encode()
+
+
+def _router_warnings(since_seq: int) -> list:
+    """The router's journal records above INFO after ``since_seq``
+    (ejections, aborted barriers): what a failed fleet check prints."""
+    return [e["message"] for e in journal.snapshot(
+        since_seq=since_seq, category="router", limit=32)["events"]
+        if e["level"] != journal.INFO]
 
 
 def _batches(api_or_batcher) -> int:
@@ -2348,9 +2401,10 @@ def _fleet_router(store, users, seed, launches, insert_b):
     gen1 = {u: _raw_post(pa, _qbody(u, 10))[1] for u in distinct}
     launches.clear()
     since_a = _batches(a)
+    seq0 = journal.snapshot(limit=1)["lastSeq"]
     router = router_mod.RouterAPI(router_mod.RouterConfig(
         backends=(f"http://127.0.0.1:{pa}", f"http://127.0.0.1:{pb}"),
-        health_ms=100.0))
+        health_ms=FLEET_HEALTH_MS))
     sr, pr = _fleet_serve(router, "threaded")
     done = collections.Counter()
     lock = threading.Lock()
@@ -2409,7 +2463,8 @@ def _fleet_router(store, users, seed, launches, insert_b):
            if s != 200 or raw != gen1[u]]
     if len(answers) != FLEET_ROUTER_QUERIES or bad:
         raise AssertionError(f"router: {len(answers)} answers, "
-                             f"{len(bad)} not the direct bytes: {bad[:3]}")
+                             f"{len(bad)} not the direct bytes: {bad[:3]}; "
+                             f"router journal {_router_warnings(seq0)}")
     lat = [t for *_x, t in answers]
     kill = {"queries": len(answers), "dropped": 0, "wall_s": wall,
             "failovers": status["failoverCount"],
@@ -2435,9 +2490,27 @@ def _fleet_router(store, users, seed, launches, insert_b):
     # flushes so far: the barrier's window spans both generations
     gen1_of = {k: (api.models[0].quant, api._batcher, _batches(api._batcher))
                for k, api in (("a", a), ("c", c_api))}
+    seq0 = journal.snapshot(limit=1)["lastSeq"]
+    # the longest readiness probe of each replica, the poller's and the
+    # barrier's own: what FLEET_HEALTH_MS's timeout has to cover
+    probe_s = {f"127.0.0.1:{p}": 0.0 for p in (pa, pc)}
+
+    def timed_probe(orig):
+        def probe(self, timeout=2.0):
+            t = time.perf_counter()
+            try:
+                return orig(self, timeout)
+            finally:
+                with lock:
+                    probe_s[self.name] = max(probe_s.get(self.name, 0.0),
+                                             time.perf_counter() - t)
+        return probe
+
+    timing = _wrapped((router_mod._Backend, "probe", timed_probe))
+    timing.__enter__()
     router = router_mod.RouterAPI(router_mod.RouterConfig(
         backends=(f"http://127.0.0.1:{pa}", f"http://127.0.0.1:{pc}"),
-        health_ms=100.0))
+        health_ms=FLEET_HEALTH_MS))
     sr, pr = _fleet_serve(router, "threaded")
     stop_at = threading.Event()
     results = {}
@@ -2503,6 +2576,7 @@ def _fleet_router(store, users, seed, launches, insert_b):
     finally:
         stop_at.set()
         _fleet_stop((sr, router))
+        timing.__exit__(None, None, None)
     gen2 = {u: _raw_post(pa, _qbody(u, 10))[1] for u in distinct}
     n, per_client = 0, []
     for c, res in results.items():
@@ -2512,7 +2586,9 @@ def _fleet_router(store, users, seed, launches, insert_b):
             g = 1 if raw == gen1[u] else 2 if raw == gen2[u] else None
             if status != 200 or g is None:
                 raise AssertionError(f"reload: client {c} got {status} "
-                                     "with bytes of neither generation")
+                                     "with bytes of neither generation; "
+                                     "router journal "
+                                     f"{_router_warnings(seq0)}")
             seen.append(g)
         if seen != sorted(seen):
             raise AssertionError(f"reload: client {c} went back a "
@@ -2522,6 +2598,8 @@ def _fleet_router(store, users, seed, launches, insert_b):
         raise AssertionError(f"reload: generations {gens}, per client "
                              f"{per_client}")
     reload_out = {"queries": n, "dropped": 0, "barrier_s": barrier_s,
+                  "probe_max_s": {"a": probe_s[f"127.0.0.1:{pa}"],
+                                  "c": probe_s[f"127.0.0.1:{pc}"]},
                   "per_client_gen1_gen2": per_client,
                   "generations": list(gens),
                   "launches": {k: {"B1": v[0], "B2": v[1],
@@ -2531,7 +2609,9 @@ def _fleet_router(store, users, seed, launches, insert_b):
     print(f"fleet: POST /reload through the router under {FLEET_CLIENTS} "
           f"clients: {n} queries, 0 dropped, every answer a generation's "
           f"direct bytes, each client's generations monotone "
-          f"{per_client}; barrier {barrier_s:.3f} s; replicas now at "
+          f"{per_client}; barrier {barrier_s:.3f} s, longest probe a "
+          f"{reload_out['probe_max_s']['a']:.3f} s, c "
+          f"{reload_out['probe_max_s']['c']:.3f} s; replicas now at "
           f"generation {gens}; B1/B2/flushes over both generations a "
           f"{counts['a']}/{flushes['a']}, c {counts['c']}/{flushes['c']}, "
           f"reload warm-up B1/B2 a {warm['a']}, c {warm['c']}", flush=True)
@@ -2554,7 +2634,7 @@ def _fleet_partition(store, inst_b, users, seed, launches, direct, dev,
     served_parts = [_fleet_serve(p) for p in parts]
     router = router_mod.RouterAPI(router_mod.RouterConfig(
         backends=tuple(f"http://127.0.0.1:{p}" for _s, p in served_parts),
-        health_ms=100.0))
+        health_ms=FLEET_HEALTH_MS))
     sr, pr = _fleet_serve(router, "threaded")
     rng = np.random.default_rng(seed + 43)
     who = [users[u] for u in rng.choice(len(users),
@@ -3944,6 +4024,9 @@ class _Stream:
         if not self._parked.wait(timeout=60):
             raise AssertionError("the query stream did not pause")
 
+    def resume(self) -> None:
+        self._go.set()
+
     def close(self) -> dict:
         self._stop.set()
         self._go.set()
@@ -5249,6 +5332,948 @@ def _print_foldin(fold: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: continuous training and the fleet autopilot
+# ---------------------------------------------------------------------------
+
+#: the deploy's engine (its instances are the live generation and the
+#: candidates) and the comparison train's, both on the store phase's app
+CONTROL_ENGINE = "smoke-control"
+CONTROL_CLI_ENGINE = "smoke-control-cli"
+#: the events that cross the volume trigger: trained users' rates and
+#: unseen users' rates
+CONTROL_TRAINED_USERS, CONTROL_TRAINED_RATINGS = 200, 8
+CONTROL_NEW_USERS, CONTROL_NEW_RATINGS = 40, 10
+#: unseen users whose events land after the retrain's read and before its
+#: publish: the fold-in rebase at the candidate's cursor must serve them
+CONTROL_LATE_USERS, CONTROL_LATE_RATINGS = 8, 6
+#: queries of the stream before the loop is attached
+CONTROL_BEFORE_QUERIES = 200
+#: the rejected candidate's lambda: its factors shrink to nothing, which
+#: wrecks the probe RMSE
+CONTROL_REJECT_LAMBDA = 1000.0
+CONTROL_DEADLINE_S = 180.0
+#: one volume-triggered cycle: a small volume threshold, a short poll, a
+#: cooldown past the phase, and the other triggers out of reach (the
+#: fold-in drift probe off, so no drift recall can precede volume)
+AUTOTRAIN_ENV = {
+    "PIO_AUTOTRAIN_VOLUME_EVENTS": "1000", "PIO_AUTOTRAIN_POLL_MS": "100",
+    "PIO_AUTOTRAIN_COOLDOWN_S": "3600",
+    "PIO_AUTOTRAIN_MAX_STALENESS_S": "8640000",
+    "PIO_AUTOTRAIN_LAG_EVENTS": "1000000000",
+    "PIO_FOLDIN_DRIFT_EVERY": "0", "PIO_FOLDIN_TICK_MS": "100"}
+#: the thread ThreadTrainer retrains on, and the loop's (the publish and
+#: its warm-up run there)
+RETRAIN_THREAD, LOOP_THREAD = "pio-autotrain-retrain", "pio-autotrain"
+#: the autopilot step: telemetry on (the per-backend histogram and the
+#: burn gauges), a loose latency objective except in the ladder step,
+#: burn windows of 2 s and 6 s
+PILOT_ENV = {"PIO_TELEMETRY": "1", "PIO_SLO_LATENCY_MS": "10000",
+             "PIO_SLO_FAST_WINDOW_S": "2", "PIO_SLO_SLOW_WINDOW_S": "6"}
+PILOT_TIGHT_SLO_MS = "0.05"
+PILOT_CLIENTS = 8
+#: the spawned replica's latency fault, on its query route only
+PILOT_LATENCY_MS = 150
+PILOT_DEADLINE_S = 30.0
+
+
+def _device_bytes(dev) -> tuple:
+    """``memory_allocated``, then the same once torch's cuBLAS workspaces
+    are released: torch keeps one per thread that ran a matmul (tens of
+    MB on Hopper) for the next thread to reuse, so a retrain thread
+    leaves one behind that no model owns. (None, None) off the card."""
+    if dev.type != "cuda":
+        return None, None
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        torch.cuda.synchronize()
+    return raw, torch.cuda.memory_allocated()
+
+
+def _control_engine_dir(work: str, engine_id: str) -> str:
+    """An engine directory of the template's engine.json, its id
+    ``engine_id``, pointed at the store phase's app."""
+    path = os.path.join(work, engine_id)
+    os.makedirs(path)
+    with open(ENGINE_JSON) as f:
+        variant = json.load(f)
+    variant["id"] = engine_id
+    variant["datasource"]["params"]["appName"] = STORE_APP
+    with open(os.path.join(path, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    return path
+
+
+def _control_train(engine_dir: str, store, engine_id: str):
+    """``pio train`` of one engine directory: its ledger row, its model
+    and kernel A's launches (nothing else runs on the card meanwhile)."""
+    solve.reset_launches()
+    if cli.main(["train", "--engine-dir", engine_dir]) != 0:
+        raise AssertionError(f"pio train of {engine_id} failed")
+    launches = solve.launches
+    row = store.get_meta_data_engine_instances().get_latest_completed(
+        engine_id, "NOT_USED", engine_id)
+    (model,) = model_io.deserialize_models(
+        store.get_model_data_models().get(row.id).models)
+    return row, model, launches
+
+
+class _ThreadLaunches:
+    """Kernel A, B1 and B2 launches by the launching thread while the
+    block runs; every kernel A launch on the retrain thread is checked
+    against the plain solve on the same inputs, bit for bit."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.a = collections.Counter()
+        self.b1 = collections.Counter()
+        self.b2 = collections.Counter()
+        self.a_mismatch = 0
+        self.a_max_abs_err = 0.0
+
+    def clear(self):
+        with self.lock:
+            self.a.clear()
+            self.b1.clear()
+            self.b2.clear()
+
+    def wrap(self):
+        def count(table):
+            with self.lock:
+                table[threading.current_thread().name] += 1
+
+        def a(orig):
+            def run(A, b, reg):
+                x = orig(A, b, reg)
+                count(self.a)
+                if threading.current_thread().name == RETRAIN_THREAD:
+                    p = solve.solve_gj_plain(A, b, reg)
+                    same = bool(_bitwise_same(x, p).all())
+                    err = float((x - p).abs().max()) if x.numel() else 0.0
+                    with self.lock:
+                        self.a_mismatch += 0 if same else 1
+                        self.a_max_abs_err = max(self.a_max_abs_err, err)
+                return x
+            return run
+
+        def b(table):
+            def make(orig):
+                def run(*args, **kw):
+                    out = orig(*args, **kw)
+                    count(table)
+                    return out
+                return run
+            return make
+
+        return _wrapped((solve, "_launch", a),
+                        (topk_fused, "_launch", b(self.b1)),
+                        (topk_fused, "_launch_merge", b(self.b2)))
+
+    def split(self, table) -> dict:
+        """{retrain, loop, other} of one table."""
+        with self.lock:
+            got = dict(table)
+        return {"retrain": got.pop(RETRAIN_THREAD, 0),
+                "loop": got.pop(LOOP_THREAD, 0),
+                "other": sum(got.values())}
+
+
+def phase_control(work: str, seed: int, dev: torch.device) -> dict:
+    """Phase 13 on the store phase's eventlog app, after its fold-in
+    step: (a) a volume-triggered autotrain cycle in a deploy with fold-in,
+    (b) a candidate the score gate refuses, (c) the autopilot over a
+    router of two replicas of the published model."""
+    env = {**_eventlog_env(work), **AUTOTRAIN_ENV}
+    names = (*env, *PILOT_ENV, "PIO_TRAIN_STREAM", "PIO_FOLDIN_CURSOR_DIR",
+             "PIO_PROFILE_DIR")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.pop("PIO_TRAIN_STREAM", None)
+    os.environ.update(env)
+    storage_mod.reset_storage()
+    t_phase = time.perf_counter()
+    try:
+        store = storage_mod.get_storage()
+        out = {"card": _smi()}
+        live_dir = _control_engine_dir(work, CONTROL_ENGINE)
+        cli_dir = _control_engine_dir(work, CONTROL_CLI_ENGINE)
+        out["autotrain"] = _control_autotrain(work, store, live_dir,
+                                              cli_dir, seed, dev)
+        _print_autotrain(out["autotrain"])
+        out["autopilot"] = _control_autopilot(work, store, live_dir, seed,
+                                              dev)
+        _print_autopilot(out["autopilot"])
+        store.get_events().close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        slo.install(slo.SLOConfig.from_env())
+        storage_mod.reset_storage()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("control: " + json.dumps(out), flush=True)
+    return out
+
+
+def _trigger_events(model, seed: int) -> list:
+    rng = np.random.default_rng(seed + 61)
+    users = list(model.user_vocab.to_dict())
+    items = list(model.item_vocab.to_dict())
+    out = []
+    for u in rng.choice(len(users), size=CONTROL_TRAINED_USERS,
+                        replace=False):
+        for i in rng.choice(len(items), size=CONTROL_TRAINED_RATINGS,
+                            replace=False):
+            out.append(_rate(users[u], items[i],
+                             float(rng.integers(1, 11)) / 2))
+    for j in range(CONTROL_NEW_USERS):
+        for i in rng.choice(len(items), size=CONTROL_NEW_RATINGS,
+                            replace=False):
+            out.append(_rate(f"control_u{j}", items[i],
+                             float(rng.integers(1, 11)) / 2))
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def _control_autotrain(work, store, live_dir, cli_dir, seed, dev) -> dict:
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+
+    out = {}
+    # the live generation, then the events that cross the volume trigger
+    live_row, live_model, live_a = _control_train(live_dir, store,
+                                                  CONTROL_ENGINE)
+    es, es_port = http_mod.serve_background(
+        service.EventAPI(storage=store), "127.0.0.1", 0)
+    try:
+        trigger = _trigger_events(live_model, seed)
+        t0 = time.perf_counter()
+        _post_events(es_port, trigger)
+        out["trigger_events"] = len(trigger)
+        out["trigger_post_s"] = time.perf_counter() - t0
+        # the comparison: pio train of the same app, seed and store,
+        # before the retrain reads it (no event lands in between)
+        cli_row, cli_model, cli_a = _control_train(cli_dir, store,
+                                                   CONTROL_CLI_ENGINE)
+        out["cli_train"] = {"instance": cli_row.id, "A_launches": cli_a,
+                            "cursor": cli_row.runtime_conf.get(
+                                "train_cursor")}
+        out["live_train"] = {"instance": live_row.id,
+                             "A_launches": live_a,
+                             "cursor": live_row.runtime_conf.get(
+                                 "train_cursor")}
+        cycle, reject = _control_cycle(work, store, live_dir, live_row,
+                                       live_model, cli_row, cli_model,
+                                       es_port, seed, dev)
+    finally:
+        es.shutdown()
+        es.server_close()
+    out.update(cycle)
+    out["reject"] = reject
+    return out
+
+
+def _control_cycle(work, store, live_dir, live_row, live_model, cli_row,
+                   cli_model, es_port, seed, dev):
+    from predictionio_tpu_torch.models.recommendation.data_source import (
+        DataSource,
+    )
+    from predictionio_tpu_torch.serving import registry as registry_mod
+    from predictionio_tpu_torch.workflow import autotrain
+
+    with open(os.path.join(live_dir, "engine.json")) as f:
+        variant = json.load(f)
+    items = list(live_model.item_vocab.to_dict())
+    rng = np.random.default_rng(seed + 63)
+    late_users = [f"late_u{j}" for j in range(CONTROL_LATE_USERS)]
+    late = [_rate(u, items[i], float(rng.integers(1, 11)) / 2)
+            for u in late_users
+            for i in rng.choice(len(items), size=CONTROL_LATE_RATINGS,
+                                replace=False)]
+    marks = {}
+
+    def late_hook(orig):
+        # the late events land after the retrain's read returned: past
+        # its training cursor and outside its model
+        def read_training(self, ctx_):
+            td = orig(self, ctx_)
+            if (threading.current_thread().name == RETRAIN_THREAD
+                    and "late_s" not in marks):
+                marks["late_s"] = time.perf_counter()
+                _post_events(es_port, late)
+            return td
+        return read_training
+
+    def timed(key, with_memory=False):
+        def make(orig):
+            def run(*a, **kw):
+                if with_memory and dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    marks["mem_swap_start"] = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    marks.setdefault(key, []).append(
+                        (t0, time.perf_counter()))
+                    if with_memory and dev.type == "cuda":
+                        torch.cuda.synchronize()
+                        marks["mem_swap_peak"] = \
+                            torch.cuda.max_memory_allocated()
+            return run
+        return make
+
+    def retrain_window(orig):
+        def run(self):
+            marks.setdefault("retrain_at", []).append(len(stream.answers))
+            t0 = time.perf_counter()
+            try:
+                return orig(self)
+            finally:
+                marks["retrain_at"].append(len(stream.answers))
+                marks.setdefault("retrain", []).append(
+                    (t0, time.perf_counter()))
+        return run
+
+    os.environ["PIO_FOLDIN_CURSOR_DIR"] = os.path.join(work, "cur_control")
+    config = create_server.ServerConfig(
+        serve_quant="on", foldin="on", engine_id=CONTROL_ENGINE,
+        engine_variant=CONTROL_ENGINE)
+    api = create_server.QueryAPI(config, storage=store)
+    port = _free_port()
+    server = threading.Thread(target=create_server.serve,
+                              args=(api, "127.0.0.1", port), daemon=True)
+    server.start()
+    ready_s = _wait_ready(port, server.is_alive, deadline_s=300)
+    if api.engine_instance.id != live_row.id or \
+            api._foldin_worker is None:
+        raise AssertionError("the control deploy did not serve the live "
+                             "generation with fold-in")
+    gen0 = api.generation
+    users = list(live_model.user_vocab.to_dict())
+    counts = _ThreadLaunches()
+    stream = None
+    try:
+        with counts.wrap(), _wrapped(
+                (DataSource, "read_training", late_hook),
+                (autotrain, "validate_candidate", timed("validate")),
+                (autotrain.LocalDeployControl, "publish",
+                 timed("publish", with_memory=True)),
+                (autotrain.ThreadTrainer, "_run", retrain_window)):
+            stream = _Stream(port, users, seed + 64)
+            stream.wait_for(CONTROL_BEFORE_QUERIES)
+            stream.pause()
+            mem_before = _device_bytes(dev)
+            # the retired batcher's flush count, read through its counter:
+            # holding the batcher would hold its generation's layout
+            gen1_flushes = api._batcher._m_batches
+            since1 = gen1_flushes.value
+            counts.clear()
+            n_before = len(stream.answers)
+            layout0 = registry_mod.model_hbm_bytes(api.models)
+            stream.resume()
+            t_attach = time.perf_counter()
+            at = cli._embedded_autotrain(api, config, variant, False)
+            t0 = time.perf_counter()
+            while at.summary()["lastCycle"] is None:
+                s = at.summary()
+                failed = [e for e in journal.snapshot(
+                    category="autotrain", level="red")["events"]]
+                if failed or (s["lastCandidate"]
+                              and not s["lastCandidate"]["ok"]):
+                    raise AssertionError(f"the autotrain cycle failed: "
+                                         f"{failed[-1:]} {s}")
+                if time.perf_counter() - t0 > CONTROL_DEADLINE_S:
+                    raise AssertionError(f"no autotrain cycle in "
+                                         f"{CONTROL_DEADLINE_S} s: {s}")
+                time.sleep(0.05)
+            cycle_s = time.perf_counter() - t_attach
+            summary = at.summary()
+            at.close()
+            fold_s = _wait_worker(
+                api, lambda st: st["generation"] == api.generation
+                and st["usersFolded"] >= CONTROL_LATE_USERS
+                and st["cursorLag"] == 0 and not st["usersPending"],
+                "the late users' folds after the rebase")
+            c = _Client(port)
+            try:
+                late_answers = [c.call("POST", "/queries.json",
+                                       {"user": u, "num": 10})
+                                for u in late_users]
+            finally:
+                c.close()
+            stream.pause()
+            mem_after = _device_bytes(dev)
+            flushes = (int(gen1_flushes.value - since1),
+                       api._batcher.stats()["batches"])
+            b1, b2, a = (counts.split(counts.b1), counts.split(counts.b2),
+                         counts.split(counts.a))
+            retrain_a_mismatch = counts.a_mismatch
+            retrain_a_err = counts.a_max_abs_err
+            layout1 = registry_mod.model_hbm_bytes(api.models)
+            stream.resume()
+            reject = _control_reject(store, api, port, variant, users,
+                                     late_users, counts, seed, dev)
+            stream.pause()
+            reject["memory_allocated"] = _device_bytes(dev)
+            stream.resume()
+        answers = list(stream.answers)
+        stream_out = stream.close()
+        stream = None
+    finally:
+        if stream is not None:
+            stream.close()
+        _undeploy(port, server)
+    if stream_out["dropped"] or stream_out["errors"]:
+        raise AssertionError(f"the autotrain deploy dropped queries: "
+                             f"{stream_out}")
+
+    # the cycle: a volume decision, one candidate through both gates,
+    # published as generation + 1
+    decisions = [e for e in journal.snapshot(category="autotrain")["events"]
+                 if e["fields"].get("outcome") == "ok"
+                 and e["fields"].get("trigger")]
+    cand_id = summary["lastCycle"]["candidateId"]
+    if (not decisions or decisions[0]["fields"]["trigger"] != "volume"
+            or decisions[0]["fields"]["volume"] < 1000):
+        raise AssertionError(f"the cycle was not volume-triggered: "
+                             f"{decisions[:1]}")
+    verdict = summary["lastCandidate"]
+    if not verdict["ok"] or api.generation != gen0 + 1 \
+            or api.engine_instance.id != cand_id:
+        raise AssertionError(f"the candidate was not published: {summary}")
+    if a["retrain"] != 20 or retrain_a_mismatch:
+        raise AssertionError(f"the retrain launched kernel A "
+                             f"{a['retrain']} times, {retrain_a_mismatch} "
+                             "of them != plain (want 20, all equal)")
+    warm = len(api._aot_state["buckets"]) if api._aot_state else 0
+    if warm and a["loop"] != len(foldin.user_buckets()):
+        raise AssertionError(f"the publish's warm-up launched kernel A "
+                             f"{a['loop']} times (want one a fold-in "
+                             "bucket)")
+    if b1["retrain"] or b2["retrain"]:
+        raise AssertionError("the retrain thread launched B1 or B2")
+    if (b1["other"], b2["other"]) != (sum(flushes), sum(flushes)) or \
+            (b1["loop"], b2["loop"]) != (warm, warm):
+        raise AssertionError(
+            f"B1 {b1} and B2 {b2} for flushes {flushes} of the two "
+            f"generations and a warm-up of {warm} buckets (want one each a "
+            "flush, one each a bucket in the publish's warm-up)")
+    # bit-identical to the CLI train over the same store, seed and cursor
+    cand_row = store.get_meta_data_engine_instances().get(cand_id)
+    (cand,) = model_io.deserialize_models(
+        store.get_model_data_models().get(cand_id).models)
+    if cand_row.runtime_conf.get("train_cursor") != \
+            cli_row.runtime_conf.get("train_cursor") or \
+            not _same_factors(cand, cli_model) or \
+            cand.user_vocab.to_dict() != cli_model.user_vocab.to_dict():
+        raise AssertionError("the candidate differs from the CLI train at "
+                             "the same cursor")
+    # the rebase at the candidate's cursor replayed the late events
+    rebased = [e for e in journal.snapshot(category="foldin")["events"]
+               if "rebased" in e["message"]]
+    if not rebased or not rebased[-1]["fields"].get("fromTraining"):
+        raise AssertionError(f"fold-in was not rebased at the training "
+                             f"cursor: {rebased[-1:]}")
+    model = api.models[0]
+    for u, (status, payload, _t) in zip(late_users, late_answers):
+        want = _served(model, u, 10)
+        if status != 200 or not payload["itemScores"] or payload != want:
+            raise AssertionError(f"late user {u} after the rebase: "
+                                 f"{status} {payload}, want {want}")
+    # one model's worth after the swap: the retired generation freed
+    # (compared without the retrain thread's cuBLAS workspace), and no
+    # growth past it across the rejected cycle's retrain
+    if mem_after[1] is not None and (
+            mem_after[1] - mem_before[1] > max(0, layout1 - layout0)
+            + (1 << 20)
+            or reject["memory_allocated"][1] - mem_after[1] > 1 << 20):
+        raise AssertionError(
+            f"memory_allocated (raw, without cuBLAS workspaces) "
+            f"{mem_before} before the swap, {mem_after} after, "
+            f"{reject['memory_allocated']} after the rejected cycle "
+            f"(layouts {layout0} -> {layout1} B): the retired generation "
+            "was not freed")
+    lo, hi = marks["retrain_at"][:2]
+    before_ms = _pct([t for *_x, t in answers[:n_before]])
+    during_ms = _pct([t for *_x, t in answers[lo:hi]]) if hi > lo \
+        else (None, None)
+    # the cycle's steps, then the rejected cycle's (index 1)
+    span = lambda key, i=0: marks[key][i][1] - marks[key][i][0]
+    rt = marks["retrain_at"]
+    reject["validate_s"] = span("validate", 1)
+    return {
+        "deploy_ready_s": ready_s, "generation": [gen0, api.generation],
+        "decision": {k: decisions[0]["fields"].get(k)
+                     for k in ("trigger", "volume", "threshold")},
+        "candidate": cand_id, "live": live_row.id,
+        "cycle_s": cycle_s, "cycleS": summary["lastCycle"]["cycleS"],
+        "retrain_s": span("retrain"), "validate_s": span("validate"),
+        "publish_s": span("publish"),
+        "verdict": verdict,
+        "queries": {"before": n_before, "during_retrain": hi - lo,
+                    "total": len(answers), "dropped": 0,
+                    "before_ms": dict(zip(("p50", "p99"), before_ms)),
+                    "during_retrain_ms": dict(zip(("p50", "p99"),
+                                                  during_ms))},
+        "memory_allocated": {"before": mem_before,
+                             "swap_start": marks.get("mem_swap_start"),
+                             "swap_peak": marks.get("mem_swap_peak"),
+                             "after": mem_after,
+                             "after_rejected_cycle":
+                                 reject["memory_allocated"],
+                             "layout_bytes": [layout0, layout1]},
+        "late": {"users": CONTROL_LATE_USERS, "events": len(late),
+                 "fold_s_after_cycle": fold_s,
+                 "rebase": rebased[-1]["fields"]},
+        "launches": {"A": a, "B1": b1, "B2": b2,
+                     "flushes": list(flushes), "warmup_buckets": warm,
+                     "A_max_abs_err": retrain_a_err},
+        "bit_identical_to_cli_train": True,
+        "cursor": cand_row.runtime_conf.get("train_cursor"),
+        "retrain_window_answers": rt,
+    }, reject
+
+
+def _control_reject(store, api, port, variant, users, late_users, counts,
+                    seed, dev) -> dict:
+    """(b): a staleness-triggered cycle whose retrain's lambda wrecks the
+    probe RMSE: the score gate refuses it, its row turns REJECTED, the
+    generation stays and every answer keeps its bytes."""
+    from predictionio_tpu_torch.workflow import autotrain
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    rng = np.random.default_rng(seed + 65)
+    probe = [users[u] for u in rng.choice(len(users), size=16,
+                                          replace=False)] + late_users
+    before = {u: _raw_post(port, _qbody(u, 10))[1] for u in probe}
+    gen, live = api.generation, api.engine_instance.id
+    bad = json.loads(json.dumps(variant))
+    bad["algorithms"][0]["params"]["lambda"] = CONTROL_REJECT_LAMBDA
+    engine = api.engine
+
+    def bad_retrain() -> str:
+        return core_workflow.run_train(
+            WorkflowContext(storage=store, device=api.device), engine,
+            engine.engine_params_from_json(bad),
+            engine_id=CONTROL_ENGINE, engine_variant=CONTROL_ENGINE,
+            engine_factory=bad["engineFactory"], params_json=bad)
+
+    trainer = autotrain.ThreadTrainer(bad_retrain, device=api.device)
+    at = autotrain.Autotrain(
+        autotrain.LocalDeployControl(api), storage=store,
+        engine_params=api.engine_params, trainer=trainer,
+        config=autotrain.AutotrainConfig(max_staleness_s=1.0),
+        engine_id=CONTROL_ENGINE, engine_variant=CONTROL_ENGINE)
+    counts.clear()
+    t0 = time.perf_counter()
+    sig = at.gather()
+    while sig.staleness_s is not None and sig.staleness_s < 1.0:
+        time.sleep(0.1)                 # the live model a second old
+        sig = at.gather()
+    acted = at.tick(sig)
+    if [d["trigger"] for d in acted] != ["staleness"]:
+        raise AssertionError(f"the forced cycle decided {acted}: {sig}")
+    trainer._thread.join(timeout=CONTROL_DEADLINE_S)
+    retrain_s = time.perf_counter() - t0
+    at.tick(at.gather())
+    s = at.summary()
+    verdict = s["lastCandidate"]
+    a = counts.split(counts.a)
+    cand = verdict["candidateId"] if verdict else None
+    row = store.get_meta_data_engine_instances().get(cand) if cand else None
+    after = {u: _raw_post(port, _qbody(u, 10))[1] for u in probe}
+    if (verdict is None or verdict["ok"] or row is None
+            or row.status != "REJECTED" or s["candidatesRejected"] != 1):
+        raise AssertionError(f"the wrecked candidate was not rejected: "
+                             f"{s}")
+    if api.generation != gen or api.engine_instance.id != live:
+        raise AssertionError("the rejected cycle moved the generation")
+    if after != before:
+        raise AssertionError("answers changed across the rejected cycle")
+    if a["retrain"] != 20 or counts.a_mismatch:
+        raise AssertionError(f"the rejected retrain launched kernel A "
+                             f"{a['retrain']} times")
+    return {"candidate": cand, "status": row.status, "verdict": verdict,
+            "retrain_s": retrain_s, "A_launches": a["retrain"],
+            "answers_byte_identical": len(probe), "generation": gen}
+
+
+class _PilotLoad:
+    """``clients`` threads posting trained users' queries to one port,
+    each ``pace_s`` apart; every answer that is not a 200 is a drop."""
+
+    def __init__(self, port: int, users, seed: int, clients: int,
+                 pace_s: float = 0.0):
+        rng = np.random.default_rng(seed)
+        self._users = [users[u] for u in rng.integers(0, len(users),
+                                                      size=512)]
+        self._port, self._pace = port, pace_s
+        self._stop = threading.Event()
+        self.statuses = collections.Counter()
+        self.errors = []
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(c,),
+                                          daemon=True)
+                         for c in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, c: int):
+        i = c
+        while not self._stop.is_set():
+            u = self._users[i % len(self._users)]
+            i += 7
+            try:
+                status, _raw, _t = _raw_post(self._port, _qbody(u, 10))
+            except OSError as e:
+                with self._lock:
+                    self.errors.append(f"{type(e).__name__}: {e}")
+                continue
+            with self._lock:
+                self.statuses[status] += 1
+            if self._pace:
+                time.sleep(self._pace)
+
+    def answered(self) -> int:
+        with self._lock:
+            return sum(self.statuses.values())
+
+    def close(self) -> dict:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        out = {"queries": self.answered(),
+               "statuses": {str(k): v for k, v in self.statuses.items()},
+               "errors": self.errors[:3]}
+        if set(self.statuses) - {200} or self.errors:
+            raise AssertionError(f"the autopilot's traffic dropped "
+                                 f"queries: {out}")
+        return out
+
+
+def _ticks_until(ap, want, what: str, every_s: float = 1.0) -> list:
+    """gather + tick every ``every_s`` until an action of ``want`` was
+    taken (ok); every action taken on the way."""
+    taken = []
+    t0 = time.perf_counter()
+    while True:
+        time.sleep(every_s)
+        acted = ap.tick(ap.gather())
+        taken += acted
+        bad = [x for x in acted if x["outcome"] != "ok"]
+        if bad:
+            errors = [e["fields"].get("error") for e in journal.snapshot(
+                category="autopilot", level="red")["events"]]
+            raise AssertionError(f"autopilot {what}: {bad}: {errors[-2:]}")
+        if any(x["action"] == want for x in acted):
+            return taken
+        if time.perf_counter() - t0 > PILOT_DEADLINE_S:
+            raise AssertionError(f"autopilot: no {want} within "
+                                 f"{PILOT_DEADLINE_S} s ({what}); took "
+                                 f"{taken}")
+
+
+def _pilot_config(autopilot, **kw):
+    base = dict(poll_ms=500.0, cooldown_s=2.0, util_low=0.2,
+                util_high=0.85, min_replicas=2, max_replicas=3,
+                outlier_x=3.0, profile_ms=1000)
+    base.update(kw)
+    return autopilot.AutopilotConfig(**base)
+
+
+def _control_autopilot(work, store, live_dir, seed, dev) -> dict:
+    """(c) the autopilot over a router of two in-process replicas of the
+    published model: a scale-up through SubprocessReplicaPool (a ``pio
+    deploy`` child on the card), the child quarantined as a latency
+    outlier and readmitted, then drained; one ladder rung under a burn
+    with one profile capture; a dry run."""
+    import shlex
+
+    from predictionio_tpu_torch import device as device_mod
+    from predictionio_tpu_torch.workflow import autopilot
+    from predictionio_tpu_torch.workflow import router as router_mod
+
+    os.environ.update(PILOT_ENV)
+    prof_dir = os.path.join(work, "pilot_profiles")
+    os.environ["PIO_PROFILE_DIR"] = prof_dir
+    slo.install(slo.SLOConfig.from_env())
+    out = {}
+    launches = _Launches()
+    a = _fleet_api(store, engine_id=CONTROL_ENGINE,
+                   engine_variant=CONTROL_ENGINE)
+    b = _fleet_api(store, engine_id=CONTROL_ENGINE,
+                   engine_variant=CONTROL_ENGINE)
+    sa, pa = _fleet_serve(a)
+    sb, pb = _fleet_serve(b)
+    users = list(a.models[0].user_vocab.to_dict())
+    router = router_mod.RouterAPI(router_mod.RouterConfig(
+        backends=(f"http://127.0.0.1:{pa}", f"http://127.0.0.1:{pb}"),
+        health_ms=FLEET_HEALTH_MS))
+    sr, pr = _fleet_serve(router, "threaded")
+    pythonpath = os.pathsep.join(
+        p for p in (_REPO, os.environ.get("PYTHONPATH", "")) if p)
+    replica_cmd = (f"{shlex.quote(sys.executable)} -m "
+                   "predictionio_tpu_torch.tools.cli deploy --engine-dir "
+                   f"{shlex.quote(live_dir)} --ip 127.0.0.1 --port {{port}} "
+                   "--serve-quant on")
+    pool = autopilot.SubprocessReplicaPool(replica_cmd, env={
+        **os.environ, "PYTHONPATH": pythonpath,
+        "PIO_FAULT_SPEC": (f"latency:1:{PILOT_LATENCY_MS}"
+                           "@server POST /queries.json")})
+    control = autopilot.LocalRouterControl(router)
+    load = None
+    try:
+        with launches.wrap():
+            launches.clear()
+            since = {"a": _batches(a), "b": _batches(b)}
+            # 1. scale up: eight clients keep both replicas busy
+            ap = autopilot.Autopilot(control, config=_pilot_config(
+                autopilot), pool=pool)
+            router.attach_autopilot(ap)
+            load = _PilotLoad(pr, users, seed + 71, PILOT_CLIENTS)
+            ap.gather()
+            t0 = time.perf_counter()
+            taken = _ticks_until(ap, "scale_up", "scale-up")
+            spawn_s = time.perf_counter() - t0
+            (child_url,) = list(pool._procs)
+            child_proc = pool._procs[child_url]
+            child_name = child_url.split("//", 1)[1]
+            cport = int(child_url.rsplit(":", 1)[1])
+            child = json.loads(_get(cport, "/")[2])
+            if child.get("device") != device_mod.describe(dev) or \
+                    not (child.get("quant") or {}).get("enabled"):
+                raise AssertionError(f"the spawned replica serves on "
+                                     f"{child.get('device')} with quant "
+                                     f"{child.get('quant')}")
+            probe = [users[u] for u in np.random.default_rng(
+                seed + 72).choice(len(users), size=16, replace=False)]
+            for u in probe:
+                want = _raw_post(pa, _qbody(u, 10))
+                got = _raw_post(cport, _qbody(u, 10))
+                if (got[0], got[1]) != (want[0], want[1]):
+                    raise AssertionError(f"the spawned replica answers {u} "
+                                         f"{got[1][:80]}, replica a "
+                                         f"{want[1][:80]}")
+            out["scale_up"] = {
+                "actions": [x["action"] for x in taken],
+                "spawn_s": spawn_s, "child": child_name,
+                "child_time_to_ready_s": child.get("aot", {}).get(
+                    "timeToReadyS"),
+                "child_device": child["device"],
+                "child_quant": child["quant"],
+                "answers_byte_equal": len(probe)}
+            # 2. the child (its query route 150 ms slower) is quarantined
+            # as a latency outlier, then readmitted
+            apq = autopilot.Autopilot(control, config=_pilot_config(
+                autopilot, max_replicas=2))
+            apq.gather()
+            taken = _ticks_until(apq, "quarantine", "quarantine")
+            q = next(x for x in journal.snapshot(
+                category="autopilot")["events"]
+                if x["fields"].get("action") == "quarantine"
+                and x["fields"].get("outcome") == "ok")
+            if q["fields"]["backend"] != child_name:
+                raise AssertionError(f"quarantined {q['fields']}, not the "
+                                     f"slow replica {child_name}")
+            taken += _ticks_until(apq, "readmit", "readmission")
+            st = router.handle("GET", "/")[1]
+            if st["inRotation"] != 3:
+                raise AssertionError(f"after readmission: {st}")
+            out["quarantine"] = {"evidence": q["fields"],
+                                 "actions": [x["action"] for x in taken]}
+            heavy = load.close()
+            load = None
+            # 3. drain: one light client, the spawned replica retired
+            load = _PilotLoad(pr, users, seed + 73, 1, pace_s=0.25)
+            ap.gather()
+            taken = _ticks_until(ap, "scale_down", "scale-down", 1.5)
+            t0 = time.perf_counter()
+            while child_proc.poll() is None:
+                time.sleep(0.5)
+                ap.tick(ap.gather())
+                if time.perf_counter() - t0 > PILOT_DEADLINE_S:
+                    raise AssertionError("the drained replica never "
+                                         "stopped")
+            light = load.close()
+            load = None
+            st = router.handle("GET", "/")[1]
+            if child_name in {x["url"].split("//", 1)[1]
+                              for x in st["backends"]} or pool._procs:
+                raise AssertionError(f"the drained replica is still in "
+                                     f"the fleet: {st}")
+            out["scale_down"] = {"actions": [x["action"] for x in taken],
+                                 "child_exit": child_proc.returncode,
+                                 "heavy": heavy, "light": light}
+            # 4. the ladder: a tight latency objective burns both windows
+            out["ladder"] = _pilot_ladder(autopilot, control, router, a,
+                                          pa, users, seed, pr)
+            # 5. a dry run over the fleet: would-haves, nothing touched
+            router.attach_autopilot(None)
+            apd = autopilot.Autopilot(control, config=_pilot_config(
+                autopilot, dry_run=True, min_replicas=3, cooldown_s=0.1),
+                pool=pool)
+            before = json.dumps(router.handle("GET", "/")[1],
+                                sort_keys=True)
+            apd.gather()
+            time.sleep(0.3)
+            acted = apd.tick(apd.gather())
+            after = json.dumps(router.handle("GET", "/")[1],
+                               sort_keys=True)
+            if not acted or any(x["outcome"] != "dry_run" for x in acted) \
+                    or after != before or pool._procs:
+                raise AssertionError(f"the dry run acted: {acted}")
+            out["dry_run"] = {"would": [x["action"] for x in acted],
+                              "pendingDryRun": apd.summary()[
+                                  "pendingDryRun"],
+                              "byte_identical": True}
+            counts = {"a": launches.of(a.models[0].quant),
+                      "b": launches.of(b.models[0].quant)}
+            out["launches"] = {
+                name: {"B1": c[0], "B2": c[1],
+                       "flushes": _require_flushes(
+                           f"replica {name}", api, c, since[name])}
+                for (name, c), api in zip(counts.items(), (a, b))}
+    finally:
+        if load is not None:
+            load._stop.set()
+        pool.close()
+        _fleet_stop((sr, router), (sa, a), (sb, b))
+    return out
+
+
+def _pilot_ladder(autopilot, control, router, a, pa, users, seed, pr):
+    """One rung under a sustained burn, exactly one profile capture on a
+    replica, and the exact thresholds back once the burn stops. A capture
+    that recorded no kernel at all (the profiler drops a session now and
+    then) is taken in a second episode."""
+    for attempt in range(2):
+        # a cooldown past the episode's second tick: the capture's POST
+        # waits for the replica's profiler to start
+        apl = autopilot.Autopilot(control, config=_pilot_config(
+            autopilot, max_replicas=2, cooldown_s=8.0))
+        router.attach_autopilot(apl)
+        prior = control.shed_thresholds()
+        listing0 = {c["id"] for c in json.loads(
+            _get(pa, "/debug/profile")[2])["captures"]}
+        load = _PilotLoad(pr, users, seed + 74 + attempt, PILOT_CLIENTS)
+        os.environ["PIO_SLO_LATENCY_MS"] = PILOT_TIGHT_SLO_MS
+        slo.install(slo.SLOConfig.from_env())
+        try:
+            apl.gather()
+            taken = _ticks_until(apl, "shed_widen", "the ladder")
+            widened = control.shed_thresholds()
+            time.sleep(0.8)
+            more = apl.tick(apl.gather())        # inside the cooldown
+            taken += more
+            burn = apl.gather()
+        finally:
+            traffic = load.close()
+            os.environ["PIO_SLO_LATENCY_MS"] = PILOT_ENV[
+                "PIO_SLO_LATENCY_MS"]
+            slo.install(slo.SLOConfig.from_env())
+        captures = [x for x in taken if x["action"] == "profile_capture"]
+        if len(captures) != 1 or any(x["action"] == "shed_widen"
+                                     for x in more):
+            raise AssertionError(f"one burn episode took {taken}")
+        # the capture on replica a
+        done, t0 = None, time.perf_counter()
+        while done is None or done["state"] not in ("done", "failed"):
+            time.sleep(0.2)
+            new = [c for c in json.loads(
+                _get(pa, "/debug/profile")[2])["captures"]
+                if c["id"] not in listing0]
+            if len(new) > 1:
+                raise AssertionError(f"{len(new)} captures in one episode")
+            done = new[0] if new else None
+            if time.perf_counter() - t0 > PILOT_DEADLINE_S:
+                raise AssertionError(f"the capture did not finish: {done}")
+        events = _trace_events(os.path.join(done["dir"], "trace.json"))
+        per = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                us, n = per.get(e["name"], (0.0, 0))
+                per[e["name"]] = (us + e.get("dur", 0.0), n + 1)
+        # burn over: idle past the fast window and the shed cooldown
+        time.sleep(2.5)
+        narrowed = _ticks_until(apl, "shed_narrow", "the ladder's restore")
+        restored = control.shed_thresholds()
+        if restored != prior or apl.summary()["ladderDepth"] != 0:
+            raise AssertionError(f"thresholds {prior} -> {widened} -> "
+                                 f"{restored}")
+        if not per and attempt == 0:
+            print("control: the episode's capture recorded no kernel; "
+                  "a second episode", flush=True)
+            continue
+        _require_kernels(per, "the autopilot's capture")
+        router.attach_autopilot(None)
+        return {"episodes": attempt + 1, "prior": prior,
+                "widened": widened, "restored": restored,
+                "burn": {"fast": burn.burn_fast, "slow": burn.burn_slow},
+                "actions": [x["action"] for x in taken + narrowed],
+                "capture": {"state": done["state"],
+                            "durationMs": done.get("durationMs"),
+                            "B1_kernels": sum(n for k, (_u, n) in
+                                              per.items()
+                                              if "score_mask_topk" in k),
+                            "B2_kernels": sum(n for k, (_u, n) in
+                                              per.items()
+                                              if "merge_tile_lists" in k),
+                            "sort_kernels": _sort_kernels(per)},
+                "traffic": traffic}
+    raise AssertionError("unreachable")
+
+
+def _print_autotrain(o: dict) -> None:
+    q = o["queries"]
+    m = o["memory_allocated"]
+    print(f"control: autotrain: {o['trigger_events']} events posted; "
+          f"decision {o['decision']}; cycle {o['cycle_s']:.3f} s from the "
+          f"attach (loop's cycleS {o['cycleS']}): retrain "
+          f"{o['retrain_s']:.3f} s, validate {o['validate_s']:.3f} s, "
+          f"publish {o['publish_s']:.3f} s; "
+          f"generation {o['generation'][0]} -> {o['generation'][1]}; "
+          f"candidate == the CLI train at cursor {o['cursor']}, bit for "
+          f"bit; kernel A {o['launches']['A']} launches by thread (the "
+          f"retrain's 20 == plain), B1 {o['launches']['B1']}, B2 "
+          f"{o['launches']['B2']} for flushes {o['launches']['flushes']} "
+          f"+ a warm-up of {o['launches']['warmup_buckets']} buckets; "
+          f"query p50 / p99 before {q['before_ms']}, during the retrain "
+          f"{q['during_retrain_ms']} ms; {q['total']} queries, 0 dropped; "
+          f"memory_allocated before {m['before']}, swap start "
+          f"{m['swap_start']}, swap peak {m['swap_peak']}, after "
+          f"{m['after']} (layouts {m['layout_bytes']} B); "
+          f"{o['late']['users']} late users folded after the rebase "
+          f"{o['late']['fold_s_after_cycle']:.3f} s after the cycle; "
+          f"verdict {json.dumps(o['verdict'])}", flush=True)
+    r = o["reject"]
+    print(f"control: rejected candidate {r['candidate']}: "
+          f"{r['status']}, {'; '.join(r['verdict']['reasons'])}; "
+          f"generation stays {r['generation']}, "
+          f"{r['answers_byte_identical']} answers byte-identical", flush=True)
+
+
+def _print_autopilot(o: dict) -> None:
+    s, ld = o["scale_up"], o["ladder"]
+    print(f"control: autopilot: scale-up spawned {s['child']} in "
+          f"{s['spawn_s']:.3f} s (its time to ready "
+          f"{s['child_time_to_ready_s']} s) on {s['child_device']}, "
+          f"answers byte-equal to a replica's; quarantine "
+          f"{o['quarantine']['evidence']}; scale-down "
+          f"{o['scale_down']['actions']} (exit "
+          f"{o['scale_down']['child_exit']}), 0 dropped; ladder "
+          f"{ld['prior']} -> {ld['widened']} -> {ld['restored']} under "
+          f"burn {ld['burn']}, one capture with B1 "
+          f"{ld['capture']['B1_kernels']} / B2 "
+          f"{ld['capture']['B2_kernels']} kernels, no sort; dry run "
+          f"would {o['dry_run']['would']}, the fleet byte-identical; "
+          f"launches {o['launches']}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 12: block-sharded training and row-sharded serving
 # ---------------------------------------------------------------------------
 
@@ -5769,6 +6794,7 @@ def main(argv=None) -> int:
                                   store_ctx)
         store_out["foldin"] = phase_store_foldin(work, args.seed, dev,
                                                  store_ctx)
+        control_out = phase_control(work, args.seed, dev)
         del store_ctx
         shard_out = phase_shard(work, args.seed, dev)
     finally:
@@ -5811,6 +6837,13 @@ def main(argv=None) -> int:
         "shard_merge_launches": shard_out["deploy"]["B2_launches"],
         "fleet_launches": _fleet_launches(fleet_out),
         "fleet": fleet_out,
+        "autotrain_launches": {
+            "cycle": {k: control_out["autotrain"]["launches"][k]
+                      for k in ("B1", "B2", "flushes", "warmup_buckets")},
+            "autopilot": control_out["autopilot"]["launches"]},
+        "autotrain": {k: v for k, v in control_out["autotrain"].items()
+                      if k != "launches"},
+        "autopilot": control_out["autopilot"],
         "shard_serve": shard_out["serve"],
         "shape": {"b": main_row["b"], "r": RANK, "n_items": N_ITEMS,
                   "tile": TILE, "k": main_row["k"]},
@@ -5853,6 +6886,15 @@ def main(argv=None) -> int:
         "foldin_by_bucket": store_out["foldin"]["kernel_a"],
         "remote_launches": [t["solve_gj_launches"]
                             for t in remote_out["trains"]],
+        "autotrain_launches": {
+            "live_train": control_out["autotrain"]["live_train"][
+                "A_launches"],
+            "cli_train": control_out["autotrain"]["cli_train"]["A_launches"],
+            "retrain": control_out["autotrain"]["launches"]["A"],
+            "retrain_max_abs_err": control_out["autotrain"]["launches"][
+                "A_max_abs_err"],
+            "rejected_retrain": control_out["autotrain"]["reject"][
+                "A_launches"]},
         "shard_launches": shard_out["library"]["A_launches"],
         "shard_cli_launches": [t["A_launches"] for t in
                                shard_out["cli"]["trains"].values()],

@@ -6,9 +6,8 @@ of the JAX package), in one of three kinds:
 
 - ``READ``: the port reads it, with the reference's meaning;
 - ``INERT``: it tunes something the port has no use for (a TPU layout,
-  the XLA compile cache, a daemon the port has no verb for) or tunes a
-  feature that another row refuses, so setting it changes nothing a user
-  of the port could see;
+  the XLA compile cache) or tunes a feature that another row refuses, so
+  setting it changes nothing a user of the port could see;
 - ``UNPORTED``: it turns on a feature the port lacks. :func:`refuse_unported`
   raises ``ValueError`` at the entry points (the CLI's ``train``,
   ``eval``, ``deploy``, ``eventserver``, ``import``, ``export``,
@@ -18,7 +17,7 @@ of the JAX package), in one of three kinds:
   brings it. Unset, ``0``
   and ``off`` stay accepted. A row's refusal goes when its slice lands.
 
-Of the 118 rows, 90 are read, 27 inert and one refused
+Of the 118 rows, 107 are read, 10 inert and one refused
 (``PIO_SERVE_DEVICE_MS``).
 
 ``PIO_TORCH_DEVICE`` and ``PIO_TORCH_KERNEL_DIR`` are the port's own and
@@ -73,7 +72,6 @@ def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
 
 _RPC = "the remote storage client's retry policy (common/resilience.py)"
 _BREAKER = "the remote storage client's circuit breaker"
-_NO_VERB = "a daemon the port has no verb for"
 _TLS = "TLS on the HTTP daemons (common/server_security.py)"
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
@@ -236,10 +234,14 @@ KNOBS: Dict[str, Knob] = {
     "PIO_SLO_FAST_WINDOW_S": _read("the SLO burn rate's fast window"),
     "PIO_SLO_SLOW_WINDOW_S": _read("the SLO burn rate's slow window"),
     # autopilot and autotrain
-    **{f"PIO_AUTOPILOT_{k}": _inert("the autopilot: " + _NO_VERB)
+    **{f"PIO_AUTOPILOT_{k}": _read(
+        "the autopilot's AutopilotConfig.resolved() "
+        "(workflow/autopilot.py: pio autopilot, router --autopilot)")
        for k in ("POLL_MS", "COOLDOWN_S", "UTIL_LOW", "UTIL_HIGH",
                  "MIN_REPLICAS", "MAX_REPLICAS", "OUTLIER_X", "PROFILE_MS")},
-    **{f"PIO_AUTOTRAIN_{k}": _inert("autotrain: " + _NO_VERB)
+    **{f"PIO_AUTOTRAIN_{k}": _read(
+        "autotrain's AutotrainConfig.resolved() (workflow/autotrain.py: "
+        "pio autotrain, deploy --autotrain, router --autotrain)")
        for k in ("POLL_MS", "COOLDOWN_S", "MAX_STALENESS_S",
                  "VOLUME_EVENTS", "LAG_EVENTS", "TOLERANCE", "PARITY_MIN",
                  "PROBE", "PUBLISH_TIMEOUT_S")},

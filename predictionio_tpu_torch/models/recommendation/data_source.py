@@ -183,6 +183,9 @@ class DataSource(BaseDataSource):
                 device=dev))
         for k, v in timings.items():
             ctx.note_phase(k, v)
+        if synthetic_ok and ctx is not None:
+            # the ledger row records the read path this train took
+            ctx.train_stream = td.streamed
         return td
 
     def read_eval(self, ctx):

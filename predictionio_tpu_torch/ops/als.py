@@ -336,13 +336,18 @@ def init_factors(generator: torch.Generator, n: int,
 
 def _seed_factors(seed: int, n_users: int, n_items: int, rank: int,
                   device: device_mod.DeviceLike = None):
-    """Initial (U, V) from ``seed``. ``jax.random`` cannot be replayed in
-    torch, so the port's draws differ from the reference's; parity tests
-    inject ``u0``/``v0`` instead."""
+    """Initial (U, V) from ``seed``, each side from its own stream, as the
+    reference splits its key: the item init does not depend on the user
+    count, so a retrain that adds users starts from the same item factors
+    (the first half-step solves the users from them). ``jax.random``
+    cannot be replayed in torch, so the draws differ from the reference's;
+    parity tests inject ``u0``/``v0`` instead."""
     dev = device_mod.resolve(device)
-    gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    U = init_factors(gen, n_users, rank)
-    V = init_factors(gen, n_items, rank)
+    seed_u, seed_v = np.random.SeedSequence(int(seed)).generate_state(2)
+    U = init_factors(torch.Generator(device="cpu").manual_seed(int(seed_u)),
+                     n_users, rank)
+    V = init_factors(torch.Generator(device="cpu").manual_seed(int(seed_v)),
+                     n_items, rank)
     return U.to(dev), V.to(dev)
 
 

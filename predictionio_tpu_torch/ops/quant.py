@@ -118,6 +118,58 @@ def ranking_parity(user_factors, item_factors, qf: QuantizedFactors,
     }
 
 
+def ranking_agreement(user_factors_a, item_factors_a,
+                      user_factors_b, item_factors_b,
+                      k: int = 10, sample: int = 256,
+                      user_map: Optional[np.ndarray] = None,
+                      item_map: Optional[np.ndarray] = None
+                      ) -> Dict[str, Any]:
+    """recall@k and exact-match@1 of factor pair B's ranking against
+    factor pair A's, on the sample and tie rule of :func:`ranking_parity`,
+    for any two models over a common vocabulary (autotrain's parity gate:
+    a retrain candidate against the live generation). Host numpy.
+
+    ``user_map`` / ``item_map`` align B's index space to A's: entry i is
+    B's index for A's user / item i (identity when omitted). The figure
+    reads "of A's top k, how many does B also rank top k"."""
+    Ua = np.asarray(user_factors_a, np.float32)
+    Va = np.asarray(item_factors_a, np.float32)
+    Ub = np.asarray(user_factors_b, np.float32)
+    Vb = np.asarray(item_factors_b, np.float32)
+    n_users = Ua.shape[0]
+    if user_map is None:
+        user_map = np.arange(min(n_users, Ub.shape[0]), dtype=np.int64)
+    else:
+        user_map = np.asarray(user_map, np.int64)
+    if item_map is None:
+        item_map = np.arange(min(Va.shape[0], Vb.shape[0]),
+                             dtype=np.int64)
+    else:
+        item_map = np.asarray(item_map, np.int64)
+    n_common_users = int(user_map.shape[0])
+    n_common_items = int(item_map.shape[0])
+    if n_common_users == 0 or n_common_items == 0:
+        return {"k": 0, "sampledUsers": 0, "commonItems": 0,
+                "recall": 0.0, "exact1": 0.0}
+    k = min(int(k), n_common_items)
+    take = min(int(sample), n_common_users)
+    pick = np.unique(np.linspace(0, n_common_users - 1,
+                                 take).astype(np.int64))
+    sa = Ua[pick] @ Va[item_map].T
+    sb = Ub[user_map[pick]] @ Vb[item_map].T
+    top_a = np.argsort(-sa, axis=1, kind="stable")[:, :k]
+    top_b = np.argsort(-sb, axis=1, kind="stable")[:, :k]
+    inter = np.asarray([np.intersect1d(a, b).size
+                        for a, b in zip(top_a, top_b)])
+    return {
+        "k": k,
+        "sampledUsers": int(pick.size),
+        "commonItems": n_common_items,
+        "recall": float(np.mean(inter / max(k, 1))),
+        "exact1": float(np.mean(top_a[:, 0] == top_b[:, 0])),
+    }
+
+
 def recall_floor() -> float:
     """recall@k below which "auto" refuses to quantize
     (``PIO_SERVE_QUANT_RECALL_MIN``, default 0.99)."""

@@ -27,12 +27,19 @@
         [--accesskey KEY]] [--aot auto|on|off]
         [--shard-serving auto|on|off] [--foldin on|off]
         [--foldin-tick-ms MS] [--foldin-headroom N]
-        [--foldin-item-headroom N]
+        [--foldin-item-headroom N] [--autotrain [--autotrain-dry-run]]
         [--telemetry] [--trace] [--waterfall] [--profile-dir DIR] ...
     python -m predictionio_tpu_torch.tools.cli router --backends URL,...
         [--ip HOST] [--port PORT] [--health-ms MS] [--deadline-ms MS]
         [--max-inflight N] [--cache on|off] [--cache-mb N]
-        [--cache-ttl-ms MS] [--telemetry] [--trace]
+        [--cache-ttl-ms MS] [--autopilot [--autopilot-dry-run]
+        [--replica-cmd CMD]] [--autotrain [--autotrain-dry-run]
+        [--engine-dir DIR] [--variant F] [--train-cmd CMD]]
+        [--telemetry] [--trace]
+    python -m predictionio_tpu_torch.tools.cli autopilot --router URL
+        [--dry-run] [--replica-cmd CMD]
+    python -m predictionio_tpu_torch.tools.cli autotrain --server URL
+        [--engine-dir DIR] [--variant F] [--dry-run] [--train-cmd CMD]
     python -m predictionio_tpu_torch.tools.cli foldin [--engine-dir DIR]
         [--engine-instance-id ID] [--tick-ms MS] [--max-ticks N]
     python -m predictionio_tpu_torch.tools.cli undeploy [--ip HOST]
@@ -63,9 +70,13 @@ its own ``--process-id``. ``deploy --shard-serving on`` serves from
 row-sharded factors; ``deploy --partition i/N`` serves partition i of N
 of the item rows, ``deploy --engines conf.json`` hosts several tenants,
 and ``router`` fans queries out over replicas (a partition fleet's
-answers merged). Every daemon, the router included, serves on the
-threaded transport or, with ``PIO_TRANSPORT=async``, on the asyncio
-one. The event server, the storage
+answers merged). ``autotrain`` (or ``deploy --autotrain``, ``router
+--autotrain``) retrains when drift, cursor lag, new events or age call
+for it, gates the candidate against the live model and publishes it
+through ``/reload``; ``autopilot`` (or ``router --autopilot``) scales
+replicas, sheds, quarantines and profiles from the router's signals.
+Every daemon, the router included, serves on the threaded transport or,
+with ``PIO_TRANSPORT=async``, on the asyncio one. The event server, the storage
 server, the app and key commands, ``import``, ``export`` and the
 operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
 ``incident``, which read live daemons over HTTP) work on the host and
@@ -261,10 +272,59 @@ def cmd_deploy(args) -> int:
         foldin_item_headroom=args.foldin_item_headroom,
     )
     api = QueryAPI(config=config)
+    at = None
+    if args.autotrain and not tenants:
+        at = _embedded_autotrain(api, config, variant, args.autotrain_dry_run)
     _info(f"Engine is deployed and running. Engine API is live at "
           f"http://{args.ip}:{args.port}.")
-    serve(api, host=args.ip, port=args.port)
+    try:
+        serve(api, host=args.ip, port=args.port)
+    finally:
+        if at is not None:
+            at.close()
     return 0
+
+
+def _start_loop(loop, thread_name: str, what: str):
+    """Run an embedded control loop (autotrain, autopilot) on a daemon
+    thread of the host process."""
+    import threading
+    threading.Thread(target=loop.run, name=thread_name, daemon=True).start()
+    _info(f"{what} is " + ("DRY-RUN (journals would-have decisions only)."
+                           if loop.config.dry_run else "live."))
+    return loop
+
+
+def _embedded_autotrain(api, config, variant: dict, dry_run: bool):
+    """``deploy --autotrain``: the continuous-training loop in the serving
+    process. Its retrains run ``run_train`` on a thread pinned to the
+    deploy's device (a fresh context over the deploy's storage and
+    device, with the deploy's engine and params), and its publish is the
+    in-place hot swap."""
+    from predictionio_tpu_torch.workflow.autotrain import (
+        Autotrain, AutotrainConfig, LocalDeployControl, ThreadTrainer,
+    )
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_train
+
+    def retrain() -> str:
+        ctx = WorkflowContext(storage=api.storage, device=api.device)
+        return run_train(
+            ctx, api.engine, api.engine_params,
+            engine_id=config.engine_id,
+            engine_variant=config.engine_variant,
+            engine_factory=variant.get("engineFactory", ""),
+            params_json=variant)
+
+    at = Autotrain(
+        LocalDeployControl(api), storage=api.storage,
+        engine_params=api.engine_params,
+        trainer=ThreadTrainer(retrain, device=api.device),
+        config=AutotrainConfig(dry_run=dry_run),
+        engine_id=config.engine_id,
+        engine_variant=config.engine_variant)
+    api.attach_autotrain(at)
+    return _start_loop(at, "pio-autotrain", "Autotrain")
 
 
 def cmd_router(args) -> int:
@@ -286,9 +346,87 @@ def cmd_router(args) -> int:
         cache_mb=args.cache_mb,
         cache_ttl_ms=args.cache_ttl_ms)
     api = RouterAPI(config)
+    loops = []
+    if args.autopilot:
+        loops.append(_embedded_autopilot(api, args))
+    if args.autotrain:
+        loops.append(_router_autotrain(api, args))
     _info(f"Router is started at {args.ip}:{args.port} over "
           f"{len(api.backends)} backend(s).")
-    serve(api, host=args.ip, port=args.port)
+    try:
+        serve(api, host=args.ip, port=args.port)
+    finally:
+        for loop in loops:
+            loop.close()
+    return 0
+
+
+def _embedded_autopilot(api, args):
+    """``router --autopilot``: the fleet control loop in the router
+    process, steering it through direct calls; ``--replica-cmd`` gives it
+    a pool of local replica processes to scale."""
+    from predictionio_tpu_torch.workflow.autopilot import (
+        Autopilot, AutopilotConfig, LocalRouterControl,
+        SubprocessReplicaPool,
+    )
+    pool = (SubprocessReplicaPool(args.replica_cmd)
+            if args.replica_cmd else None)
+    ap = Autopilot(LocalRouterControl(api),
+                   config=AutopilotConfig(dry_run=args.autopilot_dry_run),
+                   pool=pool)
+    api.attach_autopilot(ap)
+    return _start_loop(ap, "pio-autopilot", "Autopilot")
+
+
+def _router_autotrain(api, args):
+    """``router --autotrain``: retrains run as ``pio train``
+    subprocesses (``--train-cmd`` overrides), accepted candidates publish
+    through this router's zero-drop ``/reload`` barrier."""
+    from predictionio_tpu_torch.data.storage import get_storage
+    from predictionio_tpu_torch.workflow.autotrain import (
+        Autotrain, AutotrainConfig, SubprocessTrainer,
+        default_train_command,
+    )
+    from predictionio_tpu_torch.workflow.autotrain import (
+        LocalRouterControl as AutotrainRouterControl,
+    )
+    from predictionio_tpu_torch.workflow.workflow_utils import (
+        get_engine, read_engine_variant,
+    )
+    engine_dir = os.path.abspath(args.engine_dir)
+    var = read_engine_variant(engine_dir, args.variant)
+    engine = get_engine(var["engineFactory"], base_dir=engine_dir)
+    at = Autotrain(
+        AutotrainRouterControl(api), storage=get_storage(),
+        engine_params=engine.engine_params_from_json(var),
+        trainer=SubprocessTrainer(
+            args.train_cmd or default_train_command(engine_dir,
+                                                    args.variant)),
+        config=AutotrainConfig(dry_run=args.autotrain_dry_run),
+        engine_id=var.get("id", "default"),
+        engine_variant=var.get("id", "default"))
+    api.attach_autotrain(at)
+    return _start_loop(at, "pio-autotrain", "Autotrain")
+
+
+def cmd_autopilot(args) -> int:
+    """The fleet control loop (workflow/autopilot.py) over a running
+    router's admin routes; Ctrl-C stops it."""
+    from predictionio_tpu_torch.workflow.autopilot import run_autopilot
+    _apply_telemetry_env(args)
+    run_autopilot(args.router, dry_run=args.dry_run,
+                  replica_cmd=args.replica_cmd)
+    return 0
+
+
+def cmd_autotrain(args) -> int:
+    """The continuous-training loop (workflow/autotrain.py) over a
+    running deploy server or router; Ctrl-C stops it."""
+    from predictionio_tpu_torch.workflow.autotrain import run_autotrain
+    _apply_telemetry_env(args)
+    run_autotrain(args.server, engine_dir=args.engine_dir,
+                  variant=args.variant, dry_run=args.dry_run,
+                  train_cmd=args.train_cmd)
     return 0
 
 
@@ -718,6 +856,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--profile-dir", default="",
                     help="directory for POST /debug/profile capture "
                          "artifacts (sets PIO_PROFILE_DIR)")
+    sp.add_argument("--autotrain", action="store_true",
+                    help="run the continuous-training loop in this "
+                         "process: retrains on a thread on the deploy's "
+                         "device, validated candidates published by the "
+                         "in-place swap (workflow/autotrain.py)")
+    sp.add_argument("--autotrain-dry-run", action="store_true",
+                    help="the embedded autotrain journals would-have "
+                         "retrain decisions without training")
     telemetry_flags(sp)
 
     sp = sub.add_parser(
@@ -763,6 +909,66 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--cache-ttl-ms", type=float, default=0.0,
                     help="response-cache entry TTL in ms (0 = "
                          "PIO_ROUTER_CACHE_TTL_MS or 5000)")
+    sp.add_argument("--autopilot", action="store_true",
+                    help="run the SLO-driven fleet control loop in this "
+                         "router process (workflow/autopilot.py)")
+    sp.add_argument("--autopilot-dry-run", action="store_true",
+                    help="the embedded autopilot journals would-have "
+                         "actions without acting")
+    sp.add_argument("--replica-cmd", default="",
+                    help="command template with a {port} placeholder the "
+                         "autopilot starts local replicas from; empty "
+                         "turns replica control off")
+    sp.add_argument("--autotrain", action="store_true",
+                    help="run the continuous-training loop in this router "
+                         "process: retrains as pio train subprocesses, "
+                         "validated candidates published through the "
+                         "zero-drop /reload barrier (workflow/autotrain.py)")
+    sp.add_argument("--autotrain-dry-run", action="store_true",
+                    help="the embedded autotrain journals would-have "
+                         "retrain decisions without training")
+    sp.add_argument("--engine-dir", default=".",
+                    help="engine directory the embedded autotrain reads "
+                         "params from and retrains")
+    sp.add_argument("--variant", default="engine.json")
+    sp.add_argument("--train-cmd", default="",
+                    help="the embedded autotrain's retrain command "
+                         "(default: the port's pio train over "
+                         "--engine-dir / --variant)")
+    telemetry_flags(sp)
+
+    sp = sub.add_parser(
+        "autopilot",
+        help="SLO-driven control loop over a running router: elastic "
+             "replicas, the degradation ladder, latency quarantine, one "
+             "profile capture per burn episode (workflow/autopilot.py)")
+    sp.add_argument("--router", required=True,
+                    help="router base URL, e.g. http://host:8100")
+    sp.add_argument("--dry-run", action="store_true",
+                    help="journal would-have actions without acting")
+    sp.add_argument("--replica-cmd", default="",
+                    help="command template with a {port} placeholder to "
+                         "start local replicas from; empty turns replica "
+                         "control off")
+    telemetry_flags(sp)
+
+    sp = sub.add_parser(
+        "autotrain",
+        help="continuous-training loop over a running deploy server or "
+             "router: drift / cursor-lag / volume / staleness triggers, "
+             "pio train subprocesses with one crash-resume, score and "
+             "ranking-parity gates, the /reload publish "
+             "(workflow/autotrain.py)")
+    sp.add_argument("--server", required=True,
+                    help="deploy server or router base URL, e.g. "
+                         "http://host:8000")
+    engine_flags(sp)
+    sp.add_argument("--dry-run", action="store_true",
+                    help="journal would-have retrain decisions without "
+                         "training")
+    sp.add_argument("--train-cmd", default="",
+                    help="retrain command run per cycle (default: the "
+                         "port's pio train over --engine-dir / --variant)")
     telemetry_flags(sp)
 
     sp = sub.add_parser("undeploy", help="stop a deployed engine server")
@@ -967,6 +1173,8 @@ _DISPATCH = {
     "deploy": cmd_deploy,
     "foldin": cmd_foldin,
     "router": cmd_router,
+    "autopilot": cmd_autopilot,
+    "autotrain": cmd_autotrain,
     "undeploy": cmd_undeploy,
     "profile": cmd_profile,
     "eventserver": cmd_eventserver,

@@ -49,6 +49,9 @@ class WorkflowContext:
         self.mesh = mesh
         #: iteration-checkpoint directory (set by run_train)
         self.checkpoint_dir: Optional[str] = None
+        #: did the training read stream (set by the data source's read;
+        #: run_train records it as ``runtime_conf["train_stream"]``)
+        self.train_stream = False
         self.phase_seconds: Dict[str, float] = {}
 
     @contextlib.contextmanager

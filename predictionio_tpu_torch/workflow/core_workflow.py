@@ -2,9 +2,11 @@
 ``run_train`` and ``run_evaluation`` in
 ``predictionio_tpu/workflow/core_workflow.py``).
 
-A train run: insert EngineInstance(INIT), ``engine.train``, serialize the
-models into the Models store keyed by the instance id, mark COMPLETED with
-the phase table in ``runtime_conf``. A failure marks the row ERROR and
+A train run: snapshot the event store's head (the training cursor), insert
+EngineInstance(INIT), ``engine.train``, serialize the models into the
+Models store keyed by the instance id, mark COMPLETED with the phase
+table, the read path (``train_stream``: on when the read streamed) and
+the JSON-encoded cursor in ``runtime_conf``. A failure marks the row ERROR and
 keeps its iteration snapshots, which the next run of the same
 engine/variant resumes from (auto-resume). In a multi-process job
 (``pio train --coordinator``) every rank runs the train (the sharded
@@ -77,6 +79,30 @@ def _find_auto_resume(instances, engine_id: str,
     return best.id if best else None
 
 
+def _head_cursor(storage, engine_params: EngineParams):
+    """The event-store head of the app ``datasourceparams.appName``
+    names, taken before the training read: the batch base the model
+    absorbs. Best effort: None for a store without cursors, an engine
+    without an app name, or any failure. Events landing during the read
+    are folded again by the speed layer (idempotent re-solves), never
+    lost."""
+    try:
+        events = storage.get_events()
+    except Exception:   # metadata-only storage
+        return None
+    if not hasattr(events, "head_cursor"):
+        return None
+    try:
+        dsp = getattr(engine_params, "data_source_params", None)
+        app_name = getattr(dsp, "appName", None)
+        if not app_name:
+            return None
+        app = storage.get_meta_data_apps().get_by_name(str(app_name))
+        return events.head_cursor(app.id, None) if app is not None else None
+    except Exception:
+        return None
+
+
 def run_train(
     ctx: WorkflowContext,
     engine: Engine,
@@ -105,6 +131,10 @@ def run_train(
             engine.train(ctx, engine_params)
             return ""
     instances = ctx.storage.get_meta_data_engine_instances()
+    # the training cursor (runtime_conf["train_cursor"]): autotrain's
+    # volume trigger and the fold-in rebase after a reload key off it
+    train_cursor = _head_cursor(ctx.storage, engine_params)
+    ctx.train_stream = False
     if resume_from is None and not multiprocess and os.environ.get(
             "PIO_AUTO_RESUME", "1") != "0":
         auto = _find_auto_resume(instances, engine_id, engine_variant)
@@ -160,7 +190,10 @@ def run_train(
         instances.update(EngineInstance(
             **{**row.__dict__, "status": "COMPLETED", "end_time": _now(),
                "runtime_conf": {**row.runtime_conf,
-                                "train_stream": "off",
+                                "train_stream":
+                                    "on" if ctx.train_stream else "off",
+                                **({"train_cursor": json.dumps(train_cursor)}
+                                   if train_cursor is not None else {}),
                                 "device": str(ctx.device),
                                 **{f"phase_{k}_s": f"{v:.3f}"
                                    for k, v in phases.items()}}}))

@@ -54,7 +54,15 @@ runs out the worker calls ``/reload``'s load, which re-pads with room for
 every folded row. A fold-in that cannot start journals a WARN and the
 server serves without it. ``GET /`` carries ``aot`` and ``foldin`` blocks
 only when those are live: with both off every endpoint is byte-identical
-to a server without them.
+to a server without them. A reload onto a newly trained instance rebases
+the worker at that instance's training cursor
+(``runtime_conf["train_cursor"]``), so the events that landed after its
+training read fold on the next tick.
+
+Continuous training (workflow/autotrain.py, ``pio deploy --autotrain``):
+``attach_autotrain`` puts the loop's ``summary()`` under ``GET /`` as an
+``autotrain`` block (absent until a loop is attached); its publish is the
+in-place ``_reload``.
 
 Sharded serving (``parallel/serve_dist.py``, ``ServerConfig.shard_serving``,
 ``PIO_SERVE_SHARD``): the load's ``prepare_serving`` runs inside the
@@ -244,6 +252,19 @@ def resolve_engine_instance(storage: Storage, config: ServerConfig):
     return instance
 
 
+def _train_cursor(instance) -> Optional[Any]:
+    """The event-store cursor ``run_train`` took before the training read
+    (``runtime_conf["train_cursor"]``, JSON-encoded). None for a row
+    without one: the fold-in rebase then restarts at the tail's head."""
+    raw = (getattr(instance, "runtime_conf", None) or {}).get("train_cursor")
+    if not raw:
+        return None
+    try:
+        return json.loads(raw) if isinstance(raw, str) else raw
+    except ValueError:
+        return None
+
+
 def engine_params_from_instance(engine: Engine, instance) -> EngineParams:
     """Rebuild EngineParams from the ledger row's JSON snapshots."""
     def subtree(raw):
@@ -367,6 +388,8 @@ class QueryAPI:
         #: model generation by the load
         self._foldin_worker = None
         self._foldin_instance_id: Optional[str] = None
+        #: the embedded autotrain loop (``attach_autotrain``)
+        self._autotrain = None
         #: the latest POST /reload's thread (close() joins it)
         self._reload_thread: Optional[threading.Thread] = None
         #: answered queries on their way to the output sniffers, and the
@@ -779,10 +802,12 @@ class QueryAPI:
                 return
             self._foldin_worker = worker
         # a reload onto a NEW trained instance invalidates the folded
-        # state (solved against the old batch base): rebase first
+        # state (solved against the old batch base): rebase first, at the
+        # new instance's training cursor, so the events after its read
+        # fold on the next tick
         inst = self.engine_instance
         if self._foldin_instance_id not in (None, inst.id):
-            worker.rebase()
+            worker.rebase(cursor=_train_cursor(inst))
         self._foldin_instance_id = inst.id
         worker.bind(models[prep["index"]], generation=self.generation,
                     prep=prep, reload_cb=self._reload)
@@ -1016,7 +1041,16 @@ class QueryAPI:
         if worker is not None:
             # only with the fold-in worker live (wire parity)
             out["foldin"] = worker.state()
+        if self._autotrain is not None:
+            # only with an autotrain loop attached (wire parity): the
+            # block `pio doctor`'s autotrain line reads
+            out["autotrain"] = self._autotrain.summary()
         return out
+
+    def attach_autotrain(self, autotrain) -> None:
+        """Embedded ``pio deploy --autotrain``: the loop's ``summary()``
+        rides ``GET /``."""
+        self._autotrain = autotrain
 
     def _status_mt(self) -> Dict[str, Any]:
         """The multi-tenant ``GET /``: per-tenant blocks and the

@@ -201,6 +201,14 @@ def test_seeded_factors_come_from_a_torch_generator():
         6, N_U, N_I, RANK, device="cpu")[0])
 
 
+def test_the_item_init_does_not_depend_on_the_user_count():
+    """The reference splits its key per side: a retrain with more users
+    (continuous training) starts from the same item factors."""
+    _U, V = als._seed_factors(5, N_U, N_I, RANK, device="cpu")
+    U2, V2 = als._seed_factors(5, N_U + 17, N_I, RANK, device="cpu")
+    assert torch.equal(V, V2) and U2.shape == (N_U + 17, RANK)
+
+
 def test_rmse_matches_and_clamps_padding():
     ui, ii, vals = _problem()
     U0, V0 = _factors()

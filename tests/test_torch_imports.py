@@ -151,6 +151,13 @@ PARALLEL_SLICE = [
 ]
 
 
+#: continuous training and the fleet autopilot
+CONTROL_SLICE = [
+    "predictionio_tpu_torch.workflow.autopilot",
+    "predictionio_tpu_torch.workflow.autotrain",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -172,6 +179,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert set(FOLDIN_SLICE) <= set(names[:-1])
     assert set(REMOTE_SLICE) <= set(names[:-1])
     assert set(PARALLEL_SLICE) <= set(names[:-1])
+    assert set(CONTROL_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""

@@ -659,3 +659,46 @@ def test_remote_and_s3_storage_types_are_no_longer_refused(kind, entity):
            else store.get_model_data_models())
     assert type(dao).__name__ == {"remote": "Remote",
                                   "s3": "S3"}[kind] + entity
+
+
+#: the rows read since autotrain and the autopilot landed (inert before,
+#: "a daemon the port has no verb for"): a value an operator would set
+#: and the config field it lands in
+CONTROL_READS = {
+    **{f"PIO_AUTOTRAIN_{k}": (v, f) for k, v, f in (
+        ("POLL_MS", "250", "poll_ms"), ("COOLDOWN_S", "60", "cooldown_s"),
+        ("MAX_STALENESS_S", "3600", "max_staleness_s"),
+        ("VOLUME_EVENTS", "1000", "volume_events"),
+        ("LAG_EVENTS", "700", "lag_events"),
+        ("TOLERANCE", "0.05", "tolerance"),
+        ("PARITY_MIN", "0.4", "parity_min"), ("PROBE", "128", "probe"),
+        ("PUBLISH_TIMEOUT_S", "90", "publish_timeout_s"))},
+    **{f"PIO_AUTOPILOT_{k}": (v, f) for k, v, f in (
+        ("POLL_MS", "200", "poll_ms"), ("COOLDOWN_S", "5", "cooldown_s"),
+        ("UTIL_LOW", "0.1", "util_low"), ("UTIL_HIGH", "0.9", "util_high"),
+        ("MIN_REPLICAS", "2", "min_replicas"),
+        ("MAX_REPLICAS", "8", "max_replicas"),
+        ("OUTLIER_X", "2.5", "outlier_x"),
+        ("PROFILE_MS", "1500", "profile_ms"))},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONTROL_READS))
+def test_autotrain_and_autopilot_variables_are_read(monkeypatch, name):
+    """The 17 rows turned from inert to read: refused by no verb, and
+    resolved into the loop's config as the reference resolves them."""
+    from predictionio_tpu.workflow import autopilot as jautopilot
+    from predictionio_tpu.workflow import autotrain as jautotrain
+    from predictionio_tpu_torch.workflow import autopilot, autotrain
+
+    _clear(monkeypatch)
+    assert knobs.KNOBS[name].kind == knobs.READ
+    value, field = CONTROL_READS[name]
+    monkeypatch.setenv(name, value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)
+    mods = ((autotrain.AutotrainConfig, jautotrain.AutotrainConfig)
+            if "AUTOTRAIN" in name else
+            (autopilot.AutopilotConfig, jautopilot.AutopilotConfig))
+    got, want = (getattr(cls().resolved(), field) for cls in mods)
+    assert got == want == type(got)(value)
