@@ -300,6 +300,35 @@ Phases (any failure raises and the script exits non-zero):
              stops, exactly one profile capture whose trace holds B1 and
              B2 and no sort; a dry run that journals a would-have
              scale-up and leaves the router's status byte-identical.
+14. examples — the rest of the engine API, after phase 13 on the same
+             stores: (a) an engine.json naming
+             ``predictionio_tpu.examples.movielens:filtering_engine`` on
+             the store phase's 20M eventlog app (rank 10, 10 iterations):
+             ``pio build`` validates it, ``pio train`` runs kernel A 20
+             times, each equal to its plain version bit for bit, and a
+             quantized ``pio deploy`` with a ``TempFilterServing`` file of
+             disabled items (the top 3 of 16 users' plain int8 answers)
+             answers 64 sequential and 64 concurrent queries, each the
+             plain int8 path's top 10 on the live layout less the disabled
+             items; the file is rewritten (4th-6th items of 16 other
+             users) and 64 more answers follow it with no redeploy; B1 =
+             B2 = flushes, no sort kernel in a profile of 8 queries; ``pio
+             undeploy``; (b) on the templates phase's shop app, ``pio
+             train`` and ``pio deploy`` of
+             ``recommendation_variants:cat_engine`` and
+             ``similarproduct_variants:engine`` (kernel A 20 times each,
+             each == plain; 8 answers each equal to the stored model's
+             predict) and ``pio eval`` of
+             ``movielens:sliding_eval_engine``, one variant at rank 10
+             over 3 windows cut from the app's rate / buy span (the first
+             at 70%; kernel A 60 times, each == plain); (c) helloworld,
+             regression's SGD, SimRank on a 2,000-user graph, DIMSUM on
+             the whole shop catalog (its 2,000-item slice also on the
+             CPU), e2's MarkovChain and stock (a delisted and a constant
+             ticker) on the card, each against the same code on the CPU
+             within its stated tolerance; (d) ``pio template``, ``pio
+             run``, ``pio unregister`` and ``pio upgrade`` (exit 1) and
+             ``pio shell`` on a piped stdin printing the card's name.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -6274,6 +6303,627 @@ def _print_autopilot(o: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the example engines, e2 and the console verbs
+# ---------------------------------------------------------------------------
+
+EX_ENGINE = "smoke-ml-filter"
+EX_FACTORY = "predictionio_tpu.examples.movielens:filtering_engine"
+#: (a) the queries of the filtering deploy: users, num, the users whose
+#: top 3 the first disabled file holds and whose 4th-6th the second does
+EX_USERS, EX_NUM, EX_DISABLE_FROM = 64, 10, 16
+EX_CLIENTS = 16
+EX_PROFILED = 8
+#: (b) the shop app's trains and the sliding eval: 10 iterations each,
+#: the first window's cut at 70% of the rate / buy span, the rest split
+EX_ITERS = 10
+EX_WINDOWS, EX_FIRST_CUT = 3, 0.7
+EX_SHOP_QUERIES = 8
+#: (c) the host-side examples' sizes on the card, each run again on the
+#: CPU: a day-keyed CSV, SGD points, the SimRank graph, DIMSUM's CPU
+#: slice of the shop catalog, the Markov tally, the stock frame
+EX_HELLO_ROWS, EX_HELLO_DAYS = 20_000, 365
+EX_SGD_ROWS, EX_SGD_ITERS = 20_000, 400
+EX_SIMRANK_USERS, EX_SIMRANK_EDGES, EX_SIMRANK_ITERS = 2_000, 20_000, 5
+EX_DIMSUM_CPU_ITEMS = 2_000
+EX_MARKOV_STATES, EX_MARKOV_TALLY, EX_MARKOV_TOP = 2_000, 200_000, 10
+EX_STOCK_TICKERS, EX_STOCK_DAYS = 50, 300
+#: (c) the stated tolerances of the card against the CPU
+EX_TOL = {"helloworld": (1e-6, 0.0), "regression": (1e-4, 1e-5),
+          "simrank": (0.0, 1e-6), "dimsum": (0.0, 1e-6),
+          "markov": (1e-6, 1e-7), "stock": (1e-3, 1e-5)}
+EX_EVAL_MODULE = '''"""Walk-forward windows over the shop app, one variant."""
+import datetime as dt
+
+from predictionio_tpu_torch.controller import (
+    EngineParams, EngineParamsGenerator, Evaluation,
+)
+from predictionio_tpu_torch.examples import movielens
+from predictionio_tpu_torch.models.recommendation.als_algorithm import (
+    ALSAlgorithmParams,
+)
+from predictionio_tpu_torch.models.recommendation.evaluation import (
+    PositiveCount, PrecisionAtK,
+)
+
+
+class SlidingEvaluation(Evaluation):
+    def __init__(self):
+        self.engine = movielens.sliding_eval_engine()
+        self.metrics = (PrecisionAtK(k=10, ratingThreshold=2.0),
+                        PositiveCount(ratingThreshold=2.0))
+        super().__init__()
+
+
+class SlidingGrid(EngineParamsGenerator):
+    def __init__(self):
+        self.engine_params_list = [EngineParams(
+            data_source_params=movielens.SlidingEvalDataSourceParams(
+                appName={app!r},
+                firstTrainingUntilTime=dt.datetime.fromtimestamp(
+                    {first_s!r}, tz=dt.timezone.utc),
+                evalDurationSeconds={duration_s!r}, evalCount={windows},
+                queryNum=10),
+            algorithm_params_list=(("als", ALSAlgorithmParams(
+                rank={rank}, numIterations={iters}, lambda_=0.01,
+                seed={seed})),))]
+'''
+EX_RUN_MODULE = '''"""A callable that `pio run` resolves in an engine dir."""
+
+
+def main(*args):
+    print("smoke-run", *args)
+    return len(args)
+'''
+
+
+class _CheckedA:
+    """Every kernel A launch while the block runs, held against the plain
+    solve on the same inputs, bit for bit (the comparison's plain calls
+    are not launches)."""
+
+    def __init__(self):
+        self.calls = 0
+        self.mismatch = 0
+        self.max_abs_err = 0.0
+
+    def wrap(self):
+        def make(orig):
+            def run(A, b, reg):
+                x = orig(A, b, reg)
+                p = solve.solve_gj_plain(A, b, reg)
+                self.calls += 1
+                self.mismatch += 0 if bool(_bitwise_same(x, p).all()) else 1
+                if x.numel():
+                    self.max_abs_err = max(self.max_abs_err,
+                                           float((x - p).abs().max()))
+                return x
+            return run
+        return _wrapped((solve, "_launch", make))
+
+    def require(self, launches: int, want: int, where: str) -> dict:
+        if launches != want or self.calls != want or self.mismatch:
+            raise AssertionError(
+                f"{where}: kernel A launched {launches} times ({self.calls} "
+                f"checked, want {want}), {self.mismatch} differ from plain")
+        return {"A_launches": launches, "A_equal_plain": self.calls,
+                "A_max_abs_err": self.max_abs_err}
+
+
+def phase_examples(work: str, seed: int, dev: torch.device) -> dict:
+    """Phase 14: (a) the MovieLens filtering engine at full width on the
+    store phase's 20M eventlog app, (b) the shop app's example trains and
+    the sliding eval, (c) the host-side examples on the card against the
+    CPU, (d) the console verbs."""
+    t_phase = time.perf_counter()
+    out = {"card": _smi()}
+    names = (*_eventlog_env(work), "PIO_TRAIN_STREAM")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.pop("PIO_TRAIN_STREAM", None)
+    os.environ.update(_eventlog_env(work))
+    storage_mod.reset_storage()
+    try:
+        t0 = time.perf_counter()
+        out["filtering"] = _examples_filtering(work, seed, dev)
+        out["filtering"]["step_s"] = time.perf_counter() - t0
+    finally:
+        storage_mod.get_storage().get_events().close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+    t0 = time.perf_counter()
+    out["shop"] = _examples_shop(work, seed, dev)
+    out["shop"]["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["host"] = _examples_host(work, seed, dev, out["shop"].pop("td"))
+    out["host"]["step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["verbs"] = _examples_verbs(work)
+    out["verbs"]["step_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    _print_examples(out)
+    print("examples: " + json.dumps(out), flush=True)
+    return out
+
+
+def _filtered(answer: dict, disabled) -> dict:
+    return {"itemScores": [s for s in answer["itemScores"]
+                           if s["item"] not in disabled]}
+
+
+def _examples_filtering(work: str, seed: int, dev) -> dict:
+    """(a) ``pio build``, ``pio train`` (kernel A 20 times, each == plain)
+    and a quantized ``pio deploy`` of the filtering engine on the 20M
+    app, its disabled file rewritten while it serves."""
+    store = storage_mod.get_storage()
+    engine_dir = os.path.join(work, "examples_filtering")
+    os.makedirs(engine_dir)
+    disabled_path = os.path.join(engine_dir, "disabled.txt")
+    with open(disabled_path, "w"):
+        pass
+    with open(ENGINE_JSON) as f:
+        variant = json.load(f)
+    variant.update(id=EX_ENGINE, engineFactory=EX_FACTORY)
+    variant["datasource"]["params"]["appName"] = STORE_APP
+    variant["algorithms"][0]["params"]["numIterations"] = EX_ITERS
+    variant["serving"] = {"params": {"filepath": disabled_path}}
+    with open(os.path.join(engine_dir, "engine.json"), "w") as f:
+        json.dump(variant, f)
+    out = {}
+    if cli.main(["build", "--engine-dir", engine_dir]) != 0:
+        raise AssertionError("pio build of the filtering engine failed")
+    checked = _CheckedA()
+    solve.reset_launches()               # the filtering train starts here
+    t0 = time.perf_counter()
+    with checked.wrap():
+        rc = cli.main(["train", "--engine-dir", engine_dir])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    launches = solve.launches            # ... and ends here
+    if rc != 0:
+        raise AssertionError(f"pio train of the filtering engine exited {rc}")
+    out["train"] = checked.require(launches, 2 * EX_ITERS, "filtering train")
+    row = store.get_meta_data_engine_instances().get_latest_completed(
+        EX_ENGINE, "NOT_USED", EX_ENGINE)
+    out["train"]["phases_s"] = {k[len("phase_"):-len("_s")]: float(v)
+                                for k, v in row.runtime_conf.items()
+                                if k.startswith("phase_")}
+    out["deploy"] = _examples_deploy(engine_dir, row.id, disabled_path,
+                                     seed)
+    return out
+
+
+def _examples_deploy(engine_dir: str, iid: str, disabled_path: str,
+                     seed: int) -> dict:
+    """``pio deploy --serve-quant on`` in a thread; 64 sequential and 64
+    concurrent queries against the first disabled file, then the file
+    rewritten and 64 more: every answer the plain int8 path's top-num on
+    the live layout less the disabled items, B1 = B2 = flushes, no sort
+    kernel in a profile of 8 queries; ``pio undeploy``."""
+    apis = []
+
+    class Recorded(create_server.QueryAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apis.append(self)
+
+    port, rcs = _free_port(), []
+    with _wrapped((create_server, "QueryAPI", lambda _c: Recorded)):
+        deploy = threading.Thread(target=lambda: rcs.append(cli.main([
+            "deploy", "--engine-dir", engine_dir, "--engine-instance-id",
+            iid, "--ip", "127.0.0.1", "--port", str(port),
+            "--serve-quant", "on"])), daemon=True)
+        deploy.start()
+        try:
+            ready_s = _wait_ready(port, deploy.is_alive, deadline_s=300)
+            (api,) = apis
+            model = api.models[0]
+            vocab = model.user_vocab.inverse()
+            rng = np.random.default_rng(seed + 141)
+            users = [vocab(int(u)) for u in rng.choice(
+                len(model.user_vocab), EX_USERS, replace=False)]
+            plain = {u: _served(model, u, EX_NUM) for u in users}
+            first = sorted({s["item"] for u in users[:EX_DISABLE_FROM]
+                            for s in plain[u]["itemScores"][:3]})
+            second = sorted({s["item"]
+                             for u in users[EX_DISABLE_FROM:
+                                            2 * EX_DISABLE_FROM]
+                             for s in plain[u]["itemScores"][3:6]})
+            with open(disabled_path, "w") as f:
+                f.write("\n".join(first) + "\n")
+            topk_fused.reset_launches()  # the serving path starts here
+            solve.reset_launches()
+            lat = {"sequential": [], "concurrent": [], "rewritten": []}
+            dropped = {"first": 0, "second": 0}
+
+            def check(results, disabled, key, name):
+                for u, (status, payload, dt_s, _raw) in zip(users, results):
+                    if status != 200 or payload != _filtered(plain[u],
+                                                             disabled):
+                        raise AssertionError(
+                            f"{name}: {u} answered {status} {payload}, the "
+                            "plain int8 path less the disabled items "
+                            f"{_filtered(plain[u], disabled)}")
+                    dropped[key] += EX_NUM - len(payload["itemScores"])
+                    lat[name].append(dt_s)
+
+            check([_post(port, u, EX_NUM) for u in users], set(first),
+                  "first", "sequential")
+            with ThreadPoolExecutor(max_workers=EX_CLIENTS) as pool:
+                check(list(pool.map(lambda u: _post(port, u, EX_NUM),
+                                    users)), set(first), "first",
+                      "concurrent")
+            # the file changes under the live deploy: no redeploy
+            with open(disabled_path, "w") as f:
+                f.write("\n".join(second) + "\n")
+            check([_post(port, u, EX_NUM) for u in users], set(second),
+                  "second", "rewritten")
+            per, _wall = _device_profile(lambda: [
+                _post(port, u, EX_NUM) for u in users[:EX_PROFILED]])
+            stats = api.handle("GET", "/")[1]
+        finally:
+            if cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                         str(port)]) != 0:
+                raise AssertionError("pio undeploy failed")
+            deploy.join(timeout=60)
+    launches = topk_fused.launches       # the serving path ends here
+    merge_launches = topk_fused.merge_launches
+    if rcs != [0] or deploy.is_alive():
+        raise AssertionError(f"pio deploy exited {rcs}")
+    if solve.launches:
+        raise AssertionError("the filtering deploy launched solve_gj")
+    flushes = stats["batching"]["batches"]
+    if stats["quant"] is None or not stats["quant"].get("fused"):
+        raise AssertionError(f"deploy did not take the fused path: {stats}")
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
+        raise AssertionError(
+            f"B1 launched {launches} times and B2 {merge_launches} times "
+            f"for {flushes} flushes (want one each per flush)")
+    _require_kernels(per, "the filtering deploy")
+    if not dropped["first"] or not dropped["second"]:
+        raise AssertionError(f"the disabled files removed nothing: "
+                             f"{dropped}")
+    return {"ready_s": ready_s, "queries": 3 * EX_USERS + EX_PROFILED,
+            "flushes": flushes, "B1_launches": launches,
+            "B2_launches": merge_launches, "disabled": [len(first),
+                                                        len(second)],
+            "removed": dropped,
+            "query_ms": {k: dict(zip(("p50", "p99"), _pct(v)))
+                         for k, v in lat.items()},
+            "sort_kernels": _sort_kernels(per)}
+
+
+def _examples_shop(work: str, seed: int, dev) -> dict:
+    """(b) ``pio train`` and ``pio deploy`` of the recommendation-cat and
+    similar-product-variants engines on the templates phase's shop app,
+    and ``pio eval`` of the sliding-window engine over 3 windows."""
+    from predictionio_tpu_torch.examples import (
+        recommendation_variants as rv, similarproduct_variants as sv,
+    )
+    from predictionio_tpu_torch.models.similarproduct import (
+        data_source as sp_ds,
+    )
+    from predictionio_tpu_torch.workflow import json_extractor
+    store = storage_mod.get_storage()
+    out = {}
+    cat = {"id": "smoke-cat", "engineFactory":
+           "predictionio_tpu.examples.recommendation_variants:cat_engine",
+           "datasource": {"params": {"appName": TPL_APP}},
+           "algorithms": [{"name": "als", "params": {
+               "rank": RANK, "numIterations": EX_ITERS, "lambda_": 0.01,
+               "seed": seed}}]}
+    spv = {"id": "smoke-spv", "engineFactory":
+           "predictionio_tpu.examples.similarproduct_variants:engine",
+           "datasource": {"params": {"appName": TPL_APP}},
+           "algorithms": [{"name": "als", "params": {
+               "rank": RANK, "numIterations": EX_ITERS, "lambda": 0.01,
+               "seed": seed}}]}
+    for name, variant in (("cat", cat), ("spv", spv)):
+        checked = _CheckedA()
+        with checked.wrap():
+            engine_dir, row, (model,), numbers = _template_train(
+                work, store, f"examples_{name}", variant, 2 * EX_ITERS)
+        numbers.update(checked.require(numbers["solve_gj_launches"],
+                                       2 * EX_ITERS, f"{name} train"))
+        if name == "cat":
+            vocab = model.user_vocab.inverse()
+            bodies = [{"user": vocab(i), "num": 10}
+                      for i in range(0, len(model.user_vocab),
+                                     len(model.user_vocab)
+                                     // EX_SHOP_QUERIES)][:EX_SHOP_QUERIES]
+            want = [rv.CategoryALSAlgorithm().predict(
+                model, rv.CatQuery(**b)) for b in bodies]
+        else:
+            trained = np.flatnonzero(model.trained)
+            inv = model.item_vocab.inverse()
+            bodies = [{"items": [inv(int(i))], "num": 10}
+                      for i in trained[:: max(1, len(trained)
+                                              // EX_SHOP_QUERIES)]
+                      ][:EX_SHOP_QUERIES]
+            want = [sv.VALSAlgorithm().predict(model, sv.VQuery(**b))
+                    for b in bodies]
+        answers, _api, serve = _template_serve(engine_dir, row.id, bodies)
+        want = [json.loads(json_extractor.render(w)) for w in want]
+        filled = sum(1 for a in answers if a[next(iter(a))])
+        if answers != want or 2 * filled < len(answers):
+            raise AssertionError(f"{name}: the deploy's answers differ from "
+                                 "the stored model's predict, or most are "
+                                 "empty")
+        out[name] = {"train": numbers, "serve": serve}
+    out["sliding_eval"] = _examples_sliding(work, store, seed)
+    # the similar-product read once more, for DIMSUM on the card (c)
+    ctx = WorkflowContext(storage=store, device=dev)
+    out["td"] = sp_ds.DataSource(sp_ds.DataSourceParams(
+        appName=TPL_APP)).read_training(ctx)
+    return out
+
+
+def _examples_sliding(work: str, store, seed: int) -> dict:
+    """``pio eval`` of the sliding-window engine: one variant at rank 10,
+    windows from the shop app's rate / buy span (the first cut at 70%,
+    the rest split in three), kernel A 20 times a window, each == plain."""
+    col = store_mod.find_columnar(
+        TPL_APP, entity_type="user", event_names=["rate", "buy"],
+        target_entity_type="item", storage=store)
+    lo, hi = int(col.event_time_ms.min()), int(col.event_time_ms.max())
+    first_s = (lo + EX_FIRST_CUT * (hi - lo)) / 1e3
+    duration_s = (hi - lo) * (1 - EX_FIRST_CUT) / EX_WINDOWS / 1e3
+    engine_dir = os.path.join(work, "examples_sliding")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "smoke_sliding.py"), "w") as f:
+        f.write(EX_EVAL_MODULE.format(
+            app=TPL_APP, first_s=first_s, duration_s=duration_s,
+            windows=EX_WINDOWS, rank=RANK, iters=EX_ITERS, seed=seed))
+    best = os.path.join(engine_dir, "best.json")
+    checked = _CheckedA()
+    solve.reset_launches()               # the eval's path starts here
+    t0 = time.perf_counter()
+    with checked.wrap():
+        rc = cli.main(["eval", "smoke_sliding:SlidingEvaluation",
+                       "smoke_sliding:SlidingGrid", "--engine-dir",
+                       engine_dir, "--output-best-engine-params", best])
+    wall = time.perf_counter() - t0
+    launches = solve.launches            # ... and ends here
+    if rc != 0:
+        raise AssertionError(f"pio eval of the sliding engine exited {rc}")
+    out = checked.require(launches, 2 * EX_ITERS * EX_WINDOWS,
+                          "sliding eval")
+    rows = store.get_meta_data_evaluation_instances().get_all()
+    row = max(rows, key=lambda r: r.start_time)
+    if row.status != "EVALCOMPLETED":
+        raise AssertionError(f"the sliding eval left {row.status}")
+    result = json.loads(row.evaluator_results_json)
+    score = result.get("bestScore", {}).get("score")
+    if score is None or not 0.0 <= score <= 1.0:
+        raise AssertionError(f"sliding eval score {score}")
+    with open(best) as f:
+        json.load(f)
+    out.update(wall_s=wall, precision_at_10=score, windows=EX_WINDOWS,
+               first_cut_s=first_s, window_s=duration_s)
+    return out
+
+
+def _cpu_ctx():
+    return WorkflowContext(device="cpu")
+
+
+def _close_enough(name: str, got, want) -> float:
+    rtol, atol = EX_TOL[name]
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"{name}: card {got.shape} vs CPU "
+                             f"{want.shape}, or non-finite")
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: the card differs from the CPU by "
+                             f"{err} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def _examples_host(work: str, seed: int, dev, shop_td) -> dict:
+    """(c) the host-side examples once on the card and once on the CPU,
+    each within its stated tolerance (EX_TOL); no kernel A or B."""
+    from predictionio_tpu_torch.controller import EngineParams
+    from predictionio_tpu_torch.e2 import MarkovChain
+    from predictionio_tpu_torch.examples import (
+        dimsum, friend_recommendation as fr, helloworld as hw,
+        regression as rg, stock,
+    )
+    rng = np.random.default_rng(seed + 142)
+    d = os.path.join(work, "examples_host")
+    os.makedirs(d)
+    out = {}
+    ctx_card = WorkflowContext(device=dev)
+    solve.reset_launches()
+    topk_fused.reset_launches()
+
+    def both(name, fn):
+        t0 = time.perf_counter()
+        card = fn(ctx_card)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        cpu = fn(_cpu_ctx())
+        return card, cpu, t_card
+
+    # helloworld
+    path = os.path.join(d, "temps.csv")
+    days = rng.integers(0, EX_HELLO_DAYS, EX_HELLO_ROWS)
+    with open(path, "w") as f:
+        f.writelines(f"day{k},{t:.2f}\n" for k, t in zip(
+            days.tolist(), rng.normal(60, 15, EX_HELLO_ROWS).tolist()))
+    ep = EngineParams(data_source_params=hw.HelloWorldDataSourceParams(path),
+                      algorithm_params_list=(("", None),))
+    card, cpu, t = both("helloworld",
+                        lambda c: hw.engine().train(c, ep)[0])
+    out["helloworld"] = {"days": len(card), "card_s": t,
+                         "max_abs_err": _close_enough(
+                             "helloworld", [card[k] for k in sorted(card)],
+                             [cpu[k] for k in sorted(card)])}
+    # regression's SGD
+    path = os.path.join(d, "lr.txt")
+    x = rng.normal(0, 1, (EX_SGD_ROWS, 3))
+    np.savetxt(path, np.column_stack(
+        [x @ np.array([2.0, -1.0, 0.5]) + 0.25, x]), fmt="%.6f")
+    ep = EngineParams(
+        data_source_params=rg.RegressionDataSourceParams(path),
+        algorithm_params_list=(("SGD", rg.SGDAlgorithmParams(
+            numIterations=EX_SGD_ITERS, stepSize=0.5)),))
+    card, cpu, t = both("regression",
+                        lambda c: rg.engine().train(c, ep)[0])
+    out["regression"] = {"rows": EX_SGD_ROWS, "card_s": t, "weights":
+                         card.tolist(), "max_abs_err": _close_enough(
+                             "regression", card, cpu)}
+    # SimRank on a 2,000-user graph
+    n = EX_SIMRANK_USERS
+    for stem, text in (
+            ("item", "1 1 1;2\n"),
+            ("user", "".join(f"{u} 1:1.0\n" for u in range(n))),
+            ("action", "".join(f"{a} {b} 1 0 0\n" for a, b in zip(
+                rng.integers(0, n, EX_SIMRANK_EDGES).tolist(),
+                rng.integers(0, n, EX_SIMRANK_EDGES).tolist())))):
+        with open(os.path.join(d, f"{stem}.txt"), "w") as f:
+            f.write(text)
+    ep = EngineParams(
+        data_source_params=fr.FriendRecommendationDataSourceParams(
+            itemFilePath=os.path.join(d, "item.txt"),
+            userKeywordFilePath=os.path.join(d, "user.txt"),
+            userActionFilePath=os.path.join(d, "action.txt")),
+        algorithm_params_list=(("", fr.SimRankAlgorithmParams(
+            numIterations=EX_SIMRANK_ITERS, decay=0.8)),))
+    card, cpu, t = both("simrank",
+                        lambda c: fr.simrank_engine().train(c, ep)[0])
+    out["simrank"] = {"users": n, "edges": EX_SIMRANK_EDGES, "card_s": t,
+                      "max_abs_err": _close_enough("simrank", card.scores,
+                                                   cpu.scores)}
+    # DIMSUM: the whole shop catalog on the card; a slice of it on both
+    algo = dimsum.DIMSUMAlgorithm(dimsum.DIMSUMAlgorithmParams())
+    t0 = time.perf_counter()
+    full = algo.train(ctx_card, shop_td)
+    t_full = time.perf_counter() - t0
+    keep = set(sorted(shop_td.items)[:EX_DIMSUM_CPU_ITEMS])
+    part = dataclasses.replace(
+        shop_td, items={k: v for k, v in shop_td.items.items() if k in keep},
+        view_events=[v for v in shop_td.view_events if v.item in keep])
+    card, cpu, t = both("dimsum", lambda c: algo.train(c, part))
+    inv = card.item_vocab.inverse()
+    sub = [full.item_vocab(inv(k)) for k in range(len(card.item_vocab))]
+    if not np.array_equal(full.similarities[np.ix_(sub, sub)],
+                          card.similarities):
+        raise AssertionError("dimsum: the catalog's slice differs from the "
+                             "slice's own Gram")
+    out["dimsum"] = {"items": len(full.item_vocab), "card_s": t_full,
+                     "cpu_items": len(keep), "max_abs_err": _close_enough(
+                         "dimsum", card.similarities, cpu.similarities)}
+    del full
+    # e2's Markov chain
+    rows = rng.integers(0, EX_MARKOV_STATES, EX_MARKOV_TALLY)
+    cols = rng.integers(0, EX_MARKOV_STATES, EX_MARKOV_TALLY)
+    counts = rng.integers(1, 4, EX_MARKOV_TALLY).astype(np.float64)
+    card, cpu, t = both("markov", lambda c: MarkovChain.train(
+        rows, cols, counts, EX_MARKOV_STATES, EX_MARKOV_TOP,
+        device=c.device))
+    tc, tp = card.transition.cpu().numpy(), cpu.transition.numpy()
+    if not np.array_equal(tc > 0, tp > 0):
+        raise AssertionError("markov: the kept entries differ card vs CPU")
+    state = rng.random(EX_MARKOV_STATES)
+    out["markov"] = {"states": EX_MARKOV_STATES, "card_s": t,
+                     "kept": int((tc > 0).sum()),
+                     "max_abs_err": _close_enough("markov", tc, tp),
+                     "predict_max_abs_err": _close_enough(
+                         "markov", card.predict(state), cpu.predict(state))}
+    # stock: one ticker delisted early, one constant (rank-deficient)
+    path = os.path.join(d, "prices.csv")
+    px = 100 * np.exp(np.cumsum(rng.normal(0.0005, 0.015, (
+        EX_STOCK_DAYS, EX_STOCK_TICKERS)), axis=0))
+    px[20:, 0] = np.nan
+    px[:, 1] = 42.0
+    with open(path, "w") as f:
+        f.write("date," + ",".join(f"T{k}" for k in range(
+            EX_STOCK_TICKERS)) + "\n")
+        f.writelines(f"d{day}," + ",".join(f"{v:.4f}" for v in row) + "\n"
+                     for day, row in enumerate(px))
+    data = stock.StockDataSource(stock.StockDataSourceParams(
+        filepath=path, trainUntilIdx=EX_STOCK_DAYS - 20)).read_training(None)
+    card, cpu, t = both("stock", lambda c: stock.RegressionStrategyAlgorithm(
+        ).train(c, data))
+    if card.active_ticker[0] or not card.active_ticker[1]:
+        raise AssertionError("stock: the delisted ticker counts as active "
+                             "or the constant one as inactive")
+    out["stock"] = {"tickers": EX_STOCK_TICKERS, "card_s": t,
+                    "rank_deficient_coef": card.coef[:2].tolist(),
+                    "max_abs_err": _close_enough("stock", card.coef,
+                                                 cpu.coef)}
+    if solve.launches or topk_fused.launches or topk_fused.merge_launches:
+        raise AssertionError("a host-side example launched kernel A or B")
+    return out
+
+
+def _examples_verbs(work: str) -> dict:
+    """(d) ``pio template``, ``pio run`` of a callable in an engine
+    directory, ``pio unregister`` and ``pio upgrade`` (exit 1), and ``pio
+    shell`` on a piped stdin naming the card."""
+    d = os.path.join(work, "examples_verbs")
+    os.makedirs(d)
+    with open(os.path.join(d, "smoke_run.py"), "w") as f:
+        f.write(EX_RUN_MODULE)
+    out = {}
+    for argv, want in ((["template"], 0), (["unregister"], 1),
+                       (["upgrade"], 1),
+                       (["run", "smoke_run:main", "a", "b", "c",
+                         "--engine-dir", d], 3)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv)
+        if rc != want:
+            raise AssertionError(f"pio {argv[0]} exited {rc}, want {want}")
+        out[argv[0]] = rc
+    buf = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("print(torch.cuda.get_device_name(0))\n")
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["shell"])
+    finally:
+        sys.stdin = stdin
+    if rc != 0 or buf.getvalue().strip() != torch.cuda.get_device_name(0):
+        raise AssertionError(f"pio shell exited {rc} printing "
+                             f"{buf.getvalue()!r}")
+    out["shell"] = buf.getvalue().strip()
+    return out
+
+
+def _print_examples(o: dict) -> None:
+    fl, tr, dep = o["filtering"], o["filtering"]["train"], \
+        o["filtering"]["deploy"]
+    print(f"examples: (a) movielens:filtering_engine on {STORE_APP}: pio "
+          f"build ok; pio train {fl['train_s']:.2f} s, kernel A "
+          f"{tr['A_launches']} launches, each == plain; pio deploy ready "
+          f"in {dep['ready_s']:.3f} s, {dep['queries']} queries in "
+          f"{dep['flushes']} flushes, B1 {dep['B1_launches']} B2 "
+          f"{dep['B2_launches']}, no sort kernel; disabled {dep['disabled']}"
+          f" items, removed {dep['removed']}; the rewritten file followed "
+          f"with no redeploy; query ms {dep['query_ms']}", flush=True)
+    for name in ("cat", "spv"):
+        s = o["shop"][name]
+        print(f"examples: (b) {name}: pio train {s['train']['wall_s']:.2f} s"
+              f", kernel A {s['train']['A_launches']} each == plain; pio "
+              f"deploy {s['serve']['ready_s']:.3f} s, "
+              f"{s['serve']['query_ms']}", flush=True)
+    se = o["shop"]["sliding_eval"]
+    print(f"examples: (b) sliding eval: {se['windows']} windows, kernel A "
+          f"{se['A_launches']} each == plain, Precision@10 "
+          f"{se['precision_at_10']:.4f}, {se['wall_s']:.2f} s", flush=True)
+    print("examples: (c) card vs CPU: " + "; ".join(
+        f"{k} {v['max_abs_err']:.3g} (tol {EX_TOL[k]})"
+        for k, v in o["host"].items() if isinstance(v, dict)), flush=True)
+    print(f"examples: (d) verbs {o['verbs']}; phase 14 "
+          f"{o['phase_s']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 12: block-sharded training and row-sharded serving
 # ---------------------------------------------------------------------------
 
@@ -6795,6 +7445,7 @@ def main(argv=None) -> int:
         store_out["foldin"] = phase_store_foldin(work, args.seed, dev,
                                                  store_ctx)
         control_out = phase_control(work, args.seed, dev)
+        examples_out = phase_examples(work, args.seed, dev)
         del store_ctx
         shard_out = phase_shard(work, args.seed, dev)
     finally:
@@ -6835,6 +7486,11 @@ def main(argv=None) -> int:
         "remote_merge_launches": remote_out["deploy"]["B2_launches"],
         "shard_launches": shard_out["deploy"]["B1_launches"],
         "shard_merge_launches": shard_out["deploy"]["B2_launches"],
+        "examples_launches": examples_out["filtering"]["deploy"][
+            "B1_launches"],
+        "examples_merge_launches": examples_out["filtering"]["deploy"][
+            "B2_launches"],
+        "examples_deploy": examples_out["filtering"]["deploy"],
         "fleet_launches": _fleet_launches(fleet_out),
         "fleet": fleet_out,
         "autotrain_launches": {
@@ -6899,6 +7555,21 @@ def main(argv=None) -> int:
         "shard_cli_launches": [t["A_launches"] for t in
                                shard_out["cli"]["trains"].values()],
         "shard": {k: v for k, v in shard_out.items() if k != "serve"},
+        "examples_launches": {
+            "filtering_train": examples_out["filtering"]["train"][
+                "A_launches"],
+            "cat_train": examples_out["shop"]["cat"]["train"]["A_launches"],
+            "similarproduct_variants_train": examples_out["shop"]["spv"][
+                "train"]["A_launches"],
+            "sliding_eval": examples_out["shop"]["sliding_eval"][
+                "A_launches"]},
+        "examples_max_abs_err": max(
+            examples_out["filtering"]["train"]["A_max_abs_err"],
+            examples_out["shop"]["cat"]["train"]["A_max_abs_err"],
+            examples_out["shop"]["spv"]["train"]["A_max_abs_err"],
+            examples_out["shop"]["sliding_eval"]["A_max_abs_err"]),
+        "examples": {k: v for k, v in examples_out.items()
+                     if k != "filtering"},
         "store": store_out,
         "remote": remote_out,
         "observe": observe["profiled_train"],

@@ -4,7 +4,9 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm, DataSource, EmptyActualResult, EmptyEvaluationInfo,
     EmptyParams, Params, Preparator, SanityCheck, Serving,
 )
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.engine import (
+    Engine, EngineParams, SimpleEngine,
+)
 from predictionio_tpu_torch.controller.identity import (
     AverageServing, FirstServing, IdentityPreparator,
 )
@@ -15,13 +17,21 @@ from predictionio_tpu_torch.controller.metric import (
 from predictionio_tpu_torch.controller.evaluation import (
     EngineParamsGenerator, Evaluation, MetricEvaluator, MetricScores,
 )
+from predictionio_tpu_torch.controller.persistent_model import (
+    LocalFileSystemPersistentModel, PersistentModel,
+)
+from predictionio_tpu_torch.controller.self_cleaning import (
+    EventWindow, SelfCleaningDataSource,
+)
 
 __all__ = [
     "Algorithm", "DataSource", "EmptyActualResult", "EmptyEvaluationInfo",
     "EmptyParams", "Params", "Preparator", "SanityCheck", "Serving",
-    "Engine", "EngineParams",
+    "Engine", "EngineParams", "SimpleEngine",
     "AverageServing", "FirstServing", "IdentityPreparator",
     "AverageMetric", "Metric", "OptionAverageMetric", "OptionStdevMetric",
     "StdevMetric", "SumMetric", "ZeroMetric",
     "EngineParamsGenerator", "Evaluation", "MetricEvaluator", "MetricScores",
+    "LocalFileSystemPersistentModel", "PersistentModel",
+    "EventWindow", "SelfCleaningDataSource",
 ]

@@ -14,7 +14,14 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Generic, Iterable, List, Optional, Sequence, Tuple, TypeVar
+import importlib
+from typing import (
+    Any, Generic, Iterable, List, Optional, Sequence, Tuple, TypeVar,
+)
+
+from predictionio_tpu_torch.controller.persistent_model import (
+    PersistentModel, PersistentModelManifest,
+)
 
 TD = TypeVar("TD")   # training data
 PD = TypeVar("PD")   # prepared data
@@ -128,10 +135,50 @@ class Algorithm(Generic[PD, M, Q, P], abc.ABC):
         """Deploy-time hook: pick and build the serving layout."""
         return model
 
+    def make_persistent_model(self, ctx, instance_id: str, model: M) -> Any:
+        """The object to persist for ``model`` (Engine.makeSerializableModels,
+        Engine.scala:286-304): a :class:`PersistentModel` saves itself and
+        is replaced by a manifest naming its loader; any other model
+        persists as it is through the blob."""
+        if isinstance(model, PersistentModel):
+            manifest = PersistentModelManifest(
+                class_name=type(model).__qualname__,
+                module_name=type(model).__module__)
+            # checked before the save, so a class no deploy can import
+            # fails here with the reason, not at deploy
+            _check_manifest_loadable(manifest, type(model))
+            if model.save(instance_id, getattr(self, "_pio_params", None),
+                          ctx):
+                return manifest
+        return model
+
     @property
     def query_class(self):
         """Optional override: the Query dataclass for JSON extraction."""
         return None
+
+
+def _check_manifest_loadable(manifest: PersistentModelManifest,
+                             model_cls: type) -> None:
+    """Fail at save time, not deploy time, if the manifest can never be
+    resolved by a fresh server process (class defined in __main__ or a
+    local scope, or not importable by its recorded path)."""
+    if manifest.module_name == "__main__" or "<locals>" in manifest.class_name:
+        raise ValueError(
+            f"PersistentModel class {model_cls!r} is not importable from a "
+            "deploy process (defined in __main__ or a local scope); move it "
+            "into an importable module")
+    obj = importlib.import_module(manifest.module_name)
+    for part in manifest.class_name.split("."):
+        obj = getattr(obj, part, None)
+        if obj is None:
+            raise ValueError(
+                f"PersistentModel manifest {manifest.module_name}:"
+                f"{manifest.class_name} does not resolve back to a class")
+    if obj is not model_cls:
+        raise ValueError(
+            f"PersistentModel manifest {manifest.module_name}:"
+            f"{manifest.class_name} resolves to {obj!r}, not {model_cls!r}")
 
 
 class Serving(Generic[Q, P], abc.ABC):

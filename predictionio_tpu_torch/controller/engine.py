@@ -98,6 +98,16 @@ class Engine:
             self._sanity_check(m)
         return models
 
+    def make_serializable_models(self, ctx, instance_id: str,
+                                 engine_params: EngineParams,
+                                 models: List[Any]) -> List[Any]:
+        """Each algorithm's persistence hook over its trained model
+        (Engine.makeSerializableModels, Engine.scala:286-304); the
+        algorithms are built afresh from their Params."""
+        _, _, algorithms, _ = self._instantiate(engine_params)
+        return [a.make_persistent_model(ctx, instance_id, m)
+                for a, m in zip(algorithms, models)]
+
     @staticmethod
     def _sanity_check(obj) -> None:
         if isinstance(obj, SanityCheck):
@@ -160,3 +170,13 @@ class Engine:
                 getattr(self.serving_class, "params_class", None),
                 (variant_json.get("serving") or {}).get("params", {})),
         )
+
+
+class SimpleEngine(Engine):
+    """One-algorithm sugar (EngineParams.scala:130-160): the algorithm is
+    registered under the name ``""``."""
+
+    def __init__(self, data_source_class, preparator_class, algorithm_class,
+                 serving_class):
+        super().__init__(data_source_class, preparator_class,
+                         {"": algorithm_class}, serving_class)

@@ -58,8 +58,12 @@
         [--once] [--record FILE] | --replay FILE
     python -m predictionio_tpu_torch.tools.cli incident --targets URL,...
         [--window 10m] [--trace ID]
+    python -m predictionio_tpu_torch.tools.cli build [--engine-dir DIR]
+        [--variant engine.json]
+    python -m predictionio_tpu_torch.tools.cli run MODULE:CALLABLE
+        [ARG ...] [--engine-dir DIR]
     python -m predictionio_tpu_torch.tools.cli {status,dashboard,
-        adminserver} ...
+        adminserver,shell,template,unregister,upgrade} ...
 
 ``train``, ``eval`` and ``deploy`` run on the card unless
 ``PIO_TORCH_DEVICE=cpu`` asks for the CPU. ``train --devices N`` (-1:
@@ -145,6 +149,102 @@ def _make_context(batch: str = "", devices: int = 0,
     return WorkflowContext(
         workflow_params=WorkflowParams(batch=batch, profile_dir=profile_dir),
         mesh=mesh)
+
+
+def cmd_build(args) -> int:
+    """Validate the engine variant and its factory's import (the sbt
+    compile step collapses to an import check;
+    commands/Engine.scala:65-161)."""
+    from predictionio_tpu_torch.workflow.workflow_utils import (
+        get_engine, read_engine_variant,
+    )
+    engine_dir = os.path.abspath(args.engine_dir)
+    variant = read_engine_variant(engine_dir, args.variant)
+    engine = get_engine(variant["engineFactory"], base_dir=engine_dir)
+    engine.engine_params_from_json(variant)
+    _info(f"Engine {variant['engineFactory']} validated "
+          f"(variant {variant['id']}).")
+    _info("Build finished successfully. (Python engines need no compile.)")
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Run an arbitrary main class (console run, Console.scala:367-389):
+    ``main_class`` resolves with the engine directory first on the path;
+    its return value is the exit code."""
+    from predictionio_tpu_torch.workflow.workflow_utils import load_object
+    target = load_object(args.main_class,
+                         base_dir=os.path.abspath(args.engine_dir))
+    rv = target(*args.args) if callable(target) else None
+    return int(rv or 0)
+
+
+def cmd_shell(args) -> int:
+    """A Python shell with the configured Storage preloaded (bin/pio-shell
+    role: the reference opens a spark-shell with the pio assemblies on
+    its classpath): ``storage``, ``store`` (the event-store facades),
+    ``Storage`` and ``torch``. With stdin not a terminal it runs what it
+    reads and exits."""
+    import torch
+
+    from predictionio_tpu_torch.data import store
+    from predictionio_tpu_torch.data.storage import Storage
+
+    ns = {"storage": Storage(), "store": store, "torch": torch,
+          "Storage": Storage, "__name__": "__console__"}
+    if not sys.stdin.isatty():
+        exec(compile(sys.stdin.read(), "<stdin>", "exec"), ns)
+        return 0
+    cuda = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+            else "no card visible")
+    banner = ("predictionio_tpu_torch shell\n"
+              "  storage  -> configured Storage (env-driven)\n"
+              "  store    -> event store facades "
+              "(find/find_columnar/aggregate_properties)\n"
+              f"  torch    -> torch {torch.__version__} ({cuda})")
+    try:
+        from IPython import start_ipython
+        start_ipython(argv=[], user_ns=ns, display_banner=True)
+    except ImportError:
+        import code
+        code.interact(banner=banner, local=ns)
+    return 0
+
+
+def cmd_template(args) -> int:
+    """Template gallery moved to the web in the reference too
+    (Console.scala:546-560)."""
+    _info("Engine templates ship inside predictionio_tpu_torch.models.*:")
+    _info("  recommendation    - ALS matrix factorization (MovieLens-style)")
+    _info("  classification    - Naive Bayes over $set user properties")
+    _info("  similarproduct    - implicit ALS item-vector similarity")
+    _info("  ecommerce         - explicit ALS + business-rule filters")
+    _info("Instantiate one by pointing engine.json's engineFactory at its "
+          "factory, e.g. predictionio_tpu_torch.models.recommendation."
+          "engine:RecommendationEngine (a predictionio_tpu.* path maps to "
+          "the same factory).")
+    _info("Demo engines (the reference's examples/experimental set) live "
+          "in predictionio_tpu_torch.examples.* — helloworld, regression, "
+          "friend_recommendation, dimsum, recommendation_variants, "
+          "similarproduct_variants, recommended_user, refactor_test, apps, "
+          "movielens, stock; see that package's docstring for the map.")
+    return 0
+
+
+def cmd_unregister(args) -> int:
+    """Console.scala:170-175 parity: the verb parses but engine
+    registration metadata no longer exists (the reference removed its
+    sbt registry; its own dispatch falls through to help + exit 1)."""
+    _error("Nothing to unregister: engines are not registered — `pio "
+           "build` validates in place and `pio train --engine-dir` points "
+           "at the engine directory directly.")
+    return 1
+
+
+def cmd_upgrade(args) -> int:
+    """Console.scala:396-399 + :664-666 parity."""
+    _error("Upgrade is no longer supported")
+    return 1
 
 
 def cmd_train(args) -> int:
@@ -740,6 +840,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--variant", default="engine.json",
                         help="engine variant JSON (default: engine.json)")
 
+    sp = sub.add_parser("build", help="validate an engine")
+    engine_flags(sp)
+
     sp = sub.add_parser("train", help="train an engine instance")
     engine_flags(sp)
     sp.add_argument("--batch", default="", help="batch label")
@@ -1164,10 +1267,31 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--appid", type=int, required=True)
     sp.add_argument("--channel", default=None)
     sp.add_argument("--output", required=True)
+
+    sp = sub.add_parser("run", help="run an arbitrary entry point")
+    sp.add_argument("main_class")
+    sp.add_argument("args", nargs="*")
+    sp.add_argument("--engine-dir", default=".")
+
+    sub.add_parser("shell", help="interactive shell with Storage "
+                   "preloaded (pio-shell)")
+
+    sp = sub.add_parser("template", help="engine template info")
+    tsub = sp.add_subparsers(dest="template_command")
+    tsub.add_parser("list")
+    t = tsub.add_parser("get")
+    t.add_argument("name", nargs="?")
+
+    sp = sub.add_parser(
+        "unregister",
+        help="unregister an engine (no-op; Console.scala:170 parity)")
+    sp.add_argument("--engine-dir", default=".")
+    sub.add_parser("upgrade", help="no longer supported")
     return p
 
 
 _DISPATCH = {
+    "build": cmd_build,
     "train": cmd_train,
     "eval": cmd_eval,
     "deploy": cmd_deploy,
@@ -1191,6 +1315,11 @@ _DISPATCH = {
     "accesskey": cmd_accesskey,
     "import": cmd_import,
     "export": cmd_export,
+    "run": cmd_run,
+    "shell": cmd_shell,
+    "template": cmd_template,
+    "unregister": cmd_unregister,
+    "upgrade": cmd_upgrade,
 }
 
 

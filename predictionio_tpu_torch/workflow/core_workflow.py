@@ -167,6 +167,10 @@ def run_train(
         else:
             models = engine.train(ctx, engine_params)
         with ctx.phase("persist"):
+            # a PersistentModel saves itself here and its manifest rides
+            # the blob in its place
+            models = engine.make_serializable_models(
+                ctx, instance_id, engine_params, models)
             blob = model_io.serialize_models(
                 models,
                 check_finite=os.environ.get("PIO_FINITE_CHECK", "1") != "0")

@@ -119,6 +119,9 @@ from predictionio_tpu_torch.common import (
     waterfall,
 )
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.persistent_model import (
+    PersistentModelManifest,
+)
 from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.data.event import format_event_time
 from predictionio_tpu_torch.data.storage import Storage, get_storage
@@ -138,7 +141,9 @@ from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.server_plugins import (
     EngineServerPluginContext,
 )
-from predictionio_tpu_torch.workflow.workflow_utils import get_engine
+from predictionio_tpu_torch.workflow.workflow_utils import (
+    get_engine, load_object,
+)
 
 logger = logging.getLogger("predictionio_tpu_torch.server")
 
@@ -280,6 +285,34 @@ def engine_params_from_instance(engine: Engine, instance) -> EngineParams:
     if algos:
         variant["algorithms"] = algos
     return engine.engine_params_from_json(variant)
+
+
+def prepare_deploy(ctx, engine: Engine, engine_params: EngineParams,
+                   instance_id: str, models: List[Any],
+                   algorithms: Optional[List[Any]] = None) -> List[Any]:
+    """Make persisted models servable (Engine.prepareDeploy,
+    Engine.scala:199-269): a manifest goes to its class's ``load`` (a
+    class of the JAX package to the port's twin), a ``None`` model
+    retrains, and any other model is served as loaded. Device placement
+    is each algorithm's ``prepare_serving``."""
+    if algorithms is None:
+        _, _, algorithms, _ = engine._instantiate(engine_params)
+    out = []
+    retrained: Optional[List[Any]] = None
+    for i, (algo, model) in enumerate(zip(algorithms, models)):
+        if isinstance(model, PersistentModelManifest):
+            loader = load_object(f"{model.module_name}:{model.class_name}")
+            out.append(loader.load(
+                instance_id, getattr(algo, "_pio_params", None), ctx))
+        elif model is None:
+            # an unpersistable model retrains on deploy (Engine.scala:211-229)
+            if retrained is None:
+                logger.info("Some models cannot be loaded; retraining.")
+                retrained = engine.train(ctx, engine_params)
+            out.append(retrained[i])
+        else:
+            out.append(model)
+    return out
 
 
 def _layout_states(models, quant_requested: bool
@@ -476,6 +509,8 @@ class QueryAPI:
         _, _, algorithms, serving = engine._instantiate(engine_params)
         for a in algorithms:
             a.bind_serving(self.ctx)
+        models = prepare_deploy(self.ctx, engine, engine_params,
+                                instance.id, models, algorithms=algorithms)
         # the partition scope slices the owned item rows first, so the
         # fold-in padding, the layout, the warm-up and the batcher all
         # see only this replica's block of the catalog
@@ -617,6 +652,8 @@ class QueryAPI:
         _, _, algorithms, serving = engine._instantiate(engine_params)
         for a in algorithms:
             a.bind_serving(self.ctx)
+        models = prepare_deploy(self.ctx, engine, engine_params,
+                                instance.id, models, algorithms=algorithms)
         with serve_dist.deploy_scope(cfg.shard_serving, reload=is_reload,
                                      device=self.device), \
                 serve_quant.deploy_scope(cfg.serve_quant,

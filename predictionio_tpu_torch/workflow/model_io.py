@@ -8,15 +8,19 @@ plain ``pickle.loads``, import ``predictionio_tpu`` — and jax with it.
 ``find_class``: the classes the templates' blobs hold (the
 Recommendation, similar-product and e-commerce models, the
 classification template's Naive Bayes and random-forest models, their
-``Item`` records and BiMap) map to the port's twins, which keep the same
-fields, numpy's array reconstruction is allowed, and every other class
-is refused. The same
-rule makes loading a blob from an untrusted store unable to run code.
+``Item`` records and BiMap; the example engines' and e2's models; a
+self-saving model's manifest) map to the port's twins, which keep the
+same fields, numpy's array reconstruction is allowed, and every other
+class is refused. The same rule makes loading a blob from an untrusted
+store unable to run code. So a blob that the JAX package trained loads
+into the port; where a model holds factor arrays, the ``*_from_numpy``
+constructors below carry them across without a blob.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import io
 import pickle
 from typing import Any, Callable, Dict, List, Mapping, Tuple
@@ -57,12 +61,43 @@ _TEMPLATE_CLASSES = {
     ("models.ecommerce.engine", "Item"): ecomm_engine.Item,
 }
 
+#: the example engines', e2's and the manifest's classes, by module below
+#: the package: the examples import the templates (and so this module's
+#: imports), so these resolve at their first use in a blob
+_LAZY_CLASSES = frozenset([
+    ("controller.persistent_model", "PersistentModelManifest"),
+    ("e2.engine", "CategoricalNaiveBayesModel"),
+    ("e2.engine", "MarkovChainModel"),
+    ("examples.apps", "MaintenanceReport"),
+    ("examples.dimsum", "DIMSUMModel"),
+    ("examples.friend_recommendation", "KeywordSimilarityModel"),
+    ("examples.friend_recommendation", "SimRankModel"),
+    ("examples.recommendation_variants", "CategoryALSModel"),
+    ("examples.recommended_user", "RUModel"),
+    ("examples.similarproduct_variants", "VItem"),
+    ("examples.similarproduct_variants", "VModel"),
+    ("examples.stock", "RegressionStrategyModel"),
+])
+
+_PACKAGES = ("predictionio_tpu", "predictionio_tpu_torch")
+
 #: (module, name) a blob may name -> the port's class, under the module
 #: paths of both packages
 _PORT_CLASSES: Dict[Tuple[str, str], Any] = {
     (f"{pkg}.{mod}", name): cls
-    for pkg in ("predictionio_tpu", "predictionio_tpu_torch")
+    for pkg in _PACKAGES
     for (mod, name), cls in _TEMPLATE_CLASSES.items()}
+
+
+def _lazy_class(module: str, name: str):
+    """The port's class for a lazily resolved (module, name) of either
+    package, or None."""
+    for pkg in _PACKAGES:
+        sub = module[len(pkg) + 1:] if module.startswith(pkg + ".") else None
+        if sub is not None and (sub, name) in _LAZY_CLASSES:
+            return getattr(importlib.import_module(
+                f"predictionio_tpu_torch.{sub}"), name)
+    return None
 
 #: numpy's own array / dtype reconstruction, under its 1.x and 2.x paths
 _NUMPY_GLOBALS = frozenset(
@@ -76,14 +111,15 @@ _NUMPY_GLOBALS = frozenset(
 
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
-        cls = _PORT_CLASSES.get((module, name))
+        cls = _PORT_CLASSES.get((module, name)) or _lazy_class(module, name)
         if cls is not None:
             return cls
         if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"model blob names {module}.{name}, which the port does not "
-            "load (allowed: the templates' model classes, BiMap and numpy "
+            "load (allowed: the templates', examples' and e2's model "
+            "classes, BiMap, the persistent-model manifest and numpy "
             "arrays)")
 
 
@@ -192,3 +228,63 @@ def factors_from_snapshot(arrays: Mapping[str, Any]
         raise ValueError(f"snapshot lacks {sorted(missing)}; an ALS "
                          "snapshot holds 'U' and 'V'")
     return host_f32(arrays["U"]), host_f32(arrays["V"])
+
+
+def _vocab(v) -> BiMap:
+    return v if isinstance(v, BiMap) else BiMap(dict(v))
+
+
+def category_als_model_from_numpy(rank: int, user_factors, item_factors,
+                                  user_vocab, item_vocab, items):
+    """The recommendation-cat example's model from factor arrays, the
+    ``{id: row}`` vocabularies and ``{row: Item}``; the category masks
+    are built as its ``train`` builds them."""
+    from predictionio_tpu_torch.examples import recommendation_variants as rv
+    item_vocab = _vocab(item_vocab)
+    return rv.CategoryALSModel(
+        rank=int(rank), user_factors=host_f32(user_factors),
+        item_factors=host_f32(item_factors), user_vocab=_vocab(user_vocab),
+        item_vocab=item_vocab, items=dict(items),
+        category_masks=rv.build_category_masks(items, len(item_vocab)))
+
+
+def similarproduct_variants_model_from_numpy(item_factors, item_vocab,
+                                             items, trained):
+    """The similar-product variants' model from the L2-normalized item
+    factors, the vocabulary, ``{row: VItem}`` and the trained mask; the
+    category masks and the year columns are built as its ``train``
+    builds them."""
+    from predictionio_tpu_torch.examples import similarproduct_variants as sv
+    item_vocab = _vocab(item_vocab)
+    n = len(item_vocab)
+    years = np.zeros(n, dtype=np.int32)
+    has_year = np.zeros(n, dtype=bool)
+    for ix, item in items.items():
+        if item.year is not None:
+            years[ix] = item.year
+            has_year[ix] = True
+    return sv.VModel(item_factors=host_f32(item_factors),
+                     item_vocab=item_vocab, items=dict(items),
+                     trained=np.asarray(trained, dtype=bool),
+                     category_masks=sv.build_category_masks(items, n),
+                     years=years, has_year=has_year)
+
+
+def recommended_user_model_from_numpy(user_vocab, followed_factors):
+    """The recommended-user example's model from its followed-side
+    factors and the ``{id: row}`` user vocabulary."""
+    from predictionio_tpu_torch.examples import recommended_user as ru
+    return ru.RUModel(user_vocab=_vocab(user_vocab),
+                      followed_factors=host_f32(followed_factors))
+
+
+def markov_chain_model_from_numpy(transition, n: int, device=None):
+    """e2's MarkovChainModel from a numpy transition matrix, the matrix
+    a tensor on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    from predictionio_tpu_torch import device as device_mod
+    from predictionio_tpu_torch.e2.engine import MarkovChainModel
+    return MarkovChainModel(
+        transition=torch.tensor(host_f32(transition),
+                                device=device_mod.resolve(device)),
+        n=int(n))

@@ -158,6 +158,29 @@ CONTROL_SLICE = [
 ]
 
 
+#: the rest of the engine API: the example engines, e2's components,
+#: batch views, self-persisting models and self-cleaning data sources
+ENGINE_API_SLICE = [
+    "predictionio_tpu_torch.controller.persistent_model",
+    "predictionio_tpu_torch.controller.self_cleaning",
+    "predictionio_tpu_torch.data.view",
+    "predictionio_tpu_torch.e2.engine",
+    "predictionio_tpu_torch.examples",
+    "predictionio_tpu_torch.examples._serving",
+    "predictionio_tpu_torch.examples.apps",
+    "predictionio_tpu_torch.examples.dimsum",
+    "predictionio_tpu_torch.examples.friend_recommendation",
+    "predictionio_tpu_torch.examples.helloworld",
+    "predictionio_tpu_torch.examples.movielens",
+    "predictionio_tpu_torch.examples.recommendation_variants",
+    "predictionio_tpu_torch.examples.recommended_user",
+    "predictionio_tpu_torch.examples.refactor_test",
+    "predictionio_tpu_torch.examples.regression",
+    "predictionio_tpu_torch.examples.similarproduct_variants",
+    "predictionio_tpu_torch.examples.stock",
+]
+
+
 def _run_blocked(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -180,6 +203,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert set(REMOTE_SLICE) <= set(names[:-1])
     assert set(PARALLEL_SLICE) <= set(names[:-1])
     assert set(CONTROL_SLICE) <= set(names[:-1])
+    assert set(ENGINE_API_SLICE) <= set(names[:-1])
 
 
 _DEPLOY_JAX_FACTORY = _BLOCK + textwrap.dedent("""
@@ -308,8 +332,8 @@ def test_factory_paths_map_to_the_port():
 
 
 @pytest.mark.parametrize("path,missing", [
-    ("predictionio_tpu.examples.dimsum:engine",
-     "predictionio_tpu_torch.examples.dimsum:engine"),
+    ("predictionio_tpu.examples.nosuch:engine",
+     "predictionio_tpu_torch.examples.nosuch:engine"),
     ("predictionio_tpu.models.recommendation.engine:NoSuchEngine",
      "predictionio_tpu_torch.models.recommendation.engine:NoSuchEngine"),
 ])
@@ -317,6 +341,22 @@ def test_factory_without_a_counterpart_is_named(path, missing):
     with pytest.raises(ValueError, match="no counterpart") as err:
         workflow_utils.get_engine(path)
     assert missing in str(err.value)
+
+
+@pytest.mark.parametrize("path,data_source", [
+    ("predictionio_tpu.examples.dimsum:engine",
+     "predictionio_tpu_torch.models.similarproduct.data_source"),
+    ("predictionio_tpu.examples.movielens:filtering_engine",
+     "predictionio_tpu_torch.models.recommendation.data_source"),
+])
+def test_example_factories_resolve_to_the_port(path, data_source):
+    engine = workflow_utils.get_engine(path)
+    assert type(engine).__module__ == \
+        "predictionio_tpu_torch.controller.engine"
+    assert engine.data_source_class.__module__ == data_source
+    assert all(c.__module__.startswith("predictionio_tpu_torch.")
+               for c in (engine.preparator_class, engine.serving_class,
+                         *engine.algorithm_class_map.values()))
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
