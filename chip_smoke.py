@@ -218,16 +218,17 @@ Phases (any failure raises and the script exits non-zero):
              times each, one layout built from each read, both models
              bit-identical to phase 10's warm train; ``pio app new`` and
              ``pio import`` of the quickstart file's first 100,000 lines
-             with a write reply lost and ``PIO_RPC_WRITE_DEDUP=1``: one
-             dedup replay, exactly 100,000 events stored, the same rows
-             as the file; ``pio deploy`` of the first remote train
-             (quantized, model blob through the remote source, the
-             breaker on) under one client's query stream; the storage
-             server SIGTERMed (its /readyz 503 on an open connection, the
-             drain's flush, exit 0), ``POST /reload`` twice (the first
-             fails and opens the breaker, the second fails fast),
-             ``pio_breaker_open`` 1 on /metrics, the breaker in
-             /debug/device.json, ``pio doctor`` exit 1 naming it and
+             with a write reply lost and ``PIO_RPC_WRITE_DEDUP=1`` (the
+             retry pauses at least 500 ms, so the lost write reaches the
+             server first): one dedup replay, exactly 100,000 events
+             stored, the same rows as the file; ``pio deploy`` of the
+             first remote train (quantized, model blob through the remote
+             source, the breaker on) under one client's query stream; the
+             storage server SIGTERMed (its /readyz 503 on an open
+             connection, the drain's flush, exit 0), ``POST /reload``
+             twice (the first fails and opens the breaker, the second
+             fails fast), ``pio_breaker_open`` 1 on /metrics, the breaker
+             in /debug/device.json, ``pio doctor`` exit 1 naming it and
              ``pio doctor --targets`` exit 2; the storage server
              restarted on the same port, after open_s a traced ``POST
              /reload`` whose probe closes the breaker (generation + 1)
@@ -329,6 +330,18 @@ Phases (any failure raises and the script exits non-zero):
              within its stated tolerance; (d) ``pio template``, ``pio
              run``, ``pio unregister`` and ``pio upgrade`` (exit 1) and
              ``pio shell`` on a piped stdin printing the card's name.
+15. tooling — ``python -m predictionio_tpu_torch.tools.cli lint --json``
+             in a process of its own on this tree: exit 0, every ``.py``
+             file of the port and this script analyzed, the five passes,
+             no finding, with its seconds; then phase 5's model (138,493
+             x 26,744, rank 10) deployed quantized with telemetry on: 16
+             sequential queries, then the batcher's condition, the
+             metrics registry's lock and every family's and child's lock
+             wrapped in the port's runtime ``LockOrderMonitor``, 8
+             clients x 50 queries and 8 profiled ones: no lock-order
+             inversion (and some nesting seen), B1 = B2 = flushes, no
+             sort kernel in the profile, every answer equal to the plain
+             int8 path.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -398,6 +411,7 @@ from predictionio_tpu_torch.ops import (
 )
 from predictionio_tpu_torch.realtime import foldin
 from predictionio_tpu_torch.tools import cli
+from predictionio_tpu_torch.tools.analyze.runtime import LockOrderMonitor
 from predictionio_tpu_torch.workflow import (
     core_workflow, create_server, model_io,
 )
@@ -937,7 +951,7 @@ def phase_solve(seed: int, dev: torch.device):
                 f"{(~same).nonzero()[:3].tolist()}")
         diff = float((x - p).abs().max()) if n else 0.0
         worst = max(worst, diff)
-        if not bool(torch.isfinite(x).all()):
+        if not bool(torch.isfinite(x).all().cpu()):
             raise AssertionError(f"solve_gj gave non-finite x at {name}")
         if name == "indefinite" and float(x.abs().max()) >= \
                 float(b.abs().max()) * (2 / 0.05) * r:
@@ -1492,8 +1506,9 @@ def _history_serves(port: int, users, deadline_s: float = 15.0) -> dict:
         if seen >= HISTORY_QUERIES:
             return hist
         if time.perf_counter() - t0 > deadline_s:
-            raise AssertionError(f"/debug/history.json counted {seen} of "
-                                 f"{HISTORY_QUERIES} serves")
+            raise AssertionError(f"the history (/debug/history.json) "
+                                 f"counted {seen} of {HISTORY_QUERIES} "
+                                 "serves")
         time.sleep(0.05)
 
 
@@ -4762,6 +4777,12 @@ REMOTE_IMPORT_APP = "SmokeRemoteImport"
 #: the first lines of the quickstart's import file (a cut: PERF.md §4)
 REMOTE_IMPORT_EVENTS = 100_000
 REMOTE_FAULT_SEED = "11"
+#: the deduplicated import's retry pause: the dropped write must reach the
+#: storage server, and take its dedup token, before the retry leaves the
+#: client (else the retry runs fresh and the original replays into a
+#: reply nobody reads). The full-jitter backoff draws from [0, base), so
+#: the base alone is no floor: the pause is floored at the base too.
+REMOTE_RETRY_FLOOR_MS = 500
 #: the remote deploy's retries and breaker: one retry, a 2 s error window
 #: (the load's successful reads age out of it before the kill), open after
 #: 2 failed calls, a half-open probe after 5 s
@@ -4787,6 +4808,24 @@ _STORAGE_SERVER = (
     "print(f'storageserver exited {rc}', flush=True)\n"
     "sys.stdin.read()\n"
     "sys.exit(rc)\n")
+
+
+@contextlib.contextmanager
+def _retry_floor(floor_s: float, pauses: list):
+    """Every retry pause of the remote client at least ``floor_s``, each
+    taken one appended to ``pauses`` (the Retry-After floor's path)."""
+    backoff_s = resilience.RetryPolicy.backoff_s
+
+    def floored(self, attempt, floor=0.0, rng=None):
+        pause = backoff_s(self, attempt, max(floor, floor_s), rng)
+        pauses.append(pause)
+        return pause
+
+    resilience.RetryPolicy.backoff_s = floored
+    try:
+        yield
+    finally:
+        resilience.RetryPolicy.backoff_s = backoff_s
 
 
 def _remote_env(port: int) -> dict:
@@ -5025,22 +5064,29 @@ def _phase_remote(work, seed, store_out, ctx, servers) -> dict:
     want_rows = _import_rows(path)
     replays0 = _counter("pio_rpc_dedup_replays_total")
     os.environ.update({"PIO_RPC_WRITE_DEDUP": "1", "PIO_RPC_RETRIES": "2",
+                       "PIO_RPC_BACKOFF_MS": str(REMOTE_RETRY_FLOOR_MS),
                        "PIO_FAULT_SPEC": "drop_rx:1:1@client POST /rpc",
                        "PIO_FAULT_SEED": REMOTE_FAULT_SEED})
     storage_mod.reset_storage()                  # a client with dedup
     inj = resilience.active()
+    pauses = []
     try:
-        t0 = time.perf_counter()
-        rc = cli.main(["import", "--appid", str(import_id), "--input",
-                       path])
-        import_s = time.perf_counter() - t0
+        with _retry_floor(REMOTE_RETRY_FLOOR_MS / 1e3, pauses):
+            t0 = time.perf_counter()
+            rc = cli.main(["import", "--appid", str(import_id), "--input",
+                           path])
+            import_s = time.perf_counter() - t0
     finally:
         for k in ("PIO_RPC_WRITE_DEDUP", "PIO_RPC_RETRIES",
-                  "PIO_FAULT_SPEC", "PIO_FAULT_SEED"):
+                  "PIO_RPC_BACKOFF_MS", "PIO_FAULT_SPEC",
+                  "PIO_FAULT_SEED"):
             os.environ.pop(k, None)
     os.remove(path)
     import_fired = dict(inj.fired)
     replayed = _counter("pio_rpc_dedup_replays_total") - replays0
+    print(f"remote: the import's retry paused "
+          f"{', '.join(f'{x:.3f}' for x in pauses)} s (PIO_RPC_BACKOFF_MS="
+          f"{REMOTE_RETRY_FLOOR_MS}, floored at it)", flush=True)
     if rc != 0 or import_fired != {"drop_rx": 1} or replayed != 1:
         raise AssertionError(f"pio import: rc {rc}, fired {import_fired}, "
                              f"{replayed} dedup replays (want 1)")
@@ -5238,7 +5284,8 @@ def _phase_remote(work, seed, store_out, ctx, servers) -> dict:
                    "events_per_s": n_file / import_s,
                    "local_eventlog_events_per_s":
                        store_out["import"]["events_per_s"],
-                   "fired": import_fired, "dedup_replays": int(replayed)},
+                   "fired": import_fired, "dedup_replays": int(replayed),
+                   "retry_pauses_s": pauses},
         "deploy": {"ready_s": deploy_ready_s,
                    "queries": len(stream.answers), "dropped": 0,
                    "query_ms": {"p50": q_p50, "p99": q_p99},
@@ -7326,7 +7373,7 @@ def _shard_deploy(work: str, store, engine_dir: str, iid: str, model,
         finally:
             c.close()
         if (device.get("sharding") or {}).get("shards") != 1:
-            raise AssertionError(f"/debug/device.json sharding: "
+            raise AssertionError(f"the sharding block of /debug/device.json: "
                                  f"{device.get('sharding')}")
         rc, text = _cli_out(["doctor", f"http://127.0.0.1:{port}"])
         line = [ln for ln in text.splitlines()
@@ -7383,6 +7430,196 @@ def _shard_deploy(work: str, store, engine_dir: str, iid: str, model,
           f"{a_folds} launches); doctor: {line[0].strip()}; POST /reload "
           f"under {FOLD_BURST} queries in {reload_s:.3f} s, 0 dropped "
           f"({_smi()})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the tooling
+# ---------------------------------------------------------------------------
+
+#: the passes ``pio lint`` runs over the port, in its report order
+TOOLING_PASSES = ["timing", "host-sync", "lock-order", "declarations",
+                  "debug-surface"]
+TOOLING_CLIENTS = 8
+TOOLING_QUERIES = 50            # per client, under the lock monitor
+TOOLING_WARM = 16               # sequential queries before the wrap
+TOOLING_PROFILED = 8            # sequential queries under the profiler
+TOOLING_NUMS = (1, 10, 10, 100)
+
+
+def _port_py_files() -> int:
+    n = 0
+    for _base, dirs, files in os.walk(
+            os.path.join(_REPO, "predictionio_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        n += sum(f.endswith(".py") for f in files)
+    return n
+
+
+def _tooling_lint() -> dict:
+    """``pio lint --json`` on this tree, in a process of its own."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (_REPO, os.environ.get("PYTHONPATH", "")) if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "lint",
+         "--json"], cwd=_REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    lint_s = time.perf_counter() - t0
+    try:
+        got = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError(f"pio lint --json exited {proc.returncode} "
+                             f"with no JSON: {proc.stderr[-2000:]}")
+    want_modules = _port_py_files() + 1          # and chip_smoke.py
+    if (proc.returncode != 0 or got["exit"] != 0
+            or got["modulesAnalyzed"] != want_modules
+            or got["passes"] != TOOLING_PASSES
+            or got["counts"]["findings"] != 0 or got["findings"]
+            or got["internalErrors"]):
+        raise AssertionError(
+            f"pio lint --json: exit {proc.returncode}, "
+            f"{got['modulesAnalyzed']} modules (want {want_modules}), "
+            f"passes {got['passes']}, findings {got['findings'][:5]}, "
+            f"internal errors {got['internalErrors']}")
+    return {"seconds": lint_s, "modules": got["modulesAnalyzed"],
+            "passes": got["passes"], "findings": 0,
+            "suppressed": got["counts"]["suppressed"]}
+
+
+def _wrap_serving_locks(api, monitor: LockOrderMonitor) -> list:
+    """The serving stack's locks behind the monitor's proxies, in place:
+    the batcher's condition, the metrics registry's lock and every
+    family's and child's lock (one node per family, as the static pass
+    keys a class's lock). Returns (owner, attribute, lock) for each, to
+    put the real locks back."""
+    reg = telemetry.REGISTRY
+    owners = [(api._batcher, "_cond", "batcher._cond"),
+              (reg, "_lock", "registry._lock")]
+    for fam in list(reg._families.values()):
+        owners.append((fam, "_lock", f"family[{fam.name}]._lock"))
+        owners += [(child, "_lock", f"family[{fam.name}].child._lock")
+                   for child in list(fam._children.values())]
+    wrapped = []
+    for owner, attr, name in owners:
+        lock = getattr(owner, attr)
+        setattr(owner, attr, monitor.wrap(lock, name))
+        wrapped.append((owner, attr, lock))
+    return wrapped
+
+
+def phase_tooling(store, iid: str, users, seed: int) -> dict:
+    """``pio lint`` clean on this tree, then phase 5's model deployed
+    quantized with telemetry on and the serving locks behind the runtime
+    lock-order monitor under concurrent clients: no inversion, B1 = B2 =
+    flushes with no sort kernel, every answer the plain int8 path's."""
+    t_phase = time.perf_counter()
+    lint = _tooling_lint()
+    print(f"tooling: pio lint --json in {lint['seconds']:.3f} s: "
+          f"{lint['modules']} modules, passes {', '.join(lint['passes'])}, "
+          f"0 findings, {lint['suppressed']} baselined", flush=True)
+
+    rng = np.random.default_rng(seed + 15)
+    picks = rng.integers(0, len(users), size=TOOLING_WARM
+                         + TOOLING_PROFILED
+                         + TOOLING_CLIENTS * TOOLING_QUERIES)
+    queries = [(users[u], TOOLING_NUMS[i % len(TOOLING_NUMS)])
+               for i, u in enumerate(picks)]
+    warm = queries[:TOOLING_WARM]
+    profiled = queries[TOOLING_WARM:TOOLING_WARM + TOOLING_PROFILED]
+    load = queries[TOOLING_WARM + TOOLING_PROFILED:]
+    answers = {}
+
+    def sequential(qs):
+        for u, n in qs:
+            status, payload, _dt, _raw = _post(port, u, n)
+            answers.setdefault((u, n), []).append((status, payload))
+
+    def client(qs):
+        return [(u, n, *_post(port, u, n)[:2]) for u, n in qs]
+
+    monitor = LockOrderMonitor()
+    wrapped = []
+    telemetry.set_enabled(True)
+    t0 = time.perf_counter()
+    api = create_server.QueryAPI(
+        create_server.ServerConfig(serve_quant="on", engine_instance_id=iid),
+        storage=store)
+    port = _free_port()
+    server = threading.Thread(target=create_server.serve,
+                              args=(api, "127.0.0.1", port), daemon=True)
+    server.start()
+    try:
+        _wait_ready(port, server.is_alive, deadline_s=300)
+        ready_s = time.perf_counter() - t0
+        topk_fused.reset_launches()      # the serving path starts here
+        solve.reset_launches()
+        sequential(warm)                 # every family and child exists
+        wrapped = _wrap_serving_locks(api, monitor)
+        t_load = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=TOOLING_CLIENTS) as pool:
+            for got in pool.map(client, [load[c::TOOLING_CLIENTS]
+                                         for c in range(TOOLING_CLIENTS)]):
+                for u, n, status, payload in got:
+                    answers.setdefault((u, n), []).append((status, payload))
+        load_s = time.perf_counter() - t_load
+        per, _wall = _device_profile(lambda: sequential(profiled))
+        stats = api.handle("GET", "/")[1]
+    finally:
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/stop", data=b"", method="POST"),
+            timeout=30).close()
+        server.join(timeout=60)
+        for owner, attr, lock in wrapped:
+            setattr(owner, attr, lock)
+        telemetry.set_enabled(None)
+    launches = topk_fused.launches       # the serving path ends here
+    merge_launches = topk_fused.merge_launches
+    if server.is_alive():
+        raise AssertionError("the tooling deploy did not stop")
+    if solve.launches:
+        raise AssertionError("the tooling deploy launched solve_gj")
+    inversions = monitor.inversions()
+    edges = monitor.edges()
+    if inversions:
+        raise AssertionError(f"lock-order inversions under load: "
+                             f"{inversions} (edges {edges})")
+    if not edges:
+        raise AssertionError("the monitor saw no lock nesting: the wrap "
+                             "points are stale")
+    flushes = stats["batching"]["batches"]
+    if stats["quant"] is None or not stats["quant"].get("fused"):
+        raise AssertionError(f"the tooling deploy is not fused: {stats}")
+    if flushes == 0 or launches != flushes or merge_launches != flushes:
+        raise AssertionError(
+            f"B1 launched {launches} times and B2 {merge_launches} times "
+            f"for {flushes} flushes (want one each per flush)")
+    _require_kernels(per, "the tooling deploy")
+    model = api.models[0]
+    want_n = len(queries)
+    if any(q not in answers for q in queries):
+        raise AssertionError("a tooling query went unanswered")
+    for (u, n), got in answers.items():
+        want = _served(model, u, n)
+        for status, payload in got:
+            if status != 200 or payload != want:
+                raise AssertionError(f"tooling: the answer for {u} num={n} "
+                                     "differs from the plain int8 path")
+    phase_s = time.perf_counter() - t_phase
+    out = {"lint": lint, "ready_s": ready_s, "queries": want_n,
+           "clients": TOOLING_CLIENTS, "load_s": load_s,
+           "flushes": flushes, "B1_launches": launches,
+           "B2_launches": merge_launches, "locks_wrapped": len(wrapped),
+           "lock_edges": len(edges), "inversions": 0,
+           "phase_s": phase_s}
+    print(f"tooling: deploy ready in {ready_s:.3f} s; {want_n} queries "
+          f"({TOOLING_CLIENTS} clients x {TOOLING_QUERIES} under the lock "
+          f"monitor in {load_s:.3f} s, {TOOLING_WARM} before the wrap, "
+          f"{TOOLING_PROFILED} profiled) in {flushes} flushes, B1 "
+          f"{launches} / B2 {merge_launches} launches, no sort kernel; "
+          f"{len(wrapped)} locks wrapped, {len(edges)} lock-order edges, no "
+          f"inversion; every answer equals the plain int8 path; phase "
+          f"{phase_s:.3f} s", flush=True)
     return out
 
 
@@ -7448,6 +7685,7 @@ def main(argv=None) -> int:
         examples_out = phase_examples(work, args.seed, dev)
         del store_ctx
         shard_out = phase_shard(work, args.seed, dev)
+        tooling_out = phase_tooling(store, iid, users, args.seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -7486,6 +7724,9 @@ def main(argv=None) -> int:
         "remote_merge_launches": remote_out["deploy"]["B2_launches"],
         "shard_launches": shard_out["deploy"]["B1_launches"],
         "shard_merge_launches": shard_out["deploy"]["B2_launches"],
+        "tooling_launches": tooling_out["B1_launches"],
+        "tooling_merge_launches": tooling_out["B2_launches"],
+        "tooling": tooling_out,
         "examples_launches": examples_out["filtering"]["deploy"][
             "B1_launches"],
         "examples_merge_launches": examples_out["filtering"]["deploy"][

@@ -528,8 +528,9 @@ class ALSAlgorithm(Algorithm):
         V = _tensor(model.item_factors, U.device).to(U.device)
         ixs = torch.tensor([ix for _qx, _q, ix in valid], dtype=torch.int64,
                            device=U.device)
+        # ixs are user_vocab's rows, which index the user factors
         vals, idx = _to_host(*topk.topk_scores_batch(
-            U.index_select(0, ixs), V, k=k))
+            U.index_select(0, ixs), V, k=k))  # pio-lint: allow=gather-clip
         for row, (qx, q, _ix) in enumerate(valid):
             n = max(min(q.num, k), 0)   # a negative num is empty
             out.append((qx, self._results(model, vals[row, :n],

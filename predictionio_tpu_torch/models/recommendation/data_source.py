@@ -117,7 +117,7 @@ def training_data_from_columnar(col) -> TrainingData:
             # fires at sanity_check / train
             return td
         u_d, i_d, r_d = col.staged.training_view(buy_code, BUY_RATING)
-        bad = int(torch.isnan(r_d).sum().item())
+        bad = int(torch.isnan(r_d).sum().cpu())
         if bad:
             raise _no_rating(bad)
         td._n = int(u_d.shape[0])

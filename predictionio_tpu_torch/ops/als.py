@@ -256,7 +256,9 @@ def gram_rhs(
     their rows with no duplicate index: deterministic on the card.
 
     PRECONDITION: ``self_idx`` is nondecreasing (as
-    :func:`prepare_ratings` lays it out)."""
+    :func:`prepare_ratings` lays it out), in [0, n_self], and
+    ``other_idx`` holds in-bounds rows of ``other_factors``
+    (:func:`prepare_ratings` pads it with row 0)."""
     if plan is None:
         plan = gram_plan(self_idx, chunk)
     r = other_factors.shape[1]
@@ -275,6 +277,8 @@ def gram_rhs(
             part = torch.segment_reduce(part, "sum",
                                         lengths=ch.pieces_per_row, axis=0,
                                         unsafe=True)
+        # ch.rows are values of self_idx, in [0, n_self]: AB's rows
+        # pio-lint: allow=gather-clip
         AB.index_copy_(0, ch.rows, AB.index_select(0, ch.rows) + part)
     A = AB[:-1, :r * r].reshape(n_self, r, r)
     b = AB[:-1, r * r:]

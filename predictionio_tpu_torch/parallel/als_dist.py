@@ -373,7 +373,9 @@ def _train_sharded(
                 U = half(V, su, u_state)
                 V = half(U, si, i_state)
         # every process holds the gathered factors: back to canonical
-        # row order
+        # row order (pos_u / pos_i are the addresses _pad_factors wrote,
+        # each below n_rows_pad)
+        # pio-lint: allow=gather-clip
         return U.index_select(0, pos_u), V.index_select(0, pos_i)
 
     return _run_segmented(run, _on(u0, dev), _on(v0, dev), iterations,

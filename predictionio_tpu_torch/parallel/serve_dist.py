@@ -532,7 +532,9 @@ def topk_for_users_sharded(sf: ShardedFactors, user_ixs, k: int
     if sf.mesh.distributed:
         Q = _replicated_rows(sf, ixs, sf.user_rows, torch.float32)
     else:
-        Q = sf.user_rows.index_select(
+        # _checked bounds ixs to [0, user_capacity), every user row of
+        # a one-process mesh
+        Q = sf.user_rows.index_select(  # pio-lint: allow=gather-clip
             0, torch.from_numpy(ixs - sf.user_base).to(sf.device))
     k_local = min(k, sf.rows_dev_i)
     vals, idx = {}, {}

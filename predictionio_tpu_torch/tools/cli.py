@@ -84,7 +84,7 @@ with ``PIO_TRANSPORT=async``, on the asyncio one. The event server, the storage
 server, the app and key commands, ``import``, ``export`` and the
 operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
 ``incident``, which read live daemons over HTTP) work on the host and
-never touch the card. A reference variable that asks for a feature the port lacks
+never touch the card, as does ``lint``, the port's static analysis. A reference variable that asks for a feature the port lacks
 (``knobs.py``: ``PIO_SERVE_DEVICE_MS=3``) makes the verb exit 1 with a
 message naming it,
 before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
@@ -643,6 +643,27 @@ def cmd_incident(args) -> int:
         trace_id=args.trace or None, timeout=args.timeout)
 
 
+def cmd_lint(args) -> int:
+    """Static analysis of the port (tools/analyze): timing honesty,
+    implicit host syncs and gather bounds, lock ordering, declaration
+    cross-checks and debug-surface unity over ``predictionio_tpu_torch/``
+    and ``chip_smoke.py``. Exit 0 clean / 1 findings / 2 internal error.
+    Stdlib-only: runs without touching torch's device or the card."""
+    from predictionio_tpu_torch.tools.analyze.runner import main as lint_main
+    argv = []
+    if args.json:
+        argv.append("--json")
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    if args.list_passes:
+        argv.append("--list")
+    if args.root:
+        argv += ["--root", args.root]
+    if args.baseline:
+        argv += ["--baseline", args.baseline]
+    return lint_main(argv)
+
+
 def cmd_storageserver(args) -> int:
     """Serve this node's storage over HTTP so other processes and hosts
     can point a ``remote`` source at it (data/storage/remote.py).
@@ -1192,6 +1213,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--timeout", type=float, default=5.0,
                     help="per-target timeout in seconds")
 
+    sp = sub.add_parser(
+        "lint",
+        help="static analysis of the port (tools/analyze; exit 0 clean "
+             "/ 1 findings / 2 internal error)")
+    sp.add_argument("--json", action="store_true",
+                    help="machine-readable result on stdout")
+    sp.add_argument("--update-baseline", action="store_true",
+                    help="accept the current findings into the "
+                         "suppression baseline (predictionio_tpu_torch/"
+                         "tools/analyze/lint_baseline.json)")
+    sp.add_argument("--list", dest="list_passes", action="store_true",
+                    help="list passes and rules, run nothing")
+    sp.add_argument("--root", default="",
+                    help="repo root (default: autodetected)")
+    sp.add_argument("--baseline", default="",
+                    help="baseline path (default predictionio_tpu_torch/"
+                         "tools/analyze/lint_baseline.json)")
+
     sp = sub.add_parser("storageserver",
                         help="serve this node's storage to remote clients")
     sp.add_argument("--ip", default="0.0.0.0")
@@ -1310,6 +1349,7 @@ _DISPATCH = {
     "events": cmd_events,
     "monitor": cmd_monitor,
     "incident": cmd_incident,
+    "lint": cmd_lint,
     "status": cmd_status,
     "app": cmd_app,
     "accesskey": cmd_accesskey,

@@ -1,6 +1,6 @@
 """The port's table of the reference's environment variables
-(``predictionio_tpu_torch/knobs.py``) against the reference's own
-declarations, the refusal of the variables that ask for a feature the
+(``predictionio_tpu_torch/knobs.py``) against the port's registry and the
+reference's declarations, the refusal of the variables that ask for a feature the
 port lacks, at the CLI's verbs and at ``QueryAPI`` construction, and the
 event server's and daemons' variables that the port reads."""
 
@@ -10,6 +10,7 @@ import pytest
 
 from predictionio_tpu.common.declarations import ENV_VARS
 from predictionio_tpu_torch import knobs
+from predictionio_tpu_torch.common import declarations
 from predictionio_tpu_torch.data.storage import Storage
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.create_server import (
@@ -43,6 +44,10 @@ def _clear(monkeypatch):
 
 
 def test_every_reference_variable_is_classified():
+    # the table is the port's registry less its own names, and those are
+    # the reference's
+    assert set(knobs.KNOBS) == (set(declarations.ENV_VARS)
+                                - declarations.PORT_ONLY)
     assert set(knobs.KNOBS) == set(ENV_VARS)
     for name, knob in knobs.KNOBS.items():
         assert knob.kind in (knobs.READ, knobs.INERT, knobs.UNPORTED), name
