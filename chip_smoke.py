@@ -330,9 +330,10 @@ Phases (any failure raises and the script exits non-zero):
              within its stated tolerance; (d) ``pio template``, ``pio
              run``, ``pio unregister`` and ``pio upgrade`` (exit 1) and
              ``pio shell`` on a piped stdin printing the card's name.
-15. tooling — ``python -m predictionio_tpu_torch.tools.cli lint --json``
+15. tooling — ``pio lint --list`` names the reference's seven passes;
+             ``python -m predictionio_tpu_torch.tools.cli lint --json``
              in a process of its own on this tree: exit 0, every ``.py``
-             file of the port and this script analyzed, the five passes,
+             file of the port and this script analyzed, the seven passes,
              no finding, with its seconds; then phase 5's model (138,493
              x 26,744, rank 10) deployed quantized with telemetry on: 16
              sequential queries, then the batcher's condition, the
@@ -342,6 +343,26 @@ Phases (any failure raises and the script exits non-zero):
              inversion (and some nesting seen), B1 = B2 = flushes, no
              sort kernel in the profile, every answer equal to the plain
              int8 path.
+16. serve path — the host-vs-device probe (``PIO_SERVE_DEVICE_MS``) on
+             the store phase's warm-train instance (138,493 x 26,744,
+             rank 10, its 20M eventlog app), fp32 (``PIO_SERVE_QUANT=off``),
+             last: (a) the threshold unset: the probe's ms, the device
+             path (no ``hostServing`` in ``GET /``, the ``lifecycle`` load
+             event says ``device``), 64 sequential and 64 concurrent
+             queries each byte-equal to ``topk.topk_for_users`` in fp32 on
+             the card for the same row at a flush's bucket; (b) at ``0``
+             with fold-in on: the host path (``hostServing``, the event at
+             ``warn``), ``memory_allocated`` within 1 MB of its value
+             before the deploy, the same queries' indices equal to (a)'s
+             wherever the ranking's gaps exceed the tolerance and scores
+             within rtol 1e-5 / atol 1e-6, and 32 profiled queries with no
+             CUDA kernel but a marker's; (c) 8 unseen and 8 trained users'
+             events into (b)'s deploy under a query stream: every kernel A
+             call of the ticks equal to its plain version bit for bit, the
+             folded rows in the host arrays bit-equal to the solves'
+             rows, the users' answers the host branch's, 0 dropped; then
+             ``POST /reload`` with the variable unset: the device path
+             again, ``hostServing`` gone.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. Without a card the
@@ -355,6 +376,7 @@ import collections
 import contextlib
 import dataclasses
 import datetime as _dt
+import gc
 import http.client
 import io
 import json
@@ -7437,9 +7459,10 @@ def _shard_deploy(work: str, store, engine_dir: str, iid: str, model,
 # phase 15: the tooling
 # ---------------------------------------------------------------------------
 
-#: the passes ``pio lint`` runs over the port, in its report order
-TOOLING_PASSES = ["timing", "host-sync", "lock-order", "declarations",
-                  "debug-surface"]
+#: the passes ``pio lint`` runs over the port, in its report order (the
+#: reference's seven)
+TOOLING_PASSES = ["timing", "host-sync", "jit-purity", "lock-order",
+                  "declarations", "aot-registration", "debug-surface"]
 TOOLING_CLIENTS = 8
 TOOLING_QUERIES = 50            # per client, under the lock monitor
 TOOLING_WARM = 16               # sequential queries before the wrap
@@ -7454,6 +7477,18 @@ def _port_py_files() -> int:
         dirs[:] = [d for d in dirs if d != "__pycache__"]
         n += sum(f.endswith(".py") for f in files)
     return n
+
+
+def _tooling_list() -> list:
+    """The pass names ``pio lint --list`` prints, in order."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["lint", "--list"])
+    names = [line.split()[0] for line in buf.getvalue().splitlines()
+             if line and not line[0].isspace()]
+    if rc != 0 or names != TOOLING_PASSES:
+        raise AssertionError(f"pio lint --list: exit {rc}, passes {names}")
+    return names
 
 
 def _tooling_lint() -> dict:
@@ -7514,6 +7549,9 @@ def phase_tooling(store, iid: str, users, seed: int) -> dict:
     lock-order monitor under concurrent clients: no inversion, B1 = B2 =
     flushes with no sort kernel, every answer the plain int8 path's."""
     t_phase = time.perf_counter()
+    listed = _tooling_list()
+    print(f"tooling: pio lint --list names {len(listed)} passes: "
+          f"{', '.join(listed)}", flush=True)
     lint = _tooling_lint()
     print(f"tooling: pio lint --json in {lint['seconds']:.3f} s: "
           f"{lint['modules']} modules, passes {', '.join(lint['passes'])}, "
@@ -7623,6 +7661,496 @@ def phase_tooling(store, iid: str, users, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serve path (the host-vs-device probe)
+# ---------------------------------------------------------------------------
+
+SERVE_PATH_QUERIES = 64          # sequential, then as many concurrent
+SERVE_PATH_CLIENTS = 16
+SERVE_PATH_PROFILED = 32
+SERVE_PATH_NUMS = (1, 4, 10, 10, 100, 10, 600, 10)
+SERVE_PATH_NEW_USERS, SERVE_PATH_TRAINED = 8, 8
+SERVE_PATH_RATINGS, SERVE_PATH_TRAINED_RATINGS = 20, 5
+SERVE_PATH_MEM_SLACK = 1 << 20   # bytes memory_allocated may move
+SERVE_PATH_RTOL, SERVE_PATH_ATOL = 1e-5, 1e-6
+
+
+def phase_serve_path(work: str, seed: int, dev: torch.device,
+                     iid: str) -> dict:
+    """Phase 16 in the store phase's eventlog store (its warm-train
+    instance ``iid`` and the 20M app it tails), fp32. The fold-in deploy
+    pads no item rows (only users fold here), so its answers rank the
+    same catalog as the deploy without fold-in."""
+    env = _eventlog_env(work)
+    names = (*env, "PIO_SERVE_QUANT", "PIO_SERVE_DEVICE_MS",
+             "PIO_FOLDIN_CURSOR_DIR", "PIO_FOLDIN_ITEM_HEADROOM")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(env)
+    os.environ["PIO_SERVE_QUANT"] = "off"
+    os.environ["PIO_FOLDIN_ITEM_HEADROOM"] = "0"
+    os.environ.pop("PIO_SERVE_DEVICE_MS", None)
+    storage_mod.reset_storage()
+    try:
+        store = storage_mod.get_storage()
+        out = _phase_serve_path(work, store, iid, seed, dev)
+        store.get_events().close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        storage_mod.reset_storage()
+    return out
+
+
+def _path_deploy(store, iid: str, work: str, name: str, foldin_mode: str):
+    """An fp32 deploy of ``iid`` (QueryAPI + serve()); returns (api, port,
+    server thread, seconds to ready)."""
+    os.environ["PIO_FOLDIN_CURSOR_DIR"] = os.path.join(work, "cur_" + name)
+    t0 = time.perf_counter()
+    api = create_server.QueryAPI(create_server.ServerConfig(
+        serve_quant="off", engine_instance_id=iid, foldin=foldin_mode),
+        storage=store)
+    port = _free_port()
+    server = threading.Thread(target=create_server.serve,
+                              args=(api, "127.0.0.1", port), daemon=True)
+    server.start()
+    _wait_ready(port, server.is_alive, deadline_s=300)
+    return api, port, server, time.perf_counter() - t0
+
+
+def _live_event() -> dict:
+    """The newest ``lifecycle`` event of a model going live."""
+    live = [e for e in journal.snapshot(category="lifecycle",
+                                        limit=64)["events"]
+            if " live (" in e["message"]]
+    if not live:
+        raise AssertionError("no lifecycle event of a model going live")
+    return live[-1]
+
+
+def _as_answer(model, vals, idx) -> dict:
+    inv = model.item_vocab.inverse()
+    n_real = len(model.item_vocab)
+    return {"itemScores": [{"item": inv(int(i)), "score": float(v)}
+                           for v, i in zip(vals, idx) if int(i) < n_real]}
+
+
+def _fp32_answers(model, user: str, num: int) -> dict:
+    """{bucket: the answer ``topk.topk_for_users`` gives ``user``'s row in
+    fp32 on the card in a flush of that bucket} (the row first, padding
+    rows at index 0, as predict_batch pads)."""
+    U, V = model.user_factors, model.item_factors
+    k = min(num, len(model.item_vocab))
+    out = {}
+    for b in BUCKETS:
+        pix = torch.zeros(b, dtype=torch.int32, device=U.device)
+        pix[0] = model.user_vocab(user)
+        vals, idx = topk.topk_for_users(U, V, pix, k=k)
+        out[b] = _as_answer(model, vals[0].cpu().numpy(),
+                            idx[0].cpu().numpy())
+    return out
+
+
+def _host_answer(model, user: str, num: int) -> dict:
+    """The host branch of predict_batch for a flush of one: one numpy
+    gemm, ``host_topk``."""
+    ix = np.asarray([model.user_vocab(user)], dtype=np.int32)
+    scores = model.user_factors[ix] @ model.item_factors.T
+    vals, idx = topk.host_topk(scores[0], min(num, len(model.item_vocab)))
+    return _as_answer(model, vals, idx)
+
+
+def _path_traffic(port: int, queries):
+    """The sequential queries, then the same again from 16 clients;
+    returns ([(query, payload)] sequential, [(query, payload)]
+    concurrent, (p50, p99) ms of the sequential ones, client clock)."""
+    seq, lat = [], []
+    for u, n in queries:
+        status, payload, dt_s, _raw = _post(port, u, n)
+        if status != 200:
+            raise AssertionError(f"serve path: {u} num={n} answered "
+                                 f"{status}")
+        seq.append(((u, n), payload))
+        lat.append(dt_s)
+    with ThreadPoolExecutor(max_workers=SERVE_PATH_CLIENTS) as pool:
+        got = list(pool.map(lambda q: _post(port, q[0], q[1]), queries))
+    if any(g[0] != 200 for g in got):
+        raise AssertionError("serve path: a concurrent query failed")
+    return seq, [(q, g[1]) for q, g in zip(queries, got)], _pct(lat)
+
+
+def _within(model, user: str, a: dict, b: dict) -> tuple:
+    """(max |score difference|, positions whose items may differ) of two
+    answers for ``user``: the scores within rtol / atol, and the items
+    equal wherever the gaps to the neighbours in the host ranking (the
+    (k+1)-th included) exceed twice the tolerance."""
+    sa = [s["score"] for s in a["itemScores"]]
+    sb = [s["score"] for s in b["itemScores"]]
+    if len(sa) != len(sb):
+        raise AssertionError(f"{user}: {len(sa)} against {len(sb)} items")
+    worst = 0.0
+    for x, y in zip(sa, sb):
+        if abs(x - y) > SERVE_PATH_ATOL + SERVE_PATH_RTOL * abs(x):
+            raise AssertionError(f"{user}: scores {x} and {y} differ past "
+                                 "rtol 1e-5 / atol 1e-6")
+        worst = max(worst, abs(x - y))
+    n_real = len(model.item_vocab)
+    full = np.sort(model.item_factors[:n_real]
+                   @ model.user_factors[model.user_vocab(user)])[::-1]
+    loose = 0
+    for j, (ia, ib) in enumerate(zip(a["itemScores"], b["itemScores"])):
+        tol = 2 * (SERVE_PATH_ATOL + SERVE_PATH_RTOL * abs(float(full[j])))
+        gaps = [abs(float(full[j]) - float(full[m])) for m in (j - 1, j + 1)
+                if 0 <= m < len(full)]
+        if min(gaps, default=np.inf) > tol:
+            if ia["item"] != ib["item"]:
+                raise AssertionError(f"{user}: position {j} holds "
+                                     f"{ia['item']} and {ib['item']} past "
+                                     "a clear gap")
+        else:
+            loose += 1
+    return worst, loose
+
+
+#: the marker's kernels (a fill and a multiply from this thread)
+MARKER_KERNELS = ("FillFunctor", "MulFunctor")
+#: the profiler's own entry (CUPTI's activity buffers), not device work
+PROFILER_OWN = ("Activity Buffer Request",)
+
+
+def _host_only_profile(fn, dev: torch.device, attempts: int = 10) -> dict:
+    """``fn`` under torch.profiler between two marker kernels from this
+    thread before it and the same two after it, so that a session whose
+    device events the profiler dropped (on this machine a session now and
+    then records none, PERF.md §6) cannot pass for an absent kernel: a
+    session without all four markers is run again, up to ``attempts``
+    times; in one that has them, every other device entry is a fault.
+    Returns the trace's entries."""
+    x = torch.empty(1 << 20, device=dev)
+
+    def mark():
+        x.fill_(1.0)
+        x.mul_(2.0)
+
+    def marked():
+        mark()
+        fn()
+        mark()
+
+    def is_marker(key):
+        return any(m in key for m in MARKER_KERNELS)
+
+    for attempt in range(attempts):
+        per, wall = _device_profile(marked, attempts=1)
+        if all(sum(n for k, (_us, n) in per.items() if m in k) == 2
+               for m in MARKER_KERNELS):
+            break
+        print(f"profile: session {attempt + 1} recorded not the four "
+              f"marker kernels: {per}", flush=True)
+    else:
+        raise AssertionError("the profiler recorded no marker kernel in "
+                             f"{attempts} sessions")
+    extra = {k: v for k, v in per.items()
+             if not is_marker(k) and k not in PROFILER_OWN}
+    if extra:
+        raise AssertionError(f"the host path ran device work: {extra}")
+    return {"entries": {k[:90]: n for k, (_us, n) in per.items()},
+            "wall_s": wall, "sessions": attempt + 1}
+
+
+def _host_profile_child(work: str, iid: str, queries) -> dict:
+    """The host path's queries under torch.profiler in a process of its
+    own: a deploy of ``iid`` at ``PIO_SERVE_DEVICE_MS=0`` (fold-in off)
+    answering ``queries``, after one discarded session. In this long
+    process a session now and then records no device event or only some
+    of them (PERF.md §6); in a fresh one, after its first, every session
+    has recorded them. Returns :func:`_host_only_profile`'s result."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (_REPO, os.environ.get("PYTHONPATH", "")) if p)}
+    code = ("import json, sys, chip_smoke\n"
+            "out = chip_smoke.host_profile_main(sys.argv[1], sys.argv[2], "
+            "json.loads(sys.argv[3]))\n"
+            "print(json.dumps(out), flush=True)\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, work, iid, json.dumps(queries)],
+        cwd=_REPO, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"the host-path profile exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]} "
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def host_profile_main(work: str, iid: str, queries) -> dict:
+    """The child of :func:`_host_profile_child` (its environment is the
+    parent's: the eventlog store, fp32, ``PIO_SERVE_DEVICE_MS=0``)."""
+    from predictionio_tpu_torch import device as device_mod
+    dev = device_mod.resolve(None)
+    storage_mod.reset_storage()
+    store = storage_mod.get_storage()
+    api, port, server, _ready = _path_deploy(store, iid, work, "profile",
+                                             "off")
+    try:
+        status = api.handle("GET", "/")[1]
+        if "hostServing" not in status:
+            raise AssertionError("the profiled deploy is not on the host")
+        # the discarded first session, which also loads the markers'
+        # kernels (CUDA loads a kernel's module at its first launch)
+        x = torch.empty(1 << 20, device=dev)
+        _device_profile(lambda: (x.fill_(1.0), x.mul_(2.0)), attempts=1)
+        return _host_only_profile(
+            lambda: [_post(port, u, n) for u, n in queries], dev)
+    finally:
+        _undeploy(port, server)
+
+
+def _phase_serve_path(work: str, store, iid: str, seed: int,
+                      dev: torch.device) -> dict:
+    from predictionio_tpu_torch.data.api import http as http_mod
+    from predictionio_tpu_torch.data.api import service
+
+    smi = _smi()
+    out = {"card": smi}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 16)
+
+    # (a) the threshold unset: the device path
+    api, port, server, ready_a = _path_deploy(store, iid, work, "a", "off")
+    try:
+        model = api.models[0]
+        probe = dict(model.serve_probe or {})
+        status = api.handle("GET", "/")[1]
+        event = _live_event()
+        users = list(model.user_vocab.to_dict())
+        picks = rng.integers(0, len(users), size=SERVE_PATH_QUERIES)
+        queries = [(users[u], SERVE_PATH_NUMS[i % len(SERVE_PATH_NUMS)])
+                   for i, u in enumerate(picks)]
+        if (probe.get("servePath") != "device"
+                or not isinstance(model.user_factors, torch.Tensor)
+                or model.user_factors.device.type != dev.type
+                or "hostServing" in status
+                or event["fields"].get("servePath") != "device"
+                or event["level"] != "info"):
+            raise AssertionError(f"(a) not served from the card: probe "
+                                 f"{probe}, GET / keys {sorted(status)}, "
+                                 f"event {event}")
+        seq_a, conc_a, lat_a = _path_traffic(port, queries)
+        wants = {q: _fp32_answers(model, *q) for q in set(queries)}
+        for q, payload in seq_a:
+            if payload != wants[q][1]:
+                raise AssertionError(f"(a) {q}: not topk_for_users' answer "
+                                     "at bucket 1")
+        at_one = 0
+        for q, payload in conc_a:
+            if payload not in wants[q].values():
+                raise AssertionError(f"(a) {q}: no bucket of "
+                                     "topk_for_users gives this answer")
+            at_one += payload == wants[q][1]
+    finally:
+        _undeploy(port, server)
+    out["a"] = {"probe_ms": probe["probeMs"], "threshold_ms":
+                probe["thresholdMs"], "ready_s": ready_a,
+                "queries": 2 * len(queries), "seq_p50_p99_ms": lat_a,
+                "concurrent_equal_at_bucket_1": at_one}
+    print(f"serve path (a): {smi}: PIO_SERVE_DEVICE_MS unset, the probe "
+          f"{probe['probeMs']:.4f} ms <= {probe['thresholdMs']} ms: served "
+          f"from the card (no hostServing; lifecycle event device); ready "
+          f"{ready_a:.3f} s; {len(queries)} sequential + {len(queries)} "
+          f"concurrent answers each byte-equal to fp32 topk_for_users on "
+          f"the card ({at_one} concurrent ones at bucket 1); sequential "
+          f"p50 / p99 {lat_a[0]:.3f} / {lat_a[1]:.3f} ms", flush=True)
+    a_answers = dict(seq_a)
+    del api, model, wants
+    gc.collect()
+
+    # (b) PIO_SERVE_DEVICE_MS=0 with fold-in on: the host path
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    os.environ["PIO_SERVE_DEVICE_MS"] = "0"
+    solve.reset_launches()
+    api, port, server, ready_b = _path_deploy(store, iid, work, "b", "on")
+    try:
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        warm_a = solve.launches
+        model = api.models[0]
+        probe_b = dict(model.serve_probe or {})
+        status = api.handle("GET", "/")[1]
+        event = _live_event()
+        hs = status.get("hostServing")
+        if (probe_b.get("servePath") != "host" or hs is None
+                or not isinstance(model.user_factors, np.ndarray)
+                or hs["probeMs"] != round(probe_b["probeMs"], 3)
+                or event["level"] != "warn"
+                or event["fields"].get("servePath") != "host"):
+            raise AssertionError(f"(b) not served from the host: probe "
+                                 f"{probe_b}, hostServing {hs}, event "
+                                 f"{event}")
+        if abs(mem1 - mem0) > SERVE_PATH_MEM_SLACK:
+            raise AssertionError(f"(b) memory_allocated {mem0} -> {mem1}: "
+                                 "a factor copy stayed on the card")
+        if api._foldin_worker is None:
+            raise AssertionError("(b) the fold-in worker did not start")
+        seq_b, conc_b, lat_b = _path_traffic(port, queries)
+        worst, loose = 0.0, 0
+        for (q, pb) in seq_b + conc_b:
+            w, lo = _within(model, q[0], a_answers[q], pb)
+            worst, loose = max(worst, w), loose + lo
+        profiled = [(users[u], 10) for u in
+                    rng.integers(0, len(users), size=SERVE_PATH_PROFILED)]
+        trace = _host_profile_child(work, iid, profiled)
+        out["b"] = {"probe_ms": probe_b["probeMs"], "ready_s": ready_b,
+                    "memory_allocated": [mem0, mem1],
+                    "warmup_A_launches": warm_a,
+                    "max_abs_score_diff": worst, "seq_p50_p99_ms": lat_b,
+                    "positions_within_tolerance": loose,
+                    "profiled": len(profiled), "trace": trace}
+        print(f"serve path (b): {smi}: PIO_SERVE_DEVICE_MS=0, the probe "
+              f"{probe_b['probeMs']:.4f} ms > 0 ms: served from the host "
+              f"(hostServing {hs}; lifecycle event warn); ready "
+              f"{ready_b:.3f} s with the fold-in warm-up (kernel A "
+              f"{warm_a} launches); memory_allocated {mem0} -> {mem1} B; "
+              f"{2 * len(queries)} answers within rtol 1e-5 / atol 1e-6 of "
+              f"(a)'s (max |diff| {worst:.3g}; {loose} positions inside "
+              f"the tolerance), indices equal past it; sequential p50 / p99 "
+              f"{lat_b[0]:.3f} / {lat_b[1]:.3f} ms; {len(profiled)} "
+              f"profiled queries (the same deploy in a process of its own) "
+              f"ran no CUDA kernel (trace: {trace['entries']}, session "
+              f"{trace['sessions']})", flush=True)
+
+        # (c) fold-in into the host arrays under a query stream
+        worker = api._foldin_worker
+        new_users = [f"path_u{j}" for j in range(SERVE_PATH_NEW_USERS)]
+        trained = [users[u] for u in rng.choice(
+            len(users), size=SERVE_PATH_TRAINED, replace=False)]
+        items = list(model.item_vocab.to_dict())
+        events = []
+        for who, n in ((new_users, SERVE_PATH_RATINGS),
+                       (trained, SERVE_PATH_TRAINED_RATINGS)):
+            for u in who:
+                for i in rng.choice(len(items), size=n, replace=False):
+                    events.append(_rate(u, items[i],
+                                        float(rng.integers(1, 11)) / 2))
+        solves, published = [], []
+
+        def wrap_solve(orig):
+            def f(item_rows, self_idx, rating, counts, lambda_, *, n_self,
+                  chunk, reg_scaling="count"):
+                x = orig(item_rows, self_idx, rating, counts, lambda_,
+                         n_self=n_self, chunk=chunk, reg_scaling=reg_scaling)
+                solves.append((item_rows, self_idx, rating, counts, lambda_,
+                               n_self, chunk, reg_scaling, x))
+                return x
+            return f
+
+        def wrap_publish(orig):
+            def publish(self, model_, ixs, rows_):
+                published.append((ixs.copy(), np.array(rows_, np.float32)))
+                return orig(self, model_, ixs, rows_)
+            return publish
+
+        es, es_port = http_mod.serve_background(
+            service.EventAPI(storage=store), "127.0.0.1", 0)
+        solve.reset_launches()
+        t_fold = time.perf_counter()
+        with _wrapped((foldin, "foldin_solve", wrap_solve),
+                      (foldin.FoldinWorker, "_publish", wrap_publish)):
+            stream = _Stream(port, users, seed + 161)
+            try:
+                _post_events(es_port, events)
+                _wait_worker(api, lambda st: (
+                    st["usersFolded"] >= len(new_users) + len(trained)
+                    and st["cursorLag"] == 0 and not st["usersPending"]),
+                    "the serve path's folds")
+                time.sleep(2 * worker.config.tick_ms / 1e3)
+            finally:
+                stream_out = stream.close()
+                es.shutdown()
+                es.server_close()
+        fold_s = time.perf_counter() - t_fold
+        a_launches = solve.launches
+        if stream_out["dropped"]:
+            raise AssertionError(f"(c) dropped queries: {stream_out}")
+        if not solves or a_launches != len(solves):
+            raise AssertionError(f"(c) {len(solves)} fold-in solves, "
+                                 f"{a_launches} kernel A launches")
+        for args in solves:
+            if not bool(_bitwise_same(args[-1],
+                                      _foldin_plain(*args[:-1])).all()):
+                raise AssertionError(f"(c) a tick's kernel A != plain at "
+                                     f"n={args[5]}")
+        outputs = {row.tobytes() for *_a, x in solves
+                   for row in x.cpu().numpy()}
+        last = {}
+        for ixs, rs in published:
+            for ix, r in zip(ixs.tolist(), rs):
+                last[ix] = r
+        want_ix = {model.user_vocab(u) for u in new_users + trained}
+        if not want_ix <= set(last):
+            raise AssertionError("(c) not every folded user was published")
+        for ix, r in last.items():
+            if r.tobytes() not in outputs:
+                raise AssertionError("(c) a published row is no solve's "
+                                     "output")
+            if model.user_factors[ix].tobytes() != r.tobytes():
+                raise AssertionError(f"(c) host row {ix} is not the folded "
+                                     "row")
+        for u in new_users + trained:
+            status_u, payload, _dt, _raw = _post(port, u, 10)
+            if status_u != 200 or payload != _host_answer(model, u, 10):
+                raise AssertionError(f"(c) {u}: not the host branch's "
+                                     "answer")
+            if not payload["itemScores"]:
+                raise AssertionError(f"(c) {u}: an empty answer")
+        buckets = sorted({int(a[5]) for a in solves})
+
+        # then /reload with the variable unset: the card again
+        os.environ.pop("PIO_SERVE_DEVICE_MS", None)
+        gen = api.generation
+        t_reload = time.perf_counter()
+        _get(port, "/reload", method="POST")
+        while api.generation == gen:
+            if time.perf_counter() - t_reload > FOLD_DEADLINE_S:
+                raise AssertionError("(c) the reload did not land")
+            time.sleep(0.05)
+        reload_s = time.perf_counter() - t_reload
+        status = api.handle("GET", "/")[1]
+        event = _live_event()
+        reloaded = api.models[0]
+        if ("hostServing" in status
+                or not isinstance(reloaded.user_factors, torch.Tensor)
+                or reloaded.user_factors.device.type != dev.type
+                or event["fields"].get("servePath") != "device"
+                or not event["fields"].get("reload")):
+            raise AssertionError(f"(c) the reload did not go back to the "
+                                 f"card: {sorted(status)}, event {event}")
+        for u in trained[:4]:
+            if _post(port, u, 10)[0] != 200:
+                raise AssertionError("(c) a query after the reload failed")
+    finally:
+        _undeploy(port, server)
+    out["c"] = {"events": len(events), "users": len(want_ix),
+                "A_launches": a_launches, "A_buckets": buckets,
+                "stream_queries": stream_out["queries"], "dropped": 0,
+                "fold_s": fold_s, "reload_s": reload_s,
+                "reload_probe_ms": reloaded.serve_probe["probeMs"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve path (c): {smi}: {len(events)} events of "
+          f"{len(new_users)} unseen and {len(trained)} trained users folded "
+          f"into the host arrays in {fold_s:.3f} s under "
+          f"{stream_out['queries']} streamed queries, 0 dropped; kernel A "
+          f"{a_launches} launches at n = {buckets}, each == plain bit for "
+          f"bit; every folded host row bit-equal to its solve's row; the "
+          f"users' answers the host branch's; POST /reload with the "
+          f"variable unset back on the card in {reload_s:.3f} s (probe "
+          f"{out['c']['reload_probe_ms']:.4f} ms), hostServing gone; "
+          f"phase {out['phase_s']:.3f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7683,9 +8211,11 @@ def main(argv=None) -> int:
                                                  store_ctx)
         control_out = phase_control(work, args.seed, dev)
         examples_out = phase_examples(work, args.seed, dev)
+        store_iid = store_ctx["iid"]
         del store_ctx
         shard_out = phase_shard(work, args.seed, dev)
         tooling_out = phase_tooling(store, iid, users, args.seed)
+        path_out = phase_serve_path(work, args.seed, dev, store_iid)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -7796,6 +8326,8 @@ def main(argv=None) -> int:
         "shard_cli_launches": [t["A_launches"] for t in
                                shard_out["cli"]["trains"].values()],
         "shard": {k: v for k, v in shard_out.items() if k != "serve"},
+        "serve_path_launches": path_out["c"]["A_launches"],
+        "serve_path": path_out,
         "examples_launches": {
             "filtering_train": examples_out["filtering"]["train"][
                 "A_launches"],

@@ -157,9 +157,7 @@ ENV_VARS: Dict[str, str] = {
         "(default 1,4,16,64)",
     "PIO_SERVE_DEVICE_MS":
         "estimated device-dispatch threshold (ms) below which the "
-        "inline single-query device path is used (default 3.0); the "
-        "port: REFUSED when set on (unset, 0 and off are accepted): the"
-        " inline path waits for ROADMAP queue 1 item 5b",
+        "inline single-query device path is used (default 3.0)",
     "PIO_SERVE_SHARD":
         "row-sharded serving over the device mesh: 1/0 overrides "
         "`pio deploy --shard-serving auto`",

@@ -21,7 +21,9 @@ name is one of three kinds:
   and ``off`` stay accepted. A row's refusal goes when its slice lands.
 
 Only the INERT and UNPORTED rows are spelled out here. Of the 118 rows,
-107 are read, 10 inert and one refused (``PIO_SERVE_DEVICE_MS``).
+108 are read, 10 inert and none refused: the last refusal
+(``PIO_SERVE_DEVICE_MS``) went when the host-vs-device serving probe
+landed. The refusal machinery stays for any later row.
 """
 
 from __future__ import annotations
@@ -74,7 +76,6 @@ def _unported(what: str, roadmap: str, verbs=(DEPLOY,),
 
 _GRAM = ("TPU layout tuning of the hybrid Gram; the port runs one Gram for "
          "every PIO_ALS_KERNEL")
-_Q5B = "queue 1 item 5b (the host-vs-device serving probe)"
 
 #: the names the port does not simply read; every other name of the
 #: registry is READ, with the registry's one-liner as its meaning
@@ -86,9 +87,6 @@ _NOT_READ: Dict[str, Knob] = {
     "PIO_ALS_HOT_K": _inert(_GRAM),
     "PIO_ALS_DENSE_MIN_COUNT": _inert(_GRAM),
     "PIO_ALS_XPAD": _inert(_GRAM),
-    "PIO_SERVE_DEVICE_MS": _unported(
-        "the inline single-query device path and its host-vs-device "
-        "latency probe", _Q5B),
     "PIO_AOT_KS": _inert(
         "the warm-up's k set; k selects no kernel instantiation, so the "
         "warm-up runs one k"),

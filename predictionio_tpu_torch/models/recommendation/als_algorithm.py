@@ -32,6 +32,19 @@ quantization, sharded layout or kernel fails the deploy; it never falls
 back to fp32 or to the replicated layout behind the operator's back. The
 "auto" mode's ranking-parity refusal stays: it is the documented gate,
 and it logs why.
+
+An fp32 replicated deploy (neither quantized nor sharded) runs the JAX
+package's host-vs-device probe: one warm inline top-k on the deploy's
+device, then three timed, each ending in the host copy. When their mean
+exceeds ``PIO_SERVE_DEVICE_MS`` (default 3.0 ms; ``0`` always serves
+from the host, ``1e9`` always from the device) the model serves from
+host numpy (one BLAS gemm and ``topk.host_topk`` per query), and no
+factor copy stays on the card. The choice is shown, never silent: the
+probe rides the model (``serve_probe``), the deploy's ``GET /`` carries
+a ``hostServing`` block and its ``lifecycle`` event the serve path at
+``warn``, and the log line is a WARNING. Unlike the JAX package, which
+turns a probe that raises into an infinite time and so a host layout, a
+probe launch that raises fails the deploy.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import time
 from dataclasses import dataclass
 from typing import Iterable, List, Optional, Tuple
 
@@ -84,8 +98,11 @@ class ALSModel:
     QuantizedServing layout when the deploy quantized; ``sharding`` the
     ``serve_dist.ShardedFactors`` layout (int8 or fp32) when the deploy
     sharded. With either, the factors stay host fp32 numpy (the fold-in
-    worker's gather sources and the eval path's input); persisted blobs
-    carry neither."""
+    worker's gather sources and the eval path's input). ``serve_probe``
+    is an fp32 replicated deploy's host-vs-device probe
+    (:func:`serve_probe`); with ``servePath`` "host" the factors are
+    host numpy and every query is served on the host. Persisted blobs
+    carry none of the three."""
     rank: int
     user_factors: "np.ndarray | torch.Tensor"   # (n_users, rank)
     item_factors: "np.ndarray | torch.Tensor"   # (n_items, rank)
@@ -93,6 +110,7 @@ class ALSModel:
     item_vocab: BiMap
     sharding: Optional[object] = None
     quant: Optional[object] = None
+    serve_probe: Optional[dict] = None
 
     def __str__(self) -> str:
         return (f"ALSModel(rank={self.rank}, users={len(self.user_vocab)}, "
@@ -119,6 +137,36 @@ def host_f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.ascontiguousarray(x, dtype=np.float32)
+
+
+#: the JAX package's default host-vs-device threshold, ms
+SERVE_DEVICE_MS = 3.0
+
+
+def serve_device_ms() -> float:
+    """``PIO_SERVE_DEVICE_MS`` (default 3.0), read as the JAX package
+    reads it: a value that is not a number fails the deploy."""
+    return float(os.environ.get("PIO_SERVE_DEVICE_MS",
+                                str(SERVE_DEVICE_MS)))
+
+
+def serve_probe(U: torch.Tensor, V: torch.Tensor, n_items: int) -> dict:
+    """The JAX package's host-vs-device probe on the deploy's device
+    tensors: one warm inline top-k on row 0 at ``k = min(10, n_items)``,
+    then three timed, each ending in the host copy. Returns the record
+    the deploy shows: ``servePath`` ("host" when the mean exceeds the
+    threshold), ``probeMs``, ``thresholdMs`` and the probed ``device``.
+    A launch that raises propagates: the deploy fails."""
+    k = min(10, int(n_items))
+    _to_host(*topk.topk_for_user(U, V, 0, k=k))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _to_host(*topk.topk_for_user(U, V, 0, k=k))
+    per_query_ms = (time.perf_counter() - t0) / 3 * 1e3
+    threshold = serve_device_ms()
+    return {"servePath": "host" if per_query_ms > threshold else "device",
+            "probeMs": per_query_ms, "thresholdMs": threshold,
+            "device": str(U.device)}
 
 
 #: layout-reuse counts: hits = a train (or prepare_layout) served its
@@ -356,7 +404,12 @@ class ALSAlgorithm(Algorithm):
         then lay the factors out row-sharded when shard-serving resolves
         on (``serve_dist.deploy_scope``), int8 or fp32; otherwise put the
         quantized layout or the fp32 factors on the deploy's device. A
-        failed sharded layout raises: no replicated fallback."""
+        failed sharded layout raises: no replicated fallback. The fp32
+        factors then take the host-vs-device probe (:func:`serve_probe`):
+        above ``PIO_SERVE_DEVICE_MS`` the model keeps host numpy factors
+        (the very arrays it was given when they are contiguous fp32, so
+        the fold-in worker's host mirrors stay the serving arrays) and
+        the probe's device tensors are dropped."""
         from predictionio_tpu_torch.parallel import serve_dist
 
         dev = quant_mod.scoped_device()
@@ -385,18 +438,31 @@ class ALSAlgorithm(Algorithm):
                 rank=model.rank, user_factors=U, item_factors=V,
                 user_vocab=model.user_vocab, item_vocab=model.item_vocab,
                 quant=quant_mod.QuantizedServing.build(qf, device=dev))
+        U_dev = torch.tensor(U, device=dev)
+        V_dev = torch.tensor(V, device=dev)
+        probe = serve_probe(U_dev, V_dev, len(model.item_vocab))
+        if probe["servePath"] == "host":
+            del U_dev, V_dev
+            logger.warning(
+                "device round-trip %.3f ms > %.1f ms (PIO_SERVE_DEVICE_MS) "
+                "on %s; serving from host arrays", probe["probeMs"],
+                probe["thresholdMs"], probe["device"])
+            return ALSModel(
+                rank=model.rank, user_factors=U, item_factors=V,
+                user_vocab=model.user_vocab, item_vocab=model.item_vocab,
+                serve_probe=probe)
         return ALSModel(
-            rank=model.rank,
-            user_factors=torch.tensor(U, device=dev),
-            item_factors=torch.tensor(V, device=dev),
-            user_vocab=model.user_vocab, item_vocab=model.item_vocab)
+            rank=model.rank, user_factors=U_dev, item_factors=V_dev,
+            user_vocab=model.user_vocab, item_vocab=model.item_vocab,
+            serve_probe=probe)
 
     def aot_serving_programs(self, model: ALSModel, buckets):
         """The deploy's warm-up (``serving/aot.py``): one batched top-k
         per bucket, B1 + B2 on the card for a quantized model (B1 per
         shard and one B2 for a sharded one, whose inline query rides
         bucket 1), and the inline single-query path once, each on row 0
-        (in bounds) and ending in the host copy, as a flush does."""
+        (in bounds) and ending in the host copy, as a flush does. A model
+        the probe put on the host has nothing to warm."""
         from predictionio_tpu_torch.serving import aot
 
         k = aot.warm_k(len(model.item_vocab))
@@ -404,8 +470,10 @@ class ALSAlgorithm(Algorithm):
         if sharding is not None:
             from predictionio_tpu_torch.parallel import serve_dist
             return serve_dist.sharded_program_specs(sharding, buckets, [k])
-        out = []
         quant = model.quant
+        if quant is None and isinstance(model.user_factors, np.ndarray):
+            return []
+        out = []
         for b in buckets:
             pix = np.zeros(b, dtype=np.int32)
             if quant is not None:
@@ -452,6 +520,10 @@ class ALSAlgorithm(Algorithm):
             vals, idx = vals[0], idx[0]
         elif quant is not None:
             vals, idx = _to_host(*quant.topk_one(user_ix, k))
+        elif isinstance(model.user_factors, np.ndarray):
+            # host serving: one BLAS matvec + argpartition
+            scores = model.item_factors @ model.user_factors[user_ix]
+            vals, idx = topk.host_topk(scores, k)
         else:
             vals, idx = _to_host(*topk.topk_for_user(
                 model.user_factors, model.item_factors, user_ix, k=k))
@@ -466,7 +538,9 @@ class ALSAlgorithm(Algorithm):
         server's ``dispatch`` stage: ``pad`` is the host-side bucket
         prep, ``execute`` the device call ending in the ``.cpu()`` copy
         of the (bucket, k) result, with the index copy to the card
-        inside it."""
+        inside it. A model served from the host runs, under ``execute``,
+        the JAX package's host branch: one numpy gemm for the batch and
+        ``topk.host_topk`` per row at each query's own k."""
         queries = list(queries)
         out: List[Optional[PredictedResult]] = [None] * len(queries)
         valid = []
@@ -479,10 +553,20 @@ class ALSAlgorithm(Algorithm):
         if not valid:
             return out
         k = min(max(q.num for _qx, q, _ix in valid), len(model.item_vocab))
+        quant = model.quant
+        if (model.sharding is None and quant is None
+                and isinstance(model.user_factors, np.ndarray)):
+            ixs = np.asarray([ix for _qx, _q, ix in valid], dtype=np.int32)
+            with waterfall.stage("execute"):
+                scores = model.user_factors[ixs] @ model.item_factors.T
+                rows = [topk.host_topk(scores[r], min(q.num, k))
+                        for r, (_qx, q, _ix) in enumerate(valid)]
+            for (qx, _q, _ix), (rvals, ridx) in zip(valid, rows):
+                out[qx] = self._results(model, rvals, ridx)
+            return out
         with waterfall.stage("pad"):
             pix = np.zeros(bucket_for(len(valid)), dtype=np.int32)
             pix[:len(valid)] = [ix for _qx, _q, ix in valid]
-        quant = model.quant
         if model.sharding is not None:
             # B1 once per slot into one B2 (int8), or the fp32 twin
             with waterfall.stage("execute"):

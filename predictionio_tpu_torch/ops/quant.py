@@ -490,3 +490,33 @@ class QuantizedServing:
             "recall": self.recall,
             "exact1": self.exact1,
         }
+
+
+# ---------------------------------------------------------------------------
+# warm-up registry entries (serving/aot.py; ``pio lint``'s aot-registration
+# pass holds this module's kernel-launching defs to the registry)
+# ---------------------------------------------------------------------------
+
+def _register() -> None:
+    from predictionio_tpu_torch.serving import aot
+    aot.register_entry(
+        "topk_for_users_quant", topk_for_users_quant, kind="serving",
+        note="the plain int8 flush (PIO_SERVE_FUSED=off): warmed per "
+             "bucket by ALSAlgorithm.aot_serving_programs")
+    aot.register_entry(
+        "topk_for_user_quant", topk_for_user_quant, kind="serving",
+        note="the quantized inline query: warmed once by "
+             "aot_serving_programs")
+    aot.register_entry(
+        "scatter_user_rows_quant", scatter_user_rows_quant,
+        kind="serving",
+        note="fold-in publication into the int8 layout; torch's "
+             "index_copy, no hand kernel to build, so not warmed")
+    aot.register_entry(
+        "scatter_item_cols_quant", scatter_item_cols_quant,
+        kind="serving",
+        note="item fold-in publication into the transposed int8 item "
+             "layout; torch's index_copy, not warmed")
+
+
+_register()

@@ -297,3 +297,30 @@ def topk_for_users_quant_fused(
         u_q, u_scale, vt_q, v_scale, user_ixs, k_local=k_local,
         n_items=n_items, tile=tile)
     return merge_candidates(vals, idx, int(k), k_local=k_local)
+
+
+# ---------------------------------------------------------------------------
+# warm-up registry entries (serving/aot.py; ``pio lint``'s aot-registration
+# pass holds this module's kernel-launching defs to the registry)
+# ---------------------------------------------------------------------------
+
+def _register() -> None:
+    from predictionio_tpu_torch.serving import aot
+    aot.register_entry(
+        "topk_for_users_quant_fused", topk_for_users_quant_fused,
+        kind="serving",
+        note="B1 + B2, the fused int8 flush: warmed per bucket by "
+             "ALSAlgorithm.aot_serving_programs when the deploy resolved "
+             "the fused path")
+    aot.register_entry(
+        "score_mask_topk_candidates", score_mask_topk_candidates,
+        kind="serving",
+        note="kernel B1: warmed inside topk_for_users_quant_fused and, "
+             "once per slot, inside the sharded int8 serve")
+    aot.register_entry(
+        "merge_candidates", merge_candidates, kind="serving",
+        note="kernel B2: warmed inside topk_for_users_quant_fused and "
+             "the sharded int8 serve")
+
+
+_register()

@@ -604,3 +604,34 @@ def sharded_program_specs(sharded: ShardedFactors, buckets: Iterable[int],
                 return vals.cpu(), idx.cpu()
             out.append(Program(name, run))
     return out
+
+
+# ---------------------------------------------------------------------------
+# warm-up registry entries (serving/aot.py; ``pio lint``'s aot-registration
+# pass holds this module's kernel-launching defs to the registry)
+# ---------------------------------------------------------------------------
+
+def _register() -> None:
+    from predictionio_tpu_torch.serving import aot
+    aot.register_entry(
+        "topk_for_users_sharded", topk_for_users_sharded, kind="serving",
+        note="the fp32 sharded serve: warmed per bucket (1 always) by "
+             "sharded_program_specs")
+    aot.register_entry(
+        "topk_for_users_sharded_quant", topk_for_users_sharded_quant,
+        kind="serving",
+        note="the int8 sharded serve, B1 per slot and one B2: warmed "
+             "per bucket (1 always) by sharded_program_specs")
+    aot.register_entry(
+        "scatter_user_rows_sharded", scatter_user_rows_sharded,
+        kind="serving",
+        note="fold-in publication into the fp32 sharded layout; torch's "
+             "index_copy, not warmed")
+    aot.register_entry(
+        "scatter_user_rows_sharded_quant", scatter_user_rows_sharded_quant,
+        kind="serving",
+        note="fold-in publication into the int8 sharded layout; torch's "
+             "index_copy, not warmed")
+
+
+_register()

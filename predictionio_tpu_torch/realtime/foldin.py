@@ -1365,3 +1365,23 @@ def run_standalone(engine_dir: str = ".", variant: str = "engine.json",
          f"lag {st.get('cursorLag')}, drift "
          f"{(st.get('drift') or {}).get('recall')}")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# warm-up registry entries (serving/aot.py; ``pio lint``'s aot-registration
+# pass holds this module's kernel-launching defs to the registry)
+# ---------------------------------------------------------------------------
+
+def _register() -> None:
+    from predictionio_tpu_torch.serving import aot
+    aot.register_entry(
+        "foldin_solve", foldin_solve, kind="serving",
+        note="kernel A at every fold-in bucket: warmed by solve_programs "
+             "when the deploy runs with fold-in on")
+    aot.register_entry(
+        "scatter_user_rows", scatter_user_rows, kind="serving",
+        note="fold-in publication into the device fp32 layout; torch's "
+             "index_copy, not warmed")
+
+
+_register()

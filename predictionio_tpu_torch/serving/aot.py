@@ -29,6 +29,18 @@ launch, so the reference's pruning by observed flush sizes
 tile and the merge's list count, never by k, so one k loads every
 instantiation a deploy launches (``PIO_AOT_KS`` is inert).
 
+The registry of device entry points (:func:`register_entry`, the torch
+counterpart of the reference's ``register_jit``): every def on the
+serving path that launches a hand kernel, and the serving, eval and
+training entries the reference registers, each with its kind and a note
+saying what warms it. ``pio lint``'s ``aot-registration`` pass holds the
+port to it (a def in the serving scope that launches a hand kernel, by
+a handle from ``ops/_kernels.load`` or through a private launcher of its
+module, must be registered), and ``jit-purity`` holds the registered
+bodies to having no clock, host RNG draw, env read, I/O or global
+mutation: the warm-up replays them, and a later CUDA graph of the serve
+would capture exactly what this registry lists.
+
 Mode: ``ServerConfig.aot`` "on" warms always, "off" never, "auto" on the
 card only: on the CPU there is nothing to build (the kernels' plain
 versions run there), so an "auto" deploy on the CPU is byte-identical to
@@ -92,6 +104,49 @@ def serve_buckets(max_batch_size: Optional[int] = None) -> Tuple[int, ...]:
 
 
 # ---------------------------------------------------------------------------
+# the registry of device entry points (the lint's source of truth)
+# ---------------------------------------------------------------------------
+
+#: the kinds an entry may have, as in the reference
+KINDS = ("serving", "eval", "training")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Registered:
+    """One device entry point known to the warm-up."""
+    fn: Any
+    kind: str           # "serving" | "eval" | "training"
+    note: str = ""      # what warms it, or why nothing needs to
+
+
+_REGISTRY: Dict[str, _Registered] = {}
+
+
+def register_entry(name: str, fn: Any, kind: str = "serving",
+                   note: str = "") -> Any:
+    """Declare a device entry point (the torch counterpart of the
+    reference's ``register_jit``). Idempotent; returns ``fn``.
+
+    Registration is a statement of coverage: either the warm-up runs the
+    entry for every shape a query or a tick gives it, or ``note`` says
+    why nothing needs warming (an eval or training entry, or one that
+    launches no hand kernel)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    _REGISTRY[name] = _Registered(fn=fn, kind=kind, note=note)
+    return fn
+
+
+def registered_names() -> frozenset:
+    return frozenset(_REGISTRY)
+
+
+def registry_snapshot() -> Dict[str, Dict[str, str]]:
+    return {name: {"kind": r.kind, "note": r.note}
+            for name, r in sorted(_REGISTRY.items())}
+
+
+# ---------------------------------------------------------------------------
 # programs and the warm-up
 # ---------------------------------------------------------------------------
 
@@ -143,3 +198,41 @@ def prebuild(programs: Iterable[Program],
     logger.info("warm-up: %d device program(s) in %.3fs", len(programs),
                 seconds)
     return {"programs": len(programs), "prebuildS": round(seconds, 3)}
+
+
+# ---------------------------------------------------------------------------
+# entry registration (the modules of the serving path register their own
+# at import: ops/quant.py, ops/topk_fused.py, parallel/serve_dist.py,
+# realtime/foldin.py)
+# ---------------------------------------------------------------------------
+
+def _register_builtin() -> None:
+    from predictionio_tpu_torch.ops import als, solve, topk
+    register_entry("topk_for_users", topk.topk_for_users, kind="serving",
+                   note="the fp32 flush: warmed per bucket by "
+                        "ALSAlgorithm.aot_serving_programs")
+    register_entry("topk_for_user", topk.topk_for_user, kind="serving",
+                   note="the fp32 inline query and the host-vs-device "
+                        "probe: warmed once by aot_serving_programs")
+    register_entry("topk_scores", topk.topk_scores, kind="serving",
+                   note="the item-scoring templates serve through "
+                        "host_masked_topk; a device call of this scorer "
+                        "is eval / batch-predict only")
+    register_entry("topk_scores_batch", topk.topk_scores_batch,
+                   kind="eval",
+                   note="batch_predict and the eval path, not request "
+                        "serving")
+    register_entry("cosine_topk", topk.cosine_topk, kind="serving",
+                   note="similar-product serves through "
+                        "host_masked_topk_batch (host BLAS); registered "
+                        "so a device wiring must warm it")
+    register_entry("als_train", als.train_explicit, kind="training",
+                   note="one Gram for the reference's three "
+                        "PIO_ALS_KERNEL variants; kernel A builds at the "
+                        "train's first half-step, off the serving path")
+    register_entry("solve_factors", solve.solve_factors, kind="training",
+                   note="kernel A: the training half-steps, and the "
+                        "fold-in solve, which warms it as foldin_solve")
+
+
+_register_builtin()

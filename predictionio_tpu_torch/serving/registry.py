@@ -311,6 +311,10 @@ class ServableModel:
     aot_state: Optional[Dict[str, Any]] = None
     shard_state: Optional[Dict[str, Any]] = None
     quant_state: Optional[Dict[str, Any]] = None
+    #: the load's serve-path journal fields and, when the host-vs-device
+    #: probe put the model on the host, its ``hostServing`` block
+    serve_path: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    host_serving: Optional[Dict[str, Any]] = None
     model_bytes: int = 0
     generation: int = 0
     over_budget: bool = False
@@ -338,6 +342,9 @@ class ServableModel:
         if budget is not None:
             out["budgetMb"] = budget
             out["overBudget"] = self.over_budget
+        if self.host_serving is not None:
+            # only for a host-served tenant: a device one keeps the key set
+            out["hostServing"] = dict(self.host_serving)
         return out
 
 

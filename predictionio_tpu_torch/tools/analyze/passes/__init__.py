@@ -7,10 +7,10 @@ from :mod:`..walker`. Passes are pure functions of the source tree — no
 torch import, no device, no network — so ``pio lint`` is safe to run
 anywhere a checkout exists.
 
-Five of the reference's seven passes are here. ``jit-purity`` and
-``aot-registration`` check jit-traced bodies, and the port traces and
-captures nothing yet: they come with its first captured region (ROADMAP
-queue 1 item 7d).
+The reference's seven passes, in its order. ``jit-purity`` and
+``aot-registration`` hold, in torch terms, the device entry points
+registered with the warm-up (``serving/aot.register_entry``) rather than
+jit-traced bodies.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ class Pass:
 def all_passes() -> List[Pass]:
     """Every registered pass, in the reference's report order."""
     from predictionio_tpu_torch.tools.analyze.passes import (
-        debug_surface, declarations, host_sync, lock_order, timing,
+        aot_registration, debug_surface, declarations, host_sync,
+        jit_purity, lock_order, timing,
     )
     return [m.PASS for m in (
-        timing, host_sync, lock_order, declarations, debug_surface)]
+        timing, host_sync, jit_purity, lock_order, declarations,
+        aot_registration, debug_surface)]

@@ -19,7 +19,9 @@ from __future__ import annotations
 import ast
 import dataclasses
 import os
-from typing import Dict, Iterable, Iterator, List, Optional, Set
+from typing import (
+    Dict, Iterable, Iterator, List, Optional, Sequence, Set, Tuple,
+)
 
 #: the package analyzed, and the top-level files analyzed beside it
 PACKAGE = "predictionio_tpu_torch"
@@ -215,3 +217,78 @@ def literal_prefix(node: ast.AST) -> Optional[str]:
             and node.func.attr == "format"):
         return literal_prefix(node.func.value)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the warm-up registry (serving/aot.register_entry), resolved statically
+# ---------------------------------------------------------------------------
+
+#: the registry's registration function, the counterpart of the
+#: reference's ``register_jit``
+REGISTER = "register_entry"
+
+
+def registration_calls(mod: Module) -> List[ast.Call]:
+    """Every ``register_entry(name, fn, ...)`` call of a module (bare or
+    through a module alias), with at least the two positional args."""
+    if mod.tree is None or REGISTER not in mod.source:
+        return []
+    out: List[ast.Call] = []
+    for node in mod.nodes:
+        if not isinstance(node, ast.Call) or len(node.args) < 2:
+            continue
+        dn = dotted_name(node.func)
+        if dn and (dn == REGISTER or dn.endswith("." + REGISTER)):
+            out.append(node)
+    return out
+
+
+def module_name(mod: Module) -> str:
+    """The dotted module name of a repo-relative path."""
+    name = mod.rel[:-3].replace("/", ".") if mod.rel.endswith(".py") \
+        else mod.rel
+    return name[:-len(".__init__")] if name.endswith(".__init__") else name
+
+
+def registered_entry_defs(modules: Sequence[Module]) -> List[
+        Tuple[Module, ast.FunctionDef]]:
+    """Every function def registered through ``register_entry``, resolved
+    across modules: ``register_entry("n", f)`` binds a def of the
+    calling module, ``register_entry("n", topk.topk_for_user)`` follows
+    the ``topk`` import back to ``ops/topk.py``. The warm-up replays
+    these bodies and a CUDA graph of the serve would capture them, so
+    the jit-purity pass holds them to its rules."""
+    by_name = {module_name(m): m for m in modules}
+    out: List[Tuple[Module, ast.FunctionDef]] = []
+    seen: Set[Tuple[str, int]] = set()
+
+    def add(mod: Module, fn: ast.FunctionDef) -> None:
+        key = (mod.rel, fn.lineno)
+        if key not in seen:
+            seen.add(key)
+            out.append((mod, fn))
+
+    for m in modules:
+        calls = registration_calls(m)
+        if not calls:
+            continue
+        aliases = module_alias_map(m)
+        local_defs = {n.name: n for n in m.nodes
+                      if isinstance(n, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef))}
+        for node in calls:
+            target = node.args[1]
+            if isinstance(target, ast.Name) and target.id in local_defs:
+                add(m, local_defs[target.id])
+            elif (isinstance(target, ast.Attribute)
+                    and isinstance(target.value, ast.Name)):
+                target_mod = by_name.get(aliases.get(target.value.id, ""))
+                if target_mod is None or target_mod.tree is None:
+                    continue
+                for n in target_mod.tree.body:
+                    if (isinstance(n, (ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                            and n.name == target.attr):
+                        add(target_mod, n)
+                        break
+    return out

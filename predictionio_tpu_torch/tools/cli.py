@@ -84,10 +84,12 @@ with ``PIO_TRANSPORT=async``, on the asyncio one. The event server, the storage
 server, the app and key commands, ``import``, ``export`` and the
 operator tools (``doctor``, ``trace``, ``events``, ``monitor``,
 ``incident``, which read live daemons over HTTP) work on the host and
-never touch the card, as does ``lint``, the port's static analysis. A reference variable that asks for a feature the port lacks
-(``knobs.py``: ``PIO_SERVE_DEVICE_MS=3``) makes the verb exit 1 with a
-message naming it,
-before any work. ``--telemetry``, ``--trace`` and ``--waterfall`` set
+never touch the card, as does ``lint``, the port's static analysis. A
+reference variable that asks for a feature the port lacks (``knobs.py``
+refuses none today) would make the verb exit 1 with a message naming
+it, before any work. ``PIO_SERVE_DEVICE_MS`` is read by ``deploy``: an
+fp32 model whose device probe is slower serves from the host, shown in
+``GET /``. ``--telemetry``, ``--trace`` and ``--waterfall`` set
 ``PIO_TELEMETRY``, ``PIO_TRACE`` and ``PIO_WATERFALL`` to 1, as in the
 reference. Storage is configured as in the reference (zero
 configuration: SQLite and model files under ``$PIO_FS_BASEDIR``), so a

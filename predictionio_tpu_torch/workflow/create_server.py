@@ -70,6 +70,14 @@ shard-serving scope (flagged on a reload, where "auto" stays replicated),
 a sharded layout sets ``pio_serve_shards`` and the ``sharding`` block of
 ``GET /`` and ``/debug/device.json``, and a failed one fails the load.
 
+The serve path (``ALSAlgorithm.prepare_serving``'s host-vs-device probe,
+``PIO_SERVE_DEVICE_MS``): an fp32 replicated model that the probe put on
+the host adds a ``hostServing`` block (``probeMs``, ``thresholdMs``, the
+probed ``device``) to ``GET /`` (a device deploy keeps the JAX package's
+key set), and the load's ``lifecycle`` event carries ``servePath``,
+``probeMs`` and ``thresholdMs``, at ``warn`` when it serves from the
+host. A tenant's block and ``tenant`` event carry the same.
+
 Partition-routed deploys (``ServerConfig.partition``,
 ``PIO_DEPLOY_PARTITION``, ``pio deploy --partition i/N``): the load slices
 every factor model to the item rows ``partition_rows`` gives partition i
@@ -340,6 +348,24 @@ def _layout_states(models, quant_requested: bool
     return shard_state, quant_state
 
 
+def _serve_path(models) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+    """The load's serve path: the journal fields of the first model that
+    ran the host-vs-device probe (none when no model did: quantized,
+    sharded or not a factor model), and the ``hostServing`` block when
+    that probe put it on the host."""
+    probe = next((m.serve_probe for m in models
+                  if getattr(m, "serve_probe", None) is not None), None)
+    if probe is None:
+        return {}, None
+    fields = {"servePath": probe["servePath"],
+              "probeMs": round(probe["probeMs"], 3),
+              "thresholdMs": probe["thresholdMs"]}
+    host = ({"probeMs": fields["probeMs"],
+             "thresholdMs": probe["thresholdMs"], "device": probe["device"]}
+            if probe["servePath"] == "host" else None)
+    return fields, host
+
+
 def _datasource_appname(engine_params) -> Optional[str]:
     """The appName of the variant's datasource params, if any."""
     dsp = getattr(engine_params, "data_source_params", None)
@@ -417,6 +443,9 @@ class QueryAPI:
         self._quant_state: Optional[Dict[str, Any]] = None
         self._shard_state: Optional[Dict[str, Any]] = None
         self._aot_state: Optional[Dict[str, Any]] = None
+        #: the ``hostServing`` block when the probe put the model on the
+        #: host
+        self._host_serving: Optional[Dict[str, Any]] = None
         #: the realtime fold-in worker: one per server, re-bound to each
         #: model generation by the load
         self._foldin_worker = None
@@ -550,6 +579,7 @@ class QueryAPI:
                       for a, m in zip(algorithms, models)]
             quant_requested = serve_quant.serving_enabled()
         shard_state, quant_state = _layout_states(models, quant_requested)
+        path_fields, host_serving = _serve_path(models)
         aot_state = self._warm_up(algorithms, models, foldin_prep)
         batcher = self._make_batcher(algorithms, models, serving)
         servable = ServableModel(
@@ -578,6 +608,7 @@ class QueryAPI:
             self.serving = serving
             self._quant_state = quant_state
             self._shard_state = shard_state
+            self._host_serving = host_serving
             self._aot_state = aot_state
             self._partition_state = partition_state
             old_batcher, self._batcher = self._batcher, batcher
@@ -596,11 +627,12 @@ class QueryAPI:
             "lifecycle",
             (f"model generation {self.generation} live "
              f"({'reload hot-swap' if is_reload else 'initial deploy'}: "
-             f"instance {instance.id})"),
-            level=journal.INFO,
+             f"instance {instance.id}"
+             f"{', served from the host' if host_serving else ''})"),
+            level=journal.WARN if host_serving else journal.INFO,
             generation=self.generation, instanceId=instance.id,
             reload=bool(is_reload),
-            timeToReadyS=round(self.time_to_ready_s, 3))
+            timeToReadyS=round(self.time_to_ready_s, 3), **path_fields)
         if foldin_on and foldin_prep is not None:
             self._install_foldin(engine_params, models, foldin_prep)
         elif foldin_on:
@@ -667,6 +699,7 @@ class QueryAPI:
             models = [a.prepare_serving(m)
                       for a, m in zip(algorithms, models)]
         shard_state, quant_state = _layout_states(models, quant_requested)
+        path_fields, host_serving = _serve_path(models)
         aot_state = self._warm_up(algorithms, models, None)
         batcher = self._make_batcher(algorithms, models, serving, cfg=cfg,
                                      name=f"tenant-{spec.name}")
@@ -675,7 +708,8 @@ class QueryAPI:
             engine_params=engine_params, algorithms=list(algorithms),
             models=list(models), serving=serving, batcher=batcher,
             aot_state=aot_state, shard_state=shard_state,
-            quant_state=quant_state,
+            quant_state=quant_state, serve_path=path_fields,
+            host_serving=host_serving,
             model_bytes=registry_mod.model_hbm_bytes(models))
 
     def _load_tenants(self) -> None:
@@ -698,11 +732,14 @@ class QueryAPI:
                 (f"tenant '{spec.name}' generation "
                  f"{servable.generation} live (instance "
                  f"{servable.instance.id}, "
-                 f"{servable.model_bytes / (1024 * 1024):.1f} MiB)"),
-                level=journal.INFO, tenant=spec.name,
+                 f"{servable.model_bytes / (1024 * 1024):.1f} MiB"
+                 f"{', served from the host' if servable.host_serving else ''}"
+                 ")"),
+                level=(journal.WARN if servable.host_serving
+                       else journal.INFO), tenant=spec.name,
                 generation=servable.generation,
                 instanceId=servable.instance.id,
-                modelBytes=servable.model_bytes)
+                modelBytes=servable.model_bytes, **servable.serve_path)
         self._admission = self._build_admission()
         # the flat mirrors point at the first tenant, so the storage probe
         # and the plugins' REST handoff keep working; the multi-tenant
@@ -1071,6 +1108,10 @@ class QueryAPI:
             out["sharding"] = {"enabled": True, **self._shard_state}
         if self._quant_state is not None:
             out["quant"] = self._quant_state
+        if self._host_serving is not None:
+            # only when the probe put the model on the host: a device
+            # deploy keeps the JAX package's key set
+            out["hostServing"] = dict(self._host_serving)
         if self._partition_state is not None:
             # only for --partition deploys: full replicas keep the key set
             out["partition"] = {"enabled": True, **self._partition_state}

@@ -16,7 +16,10 @@ package's, on the CPU.
   rows within the tolerance, equal top-k answers wherever the score gaps
   exceed it, and equal cursor files; a worker of the port resumes the JAX
   package's cursor file without skipping or double-counting; the drift
-  probe is clean on a true row and fails on a corrupted one.
+  probe is clean on a true row and fails on a corrupted one, on the
+  device fp32 layout and, in both packages, on the host layout that
+  ``PIO_SERVE_DEVICE_MS=0`` chooses (the JAX package's own trick for
+  writing a published row in place), users and items alike.
 """
 
 import datetime as dt
@@ -419,6 +422,8 @@ def test_drift_probe_clean_then_red_on_a_corrupted_row(tmp_path, fold_env,
     """On the device-fp32 layout a published row IS the fresh half-step:
     recall 1.0; negated rows rank the catalog backwards and fail."""
     monkeypatch.setenv("PIO_SERVE_QUANT", "off")
+    # the device layout whatever the probe measures
+    monkeypatch.setenv("PIO_SERVE_DEVICE_MS", "1e9")
     journal.clear()
     port = _Side(True, Storage(env=util.MEM), str(tmp_path / "cur"),
                  quantized=False)
@@ -440,3 +445,108 @@ def test_drift_probe_clean_then_red_on_a_corrupted_row(tmp_path, fold_env,
     warns = [e for e in journal.snapshot(level="warn")["events"]
              if e["category"] == "foldin"]
     assert any("drift probe FAILED" in e["message"] for e in warns)
+
+
+def _new_item_events(cls, dm):
+    """Trained users of one parity rate an unseen item highly (the JAX
+    package's ``_rate_new_item``): its row is solved against user rows
+    the tick leaves as they were."""
+    return [cls(event="rate", entity_type="user", entity_id=f"u{u}",
+                target_entity_type="item", target_entity_id="idrift",
+                properties=dm({"rating": 5.0}),
+                event_time=T0 + dt.timedelta(days=30, minutes=u))
+            for u in range(0, 8, 2)]
+
+
+def _host_sides(tmp_path, monkeypatch, items_only=False):
+    """One fp32 side per package on the host layout, batch 0 (or, with
+    ``items_only``, one unseen item rated by trained users) folded."""
+    monkeypatch.setenv("PIO_SERVE_QUANT", "off")
+    monkeypatch.setenv("PIO_SERVE_DEVICE_MS", "0")
+    jstorage, tstorage = _stores("memory", tmp_path)
+    ref = _Side(False, jstorage, str(tmp_path / "jcur"), quantized=False)
+    port = _Side(True, tstorage, str(tmp_path / "tcur"), quantized=False)
+    for side in (ref, port):
+        # the host layout serves the worker's own mirrors
+        assert isinstance(side.model.user_factors, np.ndarray)
+        assert side.model.user_factors is side.worker._user_factors
+        if items_only:
+            cls, dm = (Event, DataMap) if side.port else (JEvent, JDataMap)
+            side.storage.get_events().insert_batch(
+                _new_item_events(cls, dm), side.app_id)
+        else:
+            side.write(0)
+    assert port.model.serve_probe["servePath"] == "host"
+    tsum, jsum = port.worker.tick(), ref.worker.tick()
+    assert tsum == jsum and tsum["itemsAppended"] >= 1
+    _assert_sides_agree(ref, port)
+    return ref, port
+
+
+def test_drift_probe_on_the_host_layout(tmp_path, fold_env, monkeypatch):
+    """The counterpart of the JAX package's
+    ``test_drift_probe_clean_and_corrupted`` (``tests/test_foldin.py``):
+    folded rows land in the host arrays in place; the probe is clean,
+    then a row negated in place fails it, in both packages."""
+    ref, port = _host_sides(tmp_path, monkeypatch)
+    journal.clear()
+    for side in (ref, port):
+        side.worker._drift_probe()
+        st = side.worker.state()
+        assert st["drift"]["ok"] and st["drift"]["recall"] == 1.0
+    for side in (ref, port):
+        m = side.model
+        for user in list(side.worker._recent):
+            ix = m.user_vocab.get(user)
+            m.user_factors[ix] = -m.user_factors[ix]
+        side.worker._drift_probe()
+    jst, tst = ref.worker.state(), port.worker.state()
+    assert tst["drift"]["ok"] is jst["drift"]["ok"] is False
+    assert tst["drift"]["recall"] < 0.99
+    warns = [e for e in journal.snapshot(level="warn")["events"]
+             if e["category"] == "foldin"]
+    assert any("drift probe FAILED" in e["message"] for e in warns)
+
+
+def test_item_drift_probe_on_the_host_layout(tmp_path, fold_env,
+                                             monkeypatch):
+    """The counterpart of ``test_item_drift_probe_clean_and_corrupted``:
+    the folded items' rows sit in the host item array (which is the
+    worker's mirror); clean, then negated in place, fails."""
+    ref, port = _host_sides(tmp_path, monkeypatch, items_only=True)
+    assert port.model.item_factors is port.worker._item_factors
+    journal.clear()
+    for side in (ref, port):
+        side.worker._item_drift_probe()
+        st = side.worker.state()
+        assert st["itemDrift"]["ok"] and st["itemDrift"]["recall"] == 1.0
+    for side in (ref, port):
+        m = side.model
+        for item in list(side.worker._recent_items):
+            ix = int(m.item_vocab.get(item))
+            m.item_factors[ix] = -m.item_factors[ix]
+            side.worker._item_factors[ix] = np.array(m.item_factors[ix])
+        side.worker._item_drift_probe()
+    jst, tst = ref.worker.state(), port.worker.state()
+    assert tst["itemDrift"]["ok"] is jst["itemDrift"]["ok"] is False
+    warns = [e for e in journal.snapshot(level="warn")["events"]
+             if e["category"] == "foldin"]
+    assert any("ITEM drift" in e["message"] for e in warns)
+
+
+def test_host_layout_answers_follow_the_fold(tmp_path, fold_env,
+                                            monkeypatch):
+    """A folded user's answer on the host layout is the host branch over
+    the folded row, equal to the JAX package's wherever the gaps allow
+    (``_assert_sides_agree``), and an unseen user gets a full answer."""
+    ref, port = _host_sides(tmp_path, monkeypatch)
+    got = port.answer("new_u0_1")
+    assert len(got) == 8
+    m = port.model
+    ix = m.user_vocab("new_u0_1")
+    scores = m.item_factors @ m.user_factors[ix]
+    n_real = len(m.item_vocab)
+    inv = m.item_vocab.inverse()
+    want = [(inv(int(i)), float(scores[i]))
+            for i in np.argsort(-scores, kind="stable") if i < n_real][:8]
+    assert [s for _i, s in got] == [s for _i, s in want]

@@ -181,16 +181,18 @@ ENGINE_API_SLICE = [
 ]
 
 
-#: the tooling: the declaration registry, pio lint's five passes and its
+#: the tooling: the declaration registry, pio lint's seven passes and its
 #: runtime lock-order monitor, and benchtrend
 TOOLING_SLICE = [
     "predictionio_tpu_torch.common.declarations",
     "predictionio_tpu_torch.tools.analyze",
     "predictionio_tpu_torch.tools.analyze.findings",
     "predictionio_tpu_torch.tools.analyze.passes",
+    "predictionio_tpu_torch.tools.analyze.passes.aot_registration",
     "predictionio_tpu_torch.tools.analyze.passes.debug_surface",
     "predictionio_tpu_torch.tools.analyze.passes.declarations",
     "predictionio_tpu_torch.tools.analyze.passes.host_sync",
+    "predictionio_tpu_torch.tools.analyze.passes.jit_purity",
     "predictionio_tpu_torch.tools.analyze.passes.lock_order",
     "predictionio_tpu_torch.tools.analyze.passes.timing",
     "predictionio_tpu_torch.tools.analyze.runner",
@@ -200,13 +202,10 @@ TOOLING_SLICE = [
 ]
 
 #: the reference's modules with no counterpart of the same name: the two
-#: Pallas kernels (ported as csrc/*.cu), the host counting sort (not
-#: ported, settled) and the two lint passes over jit-traced bodies, which
-#: wait for the port's first captured region (ROADMAP queue 1 item 7d)
+#: Pallas kernels (ported as csrc/*.cu) and the host counting sort (not
+#: ported, settled)
 NO_COUNTERPART = {
     "native/__init__.py", "ops/solve_pallas.py", "ops/topk_pallas.py",
-    "tools/analyze/passes/aot_registration.py",
-    "tools/analyze/passes/jit_purity.py",
 }
 
 
@@ -220,7 +219,7 @@ def _py_files(pkg):
     return out
 
 
-def test_every_reference_module_has_a_counterpart_but_five():
+def test_every_reference_module_has_a_counterpart_but_three():
     assert (_py_files("predictionio_tpu")
             - _py_files("predictionio_tpu_torch")) == NO_COUNTERPART
 

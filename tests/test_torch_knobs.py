@@ -1,8 +1,10 @@
 """The port's table of the reference's environment variables
 (``predictionio_tpu_torch/knobs.py``) against the port's registry and the
-reference's declarations, the refusal of the variables that ask for a feature the
-port lacks, at the CLI's verbs and at ``QueryAPI`` construction, and the
-event server's and daemons' variables that the port reads."""
+reference's declarations, the refusal machinery for a variable that asks
+for a feature the port lacks (at the CLI's verbs and at ``QueryAPI``
+construction; no row is refused since the host-vs-device serving probe
+landed, so a stand-in row drives it), and the variables that the port
+reads."""
 
 import re
 
@@ -29,13 +31,22 @@ MEM = {
     "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
 }
 
-#: values that turn each unported feature on, as an operator would set them
-REFUSED = {
-    "PIO_SERVE_DEVICE_MS": ["3.0", "0.5"],
-}
-
 UNPORTED = sorted(name for name, k in knobs.KNOBS.items()
                   if k.kind == knobs.UNPORTED)
+
+#: a stand-in unported row for the refusal machinery, which stays for any
+#: later row, and values that turn its feature on, as an operator would
+#: set them
+STAND_IN = "PIO_STAND_IN_FEATURE"
+REFUSED = {STAND_IN: ["3.0", "0.5"]}
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    monkeypatch.setitem(knobs.KNOBS, STAND_IN, knobs._unported(
+        "a stand-in feature", "queue 9 item 9"))
+    monkeypatch.delenv(STAND_IN, raising=False)
+    return knobs.KNOBS[STAND_IN]
 
 
 def _clear(monkeypatch):
@@ -55,7 +66,12 @@ def test_every_reference_variable_is_classified():
         if knob.kind == knobs.UNPORTED:
             assert knob.roadmap.startswith("queue "), name
             assert knob.verbs and set(knob.verbs) <= set(knobs.ALL_VERBS)
-    assert sorted(REFUSED) == UNPORTED
+    # none is refused since the serving probe landed: 108 read, 10 inert
+    assert UNPORTED == []
+    kinds = [k.kind for k in knobs.KNOBS.values()]
+    assert (kinds.count(knobs.READ), kinds.count(knobs.INERT),
+            kinds.count(knobs.UNPORTED)) == (108, 10, 0)
+    assert knobs.KNOBS["PIO_SERVE_DEVICE_MS"].kind == knobs.READ
     # settled: the solver variable stays unread
     assert knobs.KNOBS["PIO_ALS_SOLVER"].kind == knobs.INERT
 
@@ -63,7 +79,7 @@ def test_every_reference_variable_is_classified():
 @pytest.mark.parametrize("name,value", [
     (name, value) for name in sorted(REFUSED) for value in REFUSED[name]])
 def test_unported_feature_is_refused_at_its_entry_points(
-        monkeypatch, capsys, tmp_path, name, value):
+        monkeypatch, capsys, tmp_path, stand_in, name, value):
     _clear(monkeypatch)
     monkeypatch.setenv(name, value)
     knob = knobs.KNOBS[name]
@@ -102,9 +118,8 @@ def test_unported_feature_is_refused_at_its_entry_points(
 
 
 @pytest.mark.parametrize("name,value", [
-    (name, value) for name in UNPORTED
-    for value in (None, "0", "off", "OFF", *knobs.KNOBS[name].also_off)])
-def test_off_values_are_accepted(monkeypatch, name, value):
+    (STAND_IN, value) for value in (None, "0", "off", "OFF")])
+def test_off_values_are_accepted(monkeypatch, stand_in, name, value):
     _clear(monkeypatch)
     if value is not None:
         monkeypatch.setenv(name, value)
@@ -118,6 +133,25 @@ def test_read_and_inert_variables_are_never_refused(monkeypatch):
            if k.kind != knobs.UNPORTED and not name.endswith("*")}
     for verb in knobs.ALL_VERBS:
         knobs.refuse_unported(verb, env)
+
+
+@pytest.mark.parametrize("value", ["0", "3.0", "0.5", "1e9"])
+def test_serve_device_ms_is_read_as_the_reference_reads_it(monkeypatch,
+                                                          value):
+    """The row the serving probe turned from refused to read: refused at
+    no verb, read as the JAX package reads it (a float threshold in ms;
+    ``0`` is a threshold every probe exceeds, not "off"), and a deploy
+    gets past the table to the instance lookup."""
+    from predictionio_tpu_torch.models.recommendation import als_algorithm
+
+    _clear(monkeypatch)
+    monkeypatch.setenv("PIO_SERVE_DEVICE_MS", value)
+    for verb in knobs.ALL_VERBS:
+        knobs.refuse_unported(verb)       # never refused
+    assert als_algorithm.serve_device_ms() == float(value)
+    with pytest.raises(Exception) as e:
+        QueryAPI(config=ServerConfig(device="cpu"), storage=Storage(env=MEM))
+    assert "ROADMAP" not in str(e.value)
 
 
 def test_accepted_deploy_reaches_the_instance_lookup(monkeypatch):

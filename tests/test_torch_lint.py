@@ -4,7 +4,9 @@ against the reference's.
 1. **Parity**: the same seeded-defect sources go through each pass the
    port shares with the reference (timing, lock order, debug surface,
    env / metric / journal declarations, the pragma rules) in both
-   packages, and the ``(rule, line, detail)`` sets are equal.
+   packages, and the ``(rule, line, detail)`` sets are equal; each of
+   the reference's jit-purity and aot-registration fixtures has a
+   registered-entry fixture in torch terms that fires the same rules.
 2. **The torch form of host-sync**: torch sources with the findings the
    rules should give written out.
 3. **The runtime monitor**: the same acquisition scripts give the same
@@ -13,6 +15,10 @@ against the reference's.
    gives none.
 4. **The runner**: the baseline contract, ``--update-baseline``, exit 2
    on a parse failure, the CLI verb, and the real tree linting clean.
+5. **The warm-up registry at run time**: every registered serving entry
+   that a deploy kind's queries call (and, with fold-in, its tick's
+   solve) is called by that kind's warm-up, run with ``prebuild`` on the
+   CPU.
 """
 
 import ast
@@ -25,7 +31,8 @@ import pytest
 from predictionio_tpu.tools.analyze import runtime as ref_runtime
 from predictionio_tpu.tools.analyze import walker as ref_walker
 from predictionio_tpu.tools.analyze.passes import (
-    debug_surface as ref_debug, declarations as ref_decl,
+    aot_registration as ref_aot, debug_surface as ref_debug,
+    declarations as ref_decl, jit_purity as ref_jit,
     lock_order as ref_lock, timing as ref_timing,
 )
 from predictionio_tpu_torch.common import telemetry
@@ -35,12 +42,13 @@ from predictionio_tpu_torch.tools.analyze.findings import (
     Baseline, Finding, stale_findings,
 )
 from predictionio_tpu_torch.tools.analyze.passes import (
-    all_passes, debug_surface, declarations, host_sync, lock_order, timing,
+    all_passes, aot_registration, debug_surface, declarations, host_sync,
+    jit_purity, lock_order, timing,
 )
 
 ROOT = walker.repo_root()
-PASSES = ["timing", "host-sync", "lock-order", "declarations",
-          "debug-surface"]
+PASSES = ["timing", "host-sync", "jit-purity", "lock-order",
+          "declarations", "aot-registration", "debug-surface"]
 
 
 def _ref_mod(src, rel):
@@ -255,15 +263,287 @@ def test_the_daemons_are_the_references_six():
         for m in ref_debug.DAEMON_MODULES]
 
 
-def test_the_pass_table_is_the_references_less_the_jit_passes():
+def test_the_pass_table_is_the_references_seven():
     from predictionio_tpu.tools.analyze.passes import all_passes as ref_all
     ref_table = {p.name: p.rules for p in ref_all()}
-    assert [p.name for p in all_passes()] == PASSES
-    assert [n for n in ref_table if n in PASSES] == PASSES
+    assert [p.name for p in all_passes()] == PASSES == list(ref_table)
     for p in all_passes():
         assert p.rules == ref_table[p.name], p.name
-    assert set(ref_table) - set(PASSES) == {"jit-purity",
-                                            "aot-registration"}
+
+
+def _rules(findings):
+    return sorted({f.rule for f in findings})
+
+
+REG = "from predictionio_tpu_torch.serving.aot import register_entry\n"
+
+#: the reference's jit-purity fixtures (tests/test_lint.py) beside their
+#: torch form: a body registered with the warm-up instead of a jitted one
+JIT = {
+    "wall_clock": (
+        "import time\nimport jax\n"
+        "@jax.jit\n"
+        "def f(x):\n"
+        "    return x + time.time()\n",
+        "import time\n" + REG +
+        "def f(x):\n"
+        "    return x + time.time()\n"
+        "register_entry('f', f)\n"),
+    "rng_io_global_mutation": (
+        "import random\nimport jax\n"
+        "STATE = {}\n"
+        "@jax.jit\n"
+        "def f(x):\n"
+        "    global STATE\n"
+        "    print(x)\n"
+        "    return x * random.random()\n",
+        "import random\n" + REG +
+        "STATE = {}\n"
+        "def f(x):\n"
+        "    global STATE\n"
+        "    print(x)\n"
+        "    return x * random.random()\n"
+        "register_entry('f', f)\n"),
+    "explicit_key_is_legal": (
+        "import jax\n"
+        "@jax.jit\n"
+        "def f(key, x):\n"
+        "    return x + jax.random.normal(key, x.shape)\n",
+        "import torch\n" + REG +
+        "def f(gen, x):\n"
+        "    return x + torch.randn(x.shape, generator=gen)\n"
+        "register_entry('f', f)\n"),
+    "unjitted_is_not_checked": (
+        "import time\nimport jax\n"
+        "def eager(x):\n"
+        "    return x + time.time()\n",
+        "import time\n" + REG +
+        "def eager(x):\n"
+        "    return x + time.time()\n"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JIT))
+def test_jit_purity_fires_as_the_references_on_registered_entries(name):
+    ref_src, src = JIT[name]
+    got = jit_purity.run([_mod(src)])
+    want = ref_jit.run([_ref_mod(ref_src, "fake/mod.py")])
+    assert _rules(got) == _rules(want)
+    assert bool(got) == (name in ("wall_clock", "rng_io_global_mutation"))
+
+
+#: the torch-only shapes: the process-global generator, env reads, a
+#: registration resolved into another module, the pragma
+JIT_TORCH = {
+    "global_generator": (
+        "import torch\n" + REG +
+        "def f(x):\n"
+        "    a = torch.randn(x.shape)\n"                        # 4
+        "    x.uniform_()\n"                                    # 5
+        "    g = torch.Generator()\n"
+        "    return a + torch.rand(3, generator=g)\n"
+        "register_entry('f', f)\n",
+        {("jit-nondeterminism", 4), ("jit-nondeterminism", 5)}),
+    "env_and_logging": (
+        "import logging, os\n" + REG +
+        "logger = logging.getLogger('x')\n"
+        "def f(x):\n"
+        "    t = os.environ.get('PIO_SERVE_FUSED_TILE')\n"      # 5
+        "    u = os.environ['PIO_SERVE_FUSED']\n"               # 6
+        "    logger.info('serving %s', t)\n"                    # 7
+        "    return x, u\n"
+        "def hoisted():\n"
+        "    return os.environ.get('PIO_SERVE_FUSED_TILE')\n"
+        "register_entry('f', f)\n",
+        {("jit-io", 5), ("jit-io", 6), ("jit-io", 7)}),
+    "pragma": (
+        "import time\n" + REG +
+        "def f(x):\n"
+        "    # a deadline, never part of the answer\n"
+        "    # pio-lint: allow=jit-wall-clock\n"
+        "    t = time.monotonic()\n"
+        "    return x, time.perf_counter() - t\n"               # 7
+        "register_entry('f', f)\n",
+        {("jit-wall-clock", 7)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(JIT_TORCH))
+def test_jit_purity_in_torch_terms(name):
+    src, want = JIT_TORCH[name]
+    assert {(f.rule, f.line) for f in jit_purity.run([_mod(src)])} == want
+
+
+def test_jit_purity_follows_a_registration_into_another_module():
+    """``register_entry("n", kern.f)`` holds ``ops/kern.py``'s ``f``, as
+    the reference's register_jit resolution does."""
+    kern = ("import time\n"
+            "def f(x):\n"
+            "    return x + time.time()\n"
+            "def g(x):\n"
+            "    return x + time.time()\n")
+    reg = ("from predictionio_tpu_torch.ops import kern\n" + REG +
+           "register_entry('f', kern.f)\n")
+    got = jit_purity.run([_mod(kern, "ops/kern.py"),
+                          _mod(reg, "serving/aot.py")])
+    assert [(f.rule, f.path, f.line) for f in got] == [
+        ("jit-wall-clock", "predictionio_tpu_torch/ops/kern.py", 3)]
+    ref_kern = kern.replace("def f", "@jax.jit\ndef f", 1)
+    ref_got = ref_jit.run([_ref_mod("import jax\n" + ref_kern,
+                                    "ops/kern.py")])
+    assert _rules(ref_got) == _rules(got)
+
+
+LAUNCH = "from predictionio_tpu_torch.ops import _kernels\n"
+
+#: the reference's aot-registration fixtures (tests/test_lint.py) beside
+#: their torch form (path, reference source, torch source): a def that
+#: launches a hand kernel instead of a jitted one
+AOT = {
+    "unregistered_serving_entry": (
+        "serving/newmod.py",
+        "import jax\n"
+        "@jax.jit\n"
+        "def brand_new_kernel(x):\n"
+        "    return x\n",
+        LAUNCH +
+        "def brand_new_kernel(x):\n"
+        "    return _kernels.load('brand_new').pio_brand_new(x)\n"),
+    "scope_is_structural": (
+        "parallel/newdist.py",
+        "import jax\n"
+        "from predictionio_tpu.serving.aot import register_jit\n"
+        "@jax.jit\n"
+        "def registered(x):\n"
+        "    return x\n"
+        "@jax.jit\n"
+        "def forgotten(x):\n"
+        "    return x\n"
+        "register_jit('registered', registered)\n",
+        LAUNCH + REG +
+        "def _library():\n"
+        "    return _kernels.load('newdist')\n"
+        "def _launch(x):\n"
+        "    return _library().pio_run(x)\n"
+        "def registered(x):\n"
+        "    return _launch(x)\n"
+        "def forgotten(x):\n"
+        "    return _launch(x)\n"
+        "register_entry('registered', registered)\n"),
+    "forgotten_quant_sibling": (
+        "ops/quant_v2.py",
+        "import jax\n"
+        "from predictionio_tpu.serving.aot import register_jit\n"
+        "@jax.jit\n"
+        "def topk_quant(x):\n"
+        "    return x\n"
+        "@jax.jit\n"
+        "def topk_quant_fused(x):\n"
+        "    return x\n"
+        "register_jit('topk_quant', topk_quant)\n",
+        "from predictionio_tpu_torch.ops import _kernels as kern\n" + REG +
+        "def topk_quant(x):\n"
+        "    return x\n"
+        "def topk_quant_fused(x):\n"
+        "    return kern.load('topk_fused').pio_topk(x)\n"
+        "register_entry('topk_quant', topk_quant)\n"),
+    "outside_the_scope": (
+        "ops/offline.py",
+        "import jax\n"
+        "@jax.jit\n"
+        "def batch_kernel(x):\n"
+        "    return x\n",
+        LAUNCH +
+        "def batch_kernel(x):\n"
+        "    return _kernels.load('offline').pio_run(x)\n"),
+    "pragma": (
+        "serving/newmod.py",
+        "import jax\n"
+        "@jax.jit\n"
+        "def tool(x):  # pio-lint: allow=aot-unregistered-jit\n"
+        "    return x\n",
+        LAUNCH +
+        "def tool(x):  # pio-lint: allow=aot-unregistered-jit\n"
+        "    return _kernels.load('tool').pio_run(x)\n"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AOT))
+def test_aot_registration_fires_as_the_references_on_device_entries(name):
+    rel, ref_src, src = AOT[name]
+    got = aot_registration.run([_mod(src, rel)])
+    want = ref_aot.run([_ref_mod(ref_src, rel)])
+    assert [(f.rule, f.detail) for f in got] == [
+        (f.rule, f.detail) for f in want]
+    assert bool(got) == (name not in ("outside_the_scope", "pragma"))
+
+
+def test_a_public_def_reaching_another_modules_entry_is_not_one():
+    """A def that launches only through another module's public entry is
+    held where that entry is defined, not here; private launchers make
+    a public caller an entry however deep they nest."""
+    src = (LAUNCH + REG +
+           "from predictionio_tpu_torch.ops import solve\n"
+           "def _library():\n"
+           "    return _kernels.load('x')\n"
+           "def _inner(x):\n"
+           "    return _library().pio_x(x)\n"
+           "def _outer(x):\n"
+           "    return _inner(x)\n"
+           "def through_private(x):\n"
+           "    return _outer(x)\n"
+           "def through_public(A, b, r):\n"
+           "    return solve.solve_factors(A, b, r)\n"
+           "register_entry('through_public', through_public)\n")
+    mod = _mod(src, "serving/mix.py")
+    assert [fn.name for fn in aot_registration.device_entries(mod)] == [
+        "through_private"]
+    assert [f.detail for f in aot_registration.run([mod])] == [
+        "through_private"]
+
+
+def test_the_scope_covers_the_serving_path_modules():
+    scope = {m.rel for m in aot_registration.serving_scope(
+        walker.discover(ROOT))}
+    for rel in ("ops/topk.py", "ops/topk_fused.py", "ops/quant.py",
+                "ops/solve.py", "ops/als.py", "parallel/serve_dist.py",
+                "realtime/foldin.py", "serving/aot.py",
+                "serving/batcher.py"):
+        assert f"predictionio_tpu_torch/{rel}" in scope, rel
+
+
+def test_the_ports_kernel_entries_are_found_and_registered():
+    """The static pass sees B1, B2 and kernel A's wrappers as device
+    entries, and the real tree less one registration fires on it."""
+    modules = walker.discover(ROOT)
+    by_rel = {m.rel: m for m in modules}
+    fused = by_rel["predictionio_tpu_torch/ops/topk_fused.py"]
+    entries = {fn.name for m in aot_registration.serving_scope(modules)
+               for fn in aot_registration.device_entries(m)}
+    assert entries == {"score_mask_topk_candidates", "merge_candidates",
+                       "solve_factors"}
+    assert entries <= aot_registration.registered_fn_names(modules)
+    assert aot_registration.run(modules) == []
+    line = '        "merge_candidates", merge_candidates, kind="serving",'
+    assert line in fused.source
+    cut = fused.source.replace(line, '        "merge_candidates", None,')
+    broken = [m if m is not fused else _mod(cut, "ops/topk_fused.py")
+              for m in modules]
+    assert [f.detail for f in aot_registration.run(broken)] == [
+        "merge_candidates"]
+
+
+def test_the_registered_bodies_resolve_across_modules():
+    regs = {(m.rel, fn.name)
+            for m, fn in walker.registered_entry_defs(walker.discover(ROOT))}
+    for rel, name in (("ops/topk.py", "topk_for_users"),
+                      ("ops/topk_fused.py", "topk_for_users_quant_fused"),
+                      ("ops/solve.py", "solve_factors"),
+                      ("ops/als.py", "train_explicit"),
+                      ("realtime/foldin.py", "foldin_solve"),
+                      ("parallel/serve_dist.py",
+                       "topk_for_users_sharded_quant")):
+        assert (f"predictionio_tpu_torch/{rel}", name) in regs
 
 
 # ---------------------------------------------------------------------------
@@ -679,3 +959,162 @@ def test_the_lint_verb(capsys, tmp_path):
                      str(tmp_path / "b.json")]) == 0
     d = json.loads(capsys.readouterr().out)
     assert d["modulesAnalyzed"] == 1 and d["passes"] == PASSES
+
+
+# ---------------------------------------------------------------------------
+# 5. the warm-up registry at run time
+# ---------------------------------------------------------------------------
+
+#: the kinds of deploy whose warm-up the registry must cover
+DEPLOY_KINDS = ["fp32", "quant_fused", "quant_plain", "sharded_fp32",
+                "sharded_int8", "foldin"]
+FOLD_APP = "LintFoldApp"
+
+
+def _serving_entries():
+    """(name, module, attribute) of every registered serving entry, every
+    registering module imported first (registration runs at import)."""
+    import importlib
+    import sys
+
+    for mod in ("ops.quant", "ops.topk_fused", "parallel.serve_dist",
+                "realtime.foldin"):
+        importlib.import_module(f"predictionio_tpu_torch.{mod}")
+    from predictionio_tpu_torch.serving import aot
+    return [(name, sys.modules[r.fn.__module__], r.fn.__name__)
+            for name, r in sorted(aot._REGISTRY.items())
+            if r.kind == "serving"]
+
+
+def _kind_model(kind, monkeypatch, tmp_path):
+    """(algorithm, prepared model, fold-in (worker, store, app id) or
+    None) of one kind, on the CPU at a small size."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.storage import App, Storage
+    from predictionio_tpu_torch.models.recommendation.als_algorithm import (
+        ALSAlgorithm, ALSAlgorithmParams, ALSModel,
+    )
+    from predictionio_tpu_torch.ops import quant
+    from predictionio_tpu_torch.parallel import serve_dist
+    from predictionio_tpu_torch.parallel.mesh import Mesh
+    from predictionio_tpu_torch.realtime import foldin
+    from predictionio_tpu_torch.workflow import model_io
+
+    monkeypatch.setenv("PIO_SERVE_DEVICE_MS", "1e9")
+    monkeypatch.setenv("PIO_SERVE_FUSED",
+                       "off" if kind == "quant_plain" else "on")
+    rng = np.random.default_rng(21)
+    m = model_io.als_model_from_numpy(
+        6, rng.normal(size=(40, 6)), rng.normal(size=(90, 6)),
+        {f"u{i}": i for i in range(40)}, {f"i{i}": i for i in range(90)})
+    algo = ALSAlgorithm(ALSAlgorithmParams(rank=6))
+    if kind.startswith("sharded"):
+        qf = (quant.QuantizedFactors.from_factors(m.user_factors,
+                                                  m.item_factors)
+              if kind == "sharded_int8" else None)
+        sf = serve_dist.shard_factors(m.user_factors, m.item_factors,
+                                      mesh=Mesh(["cpu"] * 2), quant=qf)
+        return algo, ALSModel(
+            rank=6, user_factors=m.user_factors,
+            item_factors=m.item_factors, user_vocab=m.user_vocab,
+            item_vocab=m.item_vocab, sharding=sf), None
+    fold = None
+    prep = (foldin.pad_capacity([m], 8, [algo], item_headroom=4)
+            if kind == "foldin" else None)
+    mode = "on" if kind.startswith("quant") else "off"
+    with quant.deploy_scope(mode, device="cpu"):
+        m = algo.prepare_serving(m)
+    if kind == "foldin":
+        storage = Storage(env={
+            "PIO_STORAGE_SOURCES_M_TYPE": "memory",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "M",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M"})
+        app_id = storage.get_meta_data_apps().insert(App(0, FOLD_APP, None))
+        storage.get_events().init(app_id)
+        worker = foldin.FoldinWorker(
+            storage, foldin.FoldinConfig(app_name=FOLD_APP, lambda_=0.01),
+            cursor_directory=str(tmp_path / "cur"), device="cpu")
+        worker.bind(m, generation=1, prep=prep)
+        fold = (worker, storage, app_id)
+    return algo, m, fold
+
+
+def _tick(worker, storage, app_id):
+    """Events for two unseen users and a trained one, then one tick."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+
+    t0 = dt.datetime(2024, 6, 1, tzinfo=dt.timezone.utc)
+    evs = [Event(event="rate", entity_type="user", entity_id=u,
+                 target_entity_type="item", target_entity_id=f"i{i}",
+                 properties=DataMap({"rating": float(1 + (i % 5))}),
+                 event_time=t0 + dt.timedelta(seconds=k))
+           for k, (u, i) in enumerate(
+               (u, i) for u in ("new_a", "new_b", "u3")
+               for i in (1, 5, 9, 30))]
+    storage.get_events().insert_batch(evs, app_id)
+    summary = worker.tick()
+    assert summary["appended"] == 2 and summary["folded"] >= 1, summary
+
+
+@pytest.mark.parametrize("kind", DEPLOY_KINDS)
+def test_every_serving_entry_a_kind_calls_is_warmed(kind, monkeypatch,
+                                                    tmp_path):
+    """Each registered serving entry wrapped with a counter; the kind's
+    queries (inline and a flush at every bucket) and, with fold-in, a
+    tick record the entries they call; the kind's warm-up programs
+    (``algorithm_programs``, ``foldin.solve_programs``) run through
+    ``prebuild`` on the CPU must call every one of them. The only
+    entries a path may call unwarmed are the fold-in publication
+    scatters, whose notes say so and which launch no hand kernel."""
+    from predictionio_tpu_torch.models.recommendation.engine import Query
+    from predictionio_tpu_torch.realtime import foldin
+    from predictionio_tpu_torch.serving import aot
+
+    entries = _serving_entries()
+    algo, model, fold = _kind_model(kind, monkeypatch, tmp_path)
+    calls = []
+    for name, module, attr in entries:
+        real = getattr(module, attr)
+
+        def counted(*a, _name=name, _real=real, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(module, attr, counted)
+    algo.predict(model, Query(user="u1", num=5))
+    for size in (1, 3, 10, 40):          # the buckets 1, 4, 16 and 64
+        got = algo.predict_batch(model, [Query(user=f"u{i}", num=3)
+                                         for i in range(size)])
+        assert all(len(r.itemScores) == 3 for r in got)
+    if fold is not None:
+        _tick(*fold)
+    path = set(calls)
+    calls.clear()
+    buckets = aot.serve_buckets(None)
+    programs = aot.algorithm_programs(algo, model, buckets)
+    if fold is not None:
+        programs += foldin.solve_programs(6, "cpu")
+    aot.prebuild(programs, "cpu")
+    warmed = set(calls)
+    notes = aot.registry_snapshot()
+    unwarmed = {n for n in notes if "not warmed" in notes[n]["note"]}
+    assert path and warmed
+    assert path - warmed <= unwarmed, (kind, sorted(path - warmed))
+    main = {"fp32": "topk_for_users", "quant_fused":
+            "topk_for_users_quant_fused", "quant_plain":
+            "topk_for_users_quant", "sharded_fp32": "topk_for_users_sharded",
+            "sharded_int8": "topk_for_users_sharded_quant",
+            "foldin": "foldin_solve"}[kind]
+    assert main in path & warmed
+    if kind in ("quant_fused", "sharded_int8"):
+        assert {"score_mask_topk_candidates", "merge_candidates"} <= warmed
+    # the unwarmed scatters launch no hand kernel (the static pass's view)
+    entries_static = {fn.name for m in aot_registration.serving_scope(
+        walker.discover(ROOT)) for fn in aot_registration.device_entries(m)}
+    assert not unwarmed & entries_static
+    assert all("scatter" in n for n in unwarmed)

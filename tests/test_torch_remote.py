@@ -501,7 +501,21 @@ def test_write_reply_loss_surfaces_without_dedup(tmp_path):
         server.server_close()
 
 
-def test_write_dedup_makes_the_insert_retry_exactly_once(tmp_path):
+def test_write_dedup_makes_the_insert_retry_exactly_once(tmp_path,
+                                                        monkeypatch):
+    """One lost write reply is retried and stored exactly once, and the
+    retry is answered from the server's dedup cache (one replay counted).
+    The lost reply raises right after the send, so the retry pauses at
+    least the base backoff (500 ms, floored through ``backoff_s``'s
+    Retry-After floor; full jitter alone draws from [0, base)): the
+    original takes its dedup token on the server's threaded transport
+    before the retry arrives, under any load."""
+    backoff_s = resilience.RetryPolicy.backoff_s
+
+    def floored(self, attempt, floor=0.0, rng=None):
+        return backoff_s(self, attempt, max(floor, self.base_delay_s), rng)
+
+    monkeypatch.setattr(resilience.RetryPolicy, "backoff_s", floored)
     telemetry.set_enabled(True)
     backing, app_id = _filled(tmp_path, "memory", n=0)
     server = serve_storage(backing, host="127.0.0.1", port=0)
@@ -512,7 +526,7 @@ def test_write_dedup_makes_the_insert_retry_exactly_once(tmp_path):
             "(exactly-once replays)").child()
         before = replays.value
         rs = Storage(env=_remote_env(server.server_address[1], RETRIES=3,
-                                     BACKOFF_MS=1, WRITE_DEDUP=1))
+                                     BACKOFF_MS=500, WRITE_DEDUP=1))
         inj = resilience.install("drop_rx:1:1@client POST /rpc")
         ids = rs.get_events().insert_batch(
             [_mk("u1", "i1"), _mk("u2", "i2", sec=1)], app_id)

@@ -302,6 +302,8 @@ def test_trained_model_keeps_tensors_until_persisted(monkeypatch):
     (model,) = engine.train(ctx, params)
     assert isinstance(model.user_factors, torch.Tensor)
     algo = engine._instantiate(params)[2][0]
+    # the device layout whatever the host-vs-device probe measures
+    monkeypatch.setenv("PIO_SERVE_DEVICE_MS", "1e9")
     with quant.deploy_scope("off", device=torch.device("cpu")):
         served = algo.prepare_serving(model)
     assert torch.equal(served.user_factors, model.user_factors)
