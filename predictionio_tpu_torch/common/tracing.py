@@ -33,6 +33,17 @@ Any span that times work on the card must end in a real host transfer
 (the ``.cpu()`` copy of a result): a CUDA launch returns before its
 kernel runs.
 
+Profiler spans: while a ``torch.profiler`` session runs in the process
+(``pio train --profile``, ``POST /debug/profile``, the benchmark's
+traced window), :func:`span` also opens a ``record_function`` range of
+its name, so the span shows in the session's Chrome trace, and records
+it (name, thread, start and end in ns, attrs) in a second bounded ring,
+read with :func:`profiler_spans`. Those stamps come from
+``time.time_ns``, the clock the profiler stamps device events with, so
+a span can be laid over the card's kernels. Outside a session and a
+request context a span reads the thread's context and the profiler's
+flag, and records nothing.
+
 Dependency-free stdlib; safe to import from any layer.
 """
 
@@ -41,12 +52,13 @@ from __future__ import annotations
 import contextlib
 import datetime as _dt
 import os
+import sys
 import threading
 import time
 import uuid
 from collections import OrderedDict, deque
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 #: the propagation header (title-case for emission; matching is
 #: case-insensitive like every other header in data/api/http.py)
@@ -200,15 +212,63 @@ class _TailRing:
             self._traces.clear()
 
 
+@dataclass(frozen=True)
+class ProfiledSpan:
+    """A span recorded while a ``torch.profiler`` session ran."""
+    name: str
+    thread: int          # threading.get_ident() of the recording thread
+    start_ns: int        # time.time_ns(), the profiler's clock
+    end_ns: int
+    attrs: Dict[str, Any]
+
+
+class _ProfiledRing:
+    """The profiler spans, oldest first; past ``cap`` the oldest falls
+    off and is counted as dropped."""
+
+    def __init__(self, cap: int):
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=cap)
+        self._dropped = 0
+
+    def add(self, span: ProfiledSpan) -> None:
+        with self._lock:
+            if len(self._buf) == self._buf.maxlen:
+                self._dropped += 1
+            self._buf.append(span)
+
+    def read(self) -> Tuple[List[ProfiledSpan], int]:
+        with self._lock:
+            return list(self._buf), self._dropped
+
+    def clear(self) -> None:
+        with self._lock:
+            self._buf.clear()
+            self._dropped = 0
+
+
+#: profiler spans kept: a 10-iteration train records 40, the benchmark's
+#: traced window at most a few hundred
+PROFILED_CAP = 4096
+
 _ring = _Ring(_buffer_cap())
 _tail = _TailRing()
+_profiled = _ProfiledRing(PROFILED_CAP)
 _tls = threading.local()
 
 
 def clear() -> None:
-    """Drop every recorded span AND every tail-pinned trace (tests)."""
+    """Drop every recorded span AND every tail-pinned trace, and the
+    profiler spans with their drop count (tests)."""
     _ring.clear()
     _tail.clear()
+    _profiled.clear()
+
+
+def profiler_spans() -> Tuple[List[ProfiledSpan], int]:
+    """The profiler spans the ring holds, oldest first, and how many it
+    dropped (since the process started or the last :func:`clear`)."""
+    return _profiled.read()
 
 
 def pin_trace(trace_id: Optional[str], reason: str) -> None:
@@ -310,31 +370,55 @@ def _wall_now() -> float:
     return _dt.datetime.now(_dt.timezone.utc).timestamp()
 
 
-@contextlib.contextmanager
-def span(name: str, service: str = ""):
-    """Record a child span of the active context around the block.
+def _profiler_running() -> bool:
+    """Is a ``torch.profiler`` session running? The flag torch sets on a
+    session's start, read through ``sys.modules`` so that this module
+    never imports torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
 
-    No active context -> pure pass-through (one getattr); the block runs
-    untouched. The child becomes the active context inside the block, so
-    nested spans and outbound RPC headers chain correctly."""
+
+@contextlib.contextmanager
+def span(name: str, service: str = "", **attrs):
+    """Record a child span of the active context around the block, and,
+    while a ``torch.profiler`` session runs, a profiler span carrying
+    ``attrs`` (module docstring).
+
+    Neither -> pure pass-through; the block runs untouched. The child
+    becomes the active context inside the block, so nested spans and
+    outbound RPC headers chain correctly."""
     ctx = getattr(_tls, "ctx", None)
-    if ctx is None:
+    profiled = _profiler_running()
+    if ctx is None and not profiled:
         yield None
         return
-    child = TraceContext(ctx.trace_id, _new_id())
-    prev = ctx
-    _tls.ctx = child
-    wall = _wall_now()
-    t0 = time.perf_counter()
-    try:
-        yield child
-    finally:
-        dt = time.perf_counter() - t0
-        _tls.ctx = prev
-        _record(Span(
-            trace_id=child.trace_id, span_id=child.span_id,
-            parent_id=prev.span_id, name=name, service=service,
-            start_ts=wall, duration_s=dt))
+    with contextlib.ExitStack() as stack:
+        if profiled:
+            stack.callback(_end_profiled, name, attrs, time.time_ns())
+            from torch.profiler import record_function
+            stack.enter_context(record_function(name))
+        if ctx is None:
+            yield None
+            return
+        child = TraceContext(ctx.trace_id, _new_id())
+        prev = ctx
+        _tls.ctx = child
+        wall = _wall_now()
+        t0 = time.perf_counter()
+        try:
+            yield child
+        finally:
+            dt = time.perf_counter() - t0
+            _tls.ctx = prev
+            _record(Span(
+                trace_id=child.trace_id, span_id=child.span_id,
+                parent_id=prev.span_id, name=name, service=service,
+                start_ts=wall, duration_s=dt))
+
+
+def _end_profiled(name: str, attrs: Dict[str, Any], start_ns: int) -> None:
+    _profiled.add(ProfiledSpan(name, threading.get_ident(), start_ns,
+                               time.time_ns(), attrs))
 
 
 def record_span(name: str, ctx: Optional[TraceContext],

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch import device as device_mod
-from predictionio_tpu_torch.common import devicewatch
+from predictionio_tpu_torch.common import devicewatch, tracing
 from predictionio_tpu_torch.ops.solve import solve_factors
 
 __all__ = [
@@ -301,29 +301,40 @@ def _solve(A: torch.Tensor, b: torch.Tensor, reg: torch.Tensor):
     return solve_factors(A.contiguous(), b.contiguous(), reg)
 
 
+#: a half-step's span attrs where the caller passes none
+_UNTAGGED: Tuple[dict, dict] = ({}, {})
+
+
 def _half_step_explicit(other, side_idx, side_other, side_rating, counts,
-                        n_self, lambda_, chunk, reg_scaling, plan=None):
+                        n_self, lambda_, chunk, reg_scaling, plan=None,
+                        tags=_UNTAGGED):
+    """One explicit half-step; ``tags`` are the attrs of its two spans,
+    ``als.gram`` and ``als.solve`` (:func:`_span_tags`)."""
     # Presence weight: a genuine 0.0 rating is still an observation, so
     # presence is self_idx < n_self (padding rows use n_self).
     present = (side_idx < n_self).to(torch.float32)
-    A, b = gram_rhs(other, side_idx, side_other, present, side_rating,
-                    n_self, chunk, plan)
-    return _solve(A, b, _reg_vec(counts, n_self, lambda_, reg_scaling))
+    with tracing.span("als.gram", **tags[0]):
+        A, b = gram_rhs(other, side_idx, side_other, present, side_rating,
+                        n_self, chunk, plan)
+    with tracing.span("als.solve", **tags[1]):
+        return _solve(A, b, _reg_vec(counts, n_self, lambda_, reg_scaling))
 
 
 def _half_step_implicit(other, side_idx, side_other, side_rating, counts,
                         n_self, lambda_, alpha, chunk, reg_scaling,
-                        plan=None):
+                        plan=None, tags=_UNTAGGED):
     """Hu-Koren-Volinsky: ``A_u = Y'Y + Y'(C_u - I)Y``, ``b_u = Y'C_u p_u``,
     confidence from |r| and preference p = 1 iff r > 0 (MLlib's
-    trainImplicit for signed ratings)."""
+    trainImplicit for signed ratings). Spans as in the explicit step."""
     YtY = other.T @ other
     conf = alpha * torch.abs(side_rating)
     pref = (side_rating > 0).to(torch.float32)
-    A_corr, b = gram_rhs(other, side_idx, side_other, conf,
-                         (1.0 + conf) * pref, n_self, chunk, plan)
-    return _solve(YtY[None] + A_corr, b,
-                  _reg_vec(counts, n_self, lambda_, reg_scaling))
+    with tracing.span("als.gram", **tags[0]):
+        A_corr, b = gram_rhs(other, side_idx, side_other, conf,
+                             (1.0 + conf) * pref, n_self, chunk, plan)
+    with tracing.span("als.solve", **tags[1]):
+        return _solve(YtY[None] + A_corr, b,
+                      _reg_vec(counts, n_self, lambda_, reg_scaling))
 
 
 # ---------------------------------------------------------------------------
@@ -413,16 +424,32 @@ def _device_side(side: COOSide, device: torch.device) -> COOSide:
                    n_self=side.n_self, n_other=side.n_other)
 
 
+def _span_tags(side: str, n_self: int, plan: List[GramChunk],
+               nnz: int) -> Tuple[dict, dict]:
+    """The attrs of a half-step's ``als.gram`` span (the chunks, the
+    entries the Gram loops over, padding included, and of those the
+    padding, ``self_idx == n_self``) and of its ``als.solve`` span (the
+    rows solved), from host integers of the layout and its plan."""
+    entries = sum(ch.stop - ch.start for ch in plan)
+    return ({"side": side, "chunks": len(plan), "entries": entries,
+             "padding": entries - nnz},
+            {"side": side, "rows": n_self})
+
+
 def _prepared(data: ALSData, chunk: int, device: torch.device):
-    """The layout's sides on ``device`` and their chunk plans, cached on
-    ``data`` (a retrain over the same layout skips both)."""
+    """The layout's sides on ``device``, their chunk plans and their span
+    tags, cached on ``data`` (a retrain over the same layout skips
+    all three)."""
     key = ("sides", str(device), chunk)
     got = data._cache.get(key)
     if got is None:
         data._cache.clear()     # one device copy at a time
-        sides = [_device_side(s, device) for s in (data.by_user,
-                                                   data.by_item)]
-        got = [(s, gram_plan(s.self_idx, chunk)) for s in sides]
+        got = []
+        for name, s in (("users", data.by_user), ("items", data.by_item)):
+            s = _device_side(s, device)
+            plan = gram_plan(s.self_idx, chunk)
+            got.append((s, plan, _span_tags(name, s.n_self, plan,
+                                            data.nnz)))
         data._cache[key] = got
     return got
 
@@ -433,21 +460,21 @@ def _train(data: ALSData, rank, iterations, lambda_, alpha, seed, chunk,
     dev = device_mod.resolve(device)
     nnz_pad = int(data.by_user.self_idx.shape[0])
     chunk = max(min(chunk, nnz_pad), 1)
-    (bu, pu), (bi, pi) = _prepared(data, chunk, dev)
+    (bu, pu, tu), (bi, pi, ti) = _prepared(data, chunk, dev)
     if u0 is None or v0 is None:
         u0, v0 = _seed_factors(int(seed), data.n_users, data.n_items, rank,
                                device=dev)
     u0, v0 = _factors_on(u0, dev), _factors_on(v0, dev)
 
-    def half(other, side, plan):
+    def half(other, side, plan, tags):
         if implicit:
             return _half_step_implicit(
                 other, side.self_idx, side.other_idx, side.rating,
                 side.counts, side.n_self, lambda_, alpha, chunk,
-                reg_scaling, plan)
+                reg_scaling, plan, tags)
         return _half_step_explicit(
             other, side.self_idx, side.other_idx, side.rating, side.counts,
-            side.n_self, lambda_, chunk, reg_scaling, plan)
+            side.n_self, lambda_, chunk, reg_scaling, plan, tags)
 
     def run(U, V, n_iters):
         # a kernel build or load in the trainer shows up as
@@ -456,8 +483,8 @@ def _train(data: ALSData, rank, iterations, lambda_, alpha, seed, chunk,
                 "als_train_implicit" if implicit else "als_train_explicit",
                 phase="train"):
             for _ in range(n_iters):
-                U = half(V, bu, pu)
-                V = half(U, bi, pi)
+                U = half(V, bu, pu, tu)
+                V = half(U, bi, pi, ti)
         return U, V
 
     return _run_segmented(run, u0, v0, iterations, checkpoint_every,
