@@ -7,9 +7,9 @@ against their plain versions.
 Phases (any failure raises and the script exits non-zero):
 
 1. device  — the card's name and power limit, as nvidia-smi gives them.
-2. build   — both kernels from ``predictionio_tpu_torch/csrc`` with nvcc,
-             one process per source, started together, with ptxas's
-             report.
+2. build   — the three kernel sources from ``predictionio_tpu_torch/csrc``
+             with nvcc, one process per source, started together, with
+             ptxas's report.
 3. kernel B — its two launches against their plain PyTorch versions on
              the card, exact equality of values and indices: B1 (per-tile
              candidates) and B2 (the warp merge of the tiles' lists), at
@@ -35,12 +35,26 @@ Phases (any failure raises and the script exits non-zero):
              ranks 5, 10, 20 and 32; then, at every shape but the sweep,
              times of the kernel call, its device body, the plain version
              and ``torch.linalg.solve``, beside the bound.
+4b. kernel G — the fused Gram (``csrc/gram_fused.cu``) against its plain
+             version at the benchmark's two configurations (ML-20M at
+             rank 20, Netflix at rank 32; ``pio_bench/data.py``'s ratings
+             from the seed), users and items: every element of A and b
+             within GRAM_TOL of the sum of its terms' magnitudes, A
+             symmetric, a rerun bit for bit; then the call, its device
+             body and the plain version, beside the bound of
+             ``pio_bench/roofline/gram.py``. Then a fold-in tick's Gram
+             at buckets 1 / 8 / 64 (rank 10, int64 rows, other_idx =
+             arange), with the tick's plan and with none, held the same
+             way, and the tick's Gram timed with its plan.
 5. train   — ``pio train --synthetic 20000263`` through the port's CLI, in
              process, on SQLite under a temporary ``PIO_FS_BASEDIR``, at
              the engine.json's rank 10 and 10 iterations (the synthetic
              chunks stream to the card: PIO_TRAIN_STREAM's default auto),
              phase seconds, ms per iteration, RMSE before and after
-             (finite, falling), kernel A's launches (2 per iteration), the
+             (finite, falling), kernel A's launches (2 per iteration),
+             kernel G's (one a half-step plus its finishing pass on a
+             side with a row of several pieces, exactly) and kernel G on
+             the train's layout held to the plain Gram as in 4b, the
              device idle share over one profiled iteration, and a second
              train from the same seed, in-core (PIO_TRAIN_STREAM=off) with
              no cached layout, that must give bit-identical factors.
@@ -429,7 +443,8 @@ from predictionio_tpu_torch.models.similarproduct.engine import (
 )
 from predictionio_tpu_torch.models.recommendation import als_algorithm
 from predictionio_tpu_torch.ops import (
-    _kernels, als, naive_bayes, quant, solve, staging, topk, topk_fused,
+    _kernels, als, gram_fused, naive_bayes, quant, solve, staging, topk,
+    topk_fused,
 )
 from predictionio_tpu_torch.realtime import foldin
 from predictionio_tpu_torch.tools import cli
@@ -994,6 +1009,171 @@ def phase_solve(seed: int, dev: torch.device):
     return rows, worst
 
 
+#: phase 4b's configurations: the benchmark's two (pio_bench/configs)
+GRAM_CELLS = ("ml20m-als-r20", "netflix-als-r32")
+#: kernel G against the plain Gram: each element of A and b within this
+#: share of the sum of its terms' magnitudes (the two sum the same fp32
+#: products in other orders; tests/test_torch_gram_fused_card.py)
+GRAM_TOL = 2.0 ** -14
+GRAM_CHUNK = 1 << 18
+
+
+def _gram_gap(got, want, mag) -> float:
+    """The largest |got - want| over the sum of the terms' magnitudes."""
+    return float(((got - want).abs() / mag.clamp(min=1e-30)).max())
+
+
+def _same_bits(*pairs) -> bool:
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs)
+
+
+def _gram_check(where: str, other, self_idx, other_idx, ca, cb,
+                n_self: int, pieces, chunks=None) -> float:
+    """Kernel G over ``pieces`` (None: the plan built on the device)
+    against the plain Gram on the same inputs: within GRAM_TOL of the sum
+    of the terms' magnitudes, a rerun bit for bit, A symmetric. Returns
+    the largest gap."""
+    args = (self_idx, other_idx)
+    G, Gb = als.gram_rhs(other, *args, ca, cb, n_self, GRAM_CHUNK, pieces)
+    G2, Gb2 = als.gram_rhs(other, *args, ca, cb, n_self, GRAM_CHUNK,
+                           pieces)
+    P, Pb = als.gram_rhs_plain(other, *args, ca, cb, n_self, GRAM_CHUNK,
+                               chunks)
+    M, Mb = als.gram_rhs_plain(other.abs(), *args, ca.abs(), cb.abs(),
+                               n_self, GRAM_CHUNK, chunks)
+    torch.cuda.synchronize()
+    gap = max(_gram_gap(G, P, M), _gram_gap(Gb, Pb, Mb))
+    same = _same_bits((G, G2), (Gb, Gb2))
+    symmetric = torch.equal(G, G.transpose(1, 2))
+    del G, Gb, G2, Gb2, P, Pb, M, Mb
+    if gap > GRAM_TOL or not same or not symmetric:
+        raise AssertionError(
+            f"gram_fused at {where}: largest gap to the plain Gram {gap} "
+            f"(limit {GRAM_TOL}), rerun bit for bit {same}, A symmetric "
+            f"{symmetric}")
+    return gap
+
+
+def phase_gram(seed: int, dev: torch.device):
+    """Kernel G (``ops/gram_fused.py``) against the plain Gram at the
+    benchmark's two configurations, both sides, on the seed's ratings:
+    within GRAM_TOL and a rerun bit for bit; then the call, its device
+    body and the plain version, beside ``pio_bench/roofline/gram.py``'s
+    bound."""
+    from pio_bench import data as bench_data
+    from pio_bench.roofline import gram as gram_bound
+
+    peaks = {"fp32_flops_s": FP32_OPS_S, "hbm_bytes_s": HBM_BYTES_S}
+    rows = []
+    for name in GRAM_CELLS:
+        with open(os.path.join(_REPO, "pio_bench", "configs",
+                               f"{name}.json")) as f:
+            cfg = json.load(f)
+        rank = int(cfg["rank"])
+        (u, i, rt), (U, V) = bench_data.inputs(cfg, seed + 2 ** 31, dev)
+        data = als.prepare_ratings(u, i, rt, int(cfg["n_users"]),
+                                   int(cfg["n_items"]), on_device=True,
+                                   device=dev)
+        del u, i, rt
+        for side_name, side, other in (("users", data.by_user, V),
+                                       ("items", data.by_item, U)):
+            s = als._device_side(side, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pieces = gram_fused.plan(s.self_idx, s.n_self)
+            plan_s = time.perf_counter() - t0
+            present = (s.self_idx < s.n_self).to(torch.float32)
+            args = (other, s.self_idx, s.other_idx, present, s.rating,
+                    s.n_self, GRAM_CHUNK)
+            chunks = als.gram_plan(s.self_idx, GRAM_CHUNK)
+
+            def call():
+                return als.gram_rhs(*args, pieces)
+
+            def plain():
+                return als.gram_rhs_plain(*args, chunks)
+
+            gap = _gram_check(f"{name} {side_name}", other, s.self_idx,
+                              s.other_idx, present, s.rating, s.n_self,
+                              pieces, chunks)
+            per, _wall = _device_profile(lambda: [call() for _ in range(5)])
+            body = [us for key, (us, _n) in per.items() if "gram_" in key]
+            n = int(data.nnz)
+            n_other = int(other.shape[0])
+            row = {"cell": name, "side": side_name, "n": n,
+                   "n_self": s.n_self, "n_other": n_other, "r": rank,
+                   "pieces": pieces.pieces, "multi_rows": pieces.multi,
+                   "launches": gram_fused.launches_per_gram(pieces),
+                   "plan_s": plan_s, "max_gap": gap,
+                   "ms": _time_ms(call, reps=20, warm=3),
+                   "body_ms": sum(body) / 5 / 1e3 if body else None,
+                   "plain_ms": _time_ms(plain, reps=3, warm=1),
+                   "bound_ms": gram_bound.least_s(n, s.n_self, n_other,
+                                                  rank, peaks) * 1e3,
+                   "bound_by": gram_bound.bound_by(n, s.n_self, n_other,
+                                                   rank, peaks)}
+            rows.append(row)
+            body_s = (f"{row['body_ms']:.4f} ms" if row["body_ms"]
+                      is not None else "not measured")
+            print(f"kernel: gram_fused {name} {side_name} ({n} ratings, "
+                  f"{s.n_self} rows, r={rank}, {row['pieces']} pieces, "
+                  f"{row['multi_rows']} rows of several) == plain within "
+                  f"{gap:.3g} of the magnitudes (limit {GRAM_TOL:.3g}), a "
+                  f"rerun bit for bit, A symmetric; call {row['ms']:.4f} "
+                  f"ms (device body {body_s}), plain {row['plain_ms']:.4f} "
+                  f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+                  f"plan {plan_s:.3f} s", flush=True)
+            del s, present, args, chunks, pieces
+            torch.cuda.empty_cache()
+        del data, U, V
+        torch.cuda.empty_cache()
+    rows += _gram_foldin_rows(seed, dev)
+    return rows
+
+
+def _gram_foldin_rows(seed: int, dev: torch.device):
+    """Kernel G as a fold-in tick runs it (``foldin.foldin_solve``): int64
+    rows, ``other_idx = arange``, rank 10, at each bucket, with the tick's
+    plan and with none, against the plain Gram; the tick's Gram timed
+    with its plan built on the device, beside the plain version."""
+    rng = np.random.default_rng(seed + 11)
+    V = rng.normal(size=(N_ITEMS, FOLD_RANK)).astype(np.float32)
+    rows = []
+    for bucket in (1, 8, 64):
+        t, s, o, present, rating, _counts = _fold_inputs(V, bucket, seed,
+                                                         dev)
+        nnz = int(s.shape[0])
+        where = f"fold-in bucket {bucket}"
+        gap = max(_gram_check(where + " (the tick's plan)", t, s, o,
+                              present, rating, bucket,
+                              foldin.tick_gram_plan(s, bucket)),
+                  _gram_check(where + " (no plan)", t, s, o, present,
+                              rating, bucket, None))
+
+        def tick():
+            return als.gram_rhs(t, s, o, present, rating, bucket, nnz,
+                                foldin.tick_gram_plan(s, bucket))
+
+        row = {"cell": "foldin", "side": f"bucket {bucket}", "n": nnz,
+               "n_self": bucket, "r": FOLD_RANK,
+               "launches": gram_fused.launches_per_gram(
+                   foldin.tick_gram_plan(s, bucket)),
+               "max_gap": gap, "ms": _time_ms(tick, reps=50, warm=5),
+               "plain_ms": _time_ms(
+                   lambda: als.gram_rhs_plain(t, s, o, present, rating,
+                                              bucket, nnz), reps=20,
+                   warm=3)}
+        rows.append(row)
+        print(f"kernel: gram_fused fold-in bucket {bucket} ({nnz} slots, "
+              f"r={FOLD_RANK}, int64 rows) == plain within {gap:.3g} of the "
+              f"magnitudes with the tick's plan and with none, a rerun bit "
+              f"for bit, A symmetric; {row['launches']} launch a Gram; the "
+              f"tick's Gram with its plan {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms", flush=True)
+    return rows
+
+
 def _rmse_and_iterations(td, model, params: dict, dev: torch.device,
                          profile: bool = True):
     """The RMSE of the seed factors and of the trained ``model`` on the
@@ -1032,6 +1212,33 @@ def _rmse_and_iterations(td, model, params: dict, dev: torch.device,
     return rmse0, rmse1, ms_iter, per, pwall
 
 
+def _gram_train_layout(td, model, dev: torch.device):
+    """Kernel G on the train's layout (ratings ``td``, encoded with the
+    model's vocabularies) and the trained factors, both sides, against
+    the plain Gram (:func:`_gram_check`); returns the largest gap and the
+    kernel G launches one iteration of the train makes."""
+    data = als.prepare_ratings(td.user_idx, td.item_idx, td.rating,
+                               len(model.user_vocab), len(model.item_vocab),
+                               on_device=True, device=dev)
+    U = torch.from_numpy(model.user_factors).to(dev)
+    V = torch.from_numpy(model.item_factors).to(dev)
+    gap, per_iter = 0.0, 0
+    for name, side, other in (("users", data.by_user, V),
+                              ("items", data.by_item, U)):
+        s = als._device_side(side, dev)
+        pieces = gram_fused.plan(s.self_idx, s.n_self)
+        per_iter += gram_fused.launches_per_gram(pieces)
+        gap = max(gap, _gram_check(
+            f"the train's layout, {name} (r={other.shape[1]})", other,
+            s.self_idx, s.other_idx, (s.self_idx < s.n_self).float(),
+            s.rating, s.n_self, pieces,
+            als.gram_plan(s.self_idx, GRAM_CHUNK)))
+        del s, pieces
+    del data, U, V
+    torch.cuda.empty_cache()
+    return gap, per_iter
+
+
 def phase_train(work: str, seed: int, dev: torch.device):
     """``pio train --synthetic 20000263`` through the port's CLI, twice
     from one seed; returns the stored instance and the run's numbers."""
@@ -1047,11 +1254,13 @@ def phase_train(work: str, seed: int, dev: torch.device):
 
     solve.reset_launches()               # the train path starts here
     topk_fused.reset_launches()
+    gram_fused.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = solve.launches            # the train path ends here
+    gram_launches = gram_fused.launches
     if rc != 0:
         raise AssertionError(f"pio train exited {rc}")
     if launches != 2 * iters:
@@ -1090,6 +1299,13 @@ def phase_train(work: str, seed: int, dev: torch.device):
     # RMSE, ms per iteration and idle share on the same synthetic data
     td = synthetic.training_data(N_RATINGS, seed=seed, stream=False,
                                  device=dev)
+    gram_gap, gram_per_iter = _gram_train_layout(td, model, dev)
+    # one kernel G a half-step, and its finishing pass on a side with a
+    # row of several pieces
+    if gram_launches != iters * gram_per_iter:
+        raise AssertionError(f"gram_fused launched {gram_launches} times "
+                             f"in {iters} iterations (want "
+                             f"{iters * gram_per_iter})")
     rmse0, rmse1, ms_iter, per, pwall = _rmse_and_iterations(
         td, model, params, dev)
     busy_ms = sum(us for us, _n in per.values()) / 1e3
@@ -1099,7 +1315,10 @@ def phase_train(work: str, seed: int, dev: torch.device):
            "rank": rank, "iterations": iters, "wall_s": wall,
            "phases_s": phases, "ms_per_iteration": ms_iter,
            "rmse_before": rmse0, "rmse_after": rmse1,
-           "solve_gj_launches": launches, "bit_identical_retrain": True,
+           "solve_gj_launches": launches,
+           "gram_fused_launches": gram_launches,
+           "gram_fused_max_gap": gram_gap,
+           "bit_identical_retrain": True,
            "profiled_iteration_ms": pwall * 1e3,
            "device_busy_ms": busy_ms if per else None,
            "idle_share": idle,
@@ -1108,7 +1327,9 @@ def phase_train(work: str, seed: int, dev: torch.device):
           f"rank {rank}, {iters} iterations; phases "
           + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
           + f"; {ms_iter:.1f} ms per iteration; RMSE {rmse0:.4f} -> "
-          f"{rmse1:.4f}; solve_gj launched {launches} times; the second "
+          f"{rmse1:.4f}; solve_gj launched {launches} times, gram_fused "
+          f"{gram_launches} (== plain within {gram_gap:.3g} on this "
+          "layout); the second "
           "train from the seed, in-core, is bit-identical", flush=True)
     idle_s = (f"{idle:.4f}" if idle is not None
               else "not measured (no device events recorded)")
@@ -3991,6 +4212,7 @@ def _deploy_checked(engine_dir: str, iid: str, queries) -> dict:
 
 FOLD_KEY = "smoke-foldin-key"
 FOLD_NEW_USERS, FOLD_RATINGS = 64, 20          # unseen users, ratings each
+FOLD_RANK = 10                                 # the trained model's rank
 FOLD_TRAINED_USERS, FOLD_TRAINED_RATINGS = 8, 5
 FOLD_NEW_ITEMS, FOLD_ITEM_RATERS = 4, 30       # unseen items, their raters
 FOLD_HEADROOM, FOLD_HEADROOM_USERS = 8, 16     # the exhausted deploy
@@ -3998,10 +4220,11 @@ FOLD_BURST = 256                               # queries around a /reload
 FOLD_DEADLINE_S = 120.0
 
 
-def _fold_systems(V: np.ndarray, bucket: int, seed: int, dev):
-    """Kernel A's inputs at one fold-in bucket, as a tick builds them: a
-    full bucket of users with FOLD_RATINGS ratings each on the trained
-    items, 256 slots a row (foldin.max_events_per_user)."""
+def _fold_inputs(V: np.ndarray, bucket: int, seed: int, dev):
+    """A tick's Gram inputs at one fold-in bucket, as ``foldin_solve``
+    gets them: a full bucket of users with FOLD_RATINGS ratings each on
+    rows of ``V``, 256 slots a row (foldin.max_events_per_user), int64
+    rows, ``other_idx = arange`` and presence weights; and the counts."""
     rng = np.random.default_rng(seed + bucket)
     me = foldin.max_events_per_user()
     nnz_pad = bucket * me
@@ -4013,24 +4236,35 @@ def _fold_systems(V: np.ndarray, bucket: int, seed: int, dev):
     self_idx[:n] = np.repeat(np.arange(bucket), FOLD_RATINGS)
     rating[:n] = rng.integers(1, 11, size=n) / 2
     counts = np.full((bucket,), FOLD_RATINGS, np.int32)
-    t = [torch.from_numpy(a).to(dev)
-         for a in (item_rows, self_idx, rating, counts)]
-    A, b = als.gram_rhs(t[0], t[1], torch.arange(nnz_pad, device=dev),
-                        (t[1] < bucket).to(torch.float32), t[2], bucket,
-                        nnz_pad)
-    return A.contiguous(), b.contiguous(), als._reg_vec(t[3], bucket, 0.01,
+    rows, s, r, c = [torch.from_numpy(a).to(dev)
+                     for a in (item_rows, self_idx, rating, counts)]
+    return (rows, s, torch.arange(nnz_pad, device=dev),
+            (s < bucket).to(torch.float32), r, c)
+
+
+def _fold_systems(V: np.ndarray, bucket: int, seed: int, dev):
+    """Kernel A's inputs at one fold-in bucket, as a tick builds them
+    (:func:`_fold_inputs`, the Gram over the tick's plan)."""
+    rows, s, o, present, rating, counts = _fold_inputs(V, bucket, seed, dev)
+    A, b = als.gram_rhs(rows, s, o, present, rating, bucket, s.shape[0],
+                        foldin.tick_gram_plan(s, bucket))
+    return A.contiguous(), b.contiguous(), als._reg_vec(counts, bucket, 0.01,
                                                         "count")
 
 
 def _foldin_plain(item_rows, self_idx, rating, counts, lambda_, n_self,
                   chunk, reg_scaling):
     """``foldin.foldin_solve`` with kernel A's plain version on the same
-    device: the Gram, the floor and the sweep of the tick."""
+    device: the tick's Gram (kernel G over the tick's plan, first held to
+    the plain Gram by :func:`_gram_check`), the floor and the sweep."""
     dev = item_rows.device
     present = (self_idx < n_self).to(torch.float32)
-    A, b = als.gram_rhs(item_rows, self_idx,
-                        torch.arange(item_rows.shape[0], device=dev),
-                        present, rating, n_self, chunk)
+    other_idx = torch.arange(item_rows.shape[0], device=dev)
+    plan = foldin.tick_gram_plan(self_idx, n_self)
+    _gram_check(f"a tick of {n_self} rows", item_rows, self_idx, other_idx,
+                present, rating, n_self, plan)
+    A, b = als.gram_rhs(item_rows, self_idx, other_idx, present, rating,
+                        n_self, chunk, plan)
     reg = als._reg_vec(counts, n_self, lambda_, reg_scaling)
     return solve.solve_gj_plain(A.contiguous(), b.contiguous(), reg)
 
@@ -8166,7 +8400,7 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    secs = _kernels.build("topk_fused", "solve_gj")
+    secs = _kernels.build("topk_fused", "solve_gj", "gram_fused")
     for name, took in secs.items():
         print(f"build: {name} {took:.2f} s (nvcc, both started together)",
               flush=True)
@@ -8188,6 +8422,7 @@ def main(argv=None) -> int:
         qs, U, V, args.seed)
     del qs, qf, U, V
     rows_a, worst_a = phase_solve(args.seed, dev)
+    rows_g = phase_gram(args.seed, dev)
     work = tempfile.mkdtemp(prefix="pio_chip_smoke_")
     try:
         store, iid, users, train = phase_train(work, args.seed, dev)
@@ -8346,6 +8581,22 @@ def main(argv=None) -> int:
         "store": store_out,
         "remote": remote_out,
         "observe": observe["profiled_train"],
+        "card": smi,
+    }, {
+        "name": "gram_fused",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/gram_fused.cu",
+        "replaces": "predictionio_tpu_torch/ops/als.py::gram_rhs_plain "
+                    "(no TPU kernel: the JAX package's Gram is XLA's)",
+        "launches": train["gram_fused_launches"],
+        "max_gap": max(row["max_gap"] for row in rows_g),
+        "ms": rows_g[0]["ms"],
+        "body_ms": rows_g[0]["body_ms"],
+        "plain_ms": rows_g[0]["plain_ms"],
+        "bound_ms": rows_g[0]["bound_ms"],
+        "bound_by": rows_g[0]["bound_by"],
+        "shape": {k: rows_g[0][k] for k in ("cell", "side", "n", "r")},
+        "by_shape": rows_g,
         "card": smi,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

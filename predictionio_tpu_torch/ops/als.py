@@ -22,15 +22,19 @@ dense bf16 MXU matmuls plus a csrb tail). All three compute the same
 per-row sums; csrb and hybrid are TPU memory layouts of them, and
 ``_split_hilo`` exists only to keep the MXU's bf16 passes accurate. The
 port accepts the three names, refuses any other with the reference's
-message, and runs one fp32 chunked Gram for all of them, so
-``_split_hilo``, ``csrb_layout`` and the hybrid layout have no
-counterpart.
+message, and runs one fp32 Gram for all of them, so ``_split_hilo``,
+``csrb_layout`` and the hybrid layout have no counterpart. On a CUDA
+tensor :func:`gram_rhs` launches kernel G (``ops/gram_fused.py``,
+``csrc/gram_fused.cu``), which gathers, multiplies and sums each row's
+entries on chip and never touches the padding; elsewhere it runs
+:func:`gram_rhs_plain`, a chunked Gram in plain torch.
 
 Determinism. Float ``index_add_``/``scatter_add_`` use atomics on CUDA,
-whose order changes from run to run. :func:`gram_rhs` instead reduces
+whose order changes from run to run. Neither Gram uses them: kernel G
+sums every row in an order its plan fixes, and the plain Gram reduces
 each chunk's runs of equal rows with ``torch.segment_reduce`` (sums in a
 fixed order, long runs in two levels of fixed-size pieces) and adds each
-partial into the accumulator with no duplicate index, so two trains from
+partial into the accumulator with no duplicate index. So two trains from
 one seed, and a checkpoint resume, are bit-identical on the card.
 """
 
@@ -45,12 +49,13 @@ import torch
 
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch.common import devicewatch, tracing
+from predictionio_tpu_torch.ops import gram_fused
 from predictionio_tpu_torch.ops.solve import solve_factors
 
 __all__ = [
     "COOSide", "ALSData", "group_coo", "prepare_ratings", "bucket_units",
-    "declared_nnz_pad", "gram_rhs", "solve_factors", "init_factors",
-    "train_explicit", "train_implicit", "rmse",
+    "declared_nnz_pad", "gram_rhs", "gram_rhs_plain", "solve_factors",
+    "init_factors", "train_explicit", "train_implicit", "rmse",
 ]
 
 _EPS = 1e-8
@@ -78,7 +83,7 @@ class COOSide:
 @dataclass
 class ALSData:
     """Both orientations of the ratings. ``_cache`` holds the trainers'
-    per-device tensors and chunk plans (built once per layout)."""
+    per-device tensors and Gram plans (built once per layout)."""
     by_user: COOSide
     by_item: COOSide
     n_users: int
@@ -195,7 +200,7 @@ def _kernel_flag(kernel: Optional[str]) -> str:
 
 
 #: longest run one reduction thread sums; longer runs are split in pieces
-_PIECE = 512
+_PIECE = gram_fused.PIECE
 
 
 @dataclass
@@ -237,7 +242,7 @@ def gram_plan(self_idx: torch.Tensor, chunk: int) -> List[GramChunk]:
     return plan
 
 
-def gram_rhs(
+def gram_rhs_plain(
     other_factors: torch.Tensor,   # (n_other, r)
     self_idx: torch.Tensor,        # (nnz_pad,) sorted, padded with n_self
     other_idx: torch.Tensor,       # (nnz_pad,)
@@ -247,7 +252,7 @@ def gram_rhs(
     chunk: int,
     plan: Optional[List[GramChunk]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``A_s = sum_n a_n v_n v_n^T`` and ``b_s = sum_n b_n v_n`` per row.
+    """The plain version of :func:`gram_rhs`, in torch on any device.
 
     Chunked so at most (chunk, r*r + r) of flattened outer products
     exists at once, into an (n_self + 1, r*r + r) fp32 accumulator whose
@@ -285,6 +290,39 @@ def gram_rhs(
     return A, b
 
 
+def gram_rhs(
+    other_factors: torch.Tensor,   # (n_other, r)
+    self_idx: torch.Tensor,        # (nnz_pad,) sorted, padded with n_self
+    other_idx: torch.Tensor,       # (nnz_pad,)
+    coeff_a: torch.Tensor,         # (nnz_pad,) per-entry Gram weight
+    coeff_b: torch.Tensor,         # (nnz_pad,) per-entry RHS weight
+    n_self: int,
+    chunk: int,
+    plan: "Optional[List[GramChunk] | gram_fused.GramPieces]" = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``A_s = sum_n a_n v_n v_n^T`` and ``b_s = sum_n b_n v_n`` per row,
+    as (n_self, r, r) and (n_self, r).
+
+    On a CUDA tensor, kernel G over ``plan`` (:func:`_plan_for`'s
+    ``GramPieces``; without one, a plan is built on the device with no
+    host sync); a launch that fails raises. Elsewhere
+    :func:`gram_rhs_plain` over ``plan``'s chunks of ``chunk`` entries.
+
+    PRECONDITION: ``self_idx`` is nondecreasing (as
+    :func:`prepare_ratings` lays it out), in [0, n_self], and
+    ``other_idx`` holds in-bounds rows of ``other_factors``
+    (:func:`prepare_ratings` pads it with row 0)."""
+    if other_factors.device.type == "cuda":
+        if not isinstance(plan, gram_fused.GramPieces):
+            plan = gram_fused.plan(self_idx, n_self, exact=False)
+        return gram_fused.launch(
+            other_factors.contiguous(), other_idx.contiguous(),
+            coeff_a.contiguous(), coeff_b.contiguous(), plan)
+    return gram_rhs_plain(other_factors, self_idx, other_idx, coeff_a,
+                          coeff_b, n_self, chunk,
+                          plan if isinstance(plan, list) else None)
+
+
 def _reg_vec(counts: torch.Tensor, n_self: int, lambda_: float,
              reg_scaling: str) -> torch.Tensor:
     """MLlib ALS-WR regularization: ``lambda * n_ratings(row)`` or
@@ -305,19 +343,44 @@ def _solve(A: torch.Tensor, b: torch.Tensor, reg: torch.Tensor):
 _UNTAGGED: Tuple[dict, dict] = ({}, {})
 
 
+def _gram_weights(side_idx, side_rating, n_self, alpha=None):
+    """A half-step's per-entry Gram and right-hand-side weights, which
+    depend on the layout alone: presence and the rating (explicit), or
+    the confidence ``alpha |r|`` and ``(1 + conf) p`` with preference p = 1
+    iff r > 0 (implicit, ``alpha`` given)."""
+    if alpha is None:
+        # Presence weight: a genuine 0.0 rating is still an observation,
+        # so presence is self_idx < n_self (padding rows use n_self).
+        return (side_idx < n_self).to(torch.float32), side_rating
+    conf = alpha * torch.abs(side_rating)
+    pref = (side_rating > 0).to(torch.float32)
+    return conf, (1.0 + conf) * pref
+
+
+def _half_step(other, side_idx, side_other, n_self, chunk, weights, reg,
+               plan=None, tags=_UNTAGGED, implicit=False):
+    """One half-step from the side's Gram ``weights``
+    (:func:`_gram_weights`) and ridge ``reg`` (:func:`_reg_vec`), which a
+    trainer works out once a train; ``implicit`` adds ``Y'Y``. ``tags``
+    are the attrs of its two spans, ``als.gram`` and ``als.solve``
+    (:func:`_span_tags`)."""
+    YtY = other.T @ other if implicit else None
+    ca, cb = weights
+    with tracing.span("als.gram", **tags[0]):
+        A, b = gram_rhs(other, side_idx, side_other, ca, cb, n_self, chunk,
+                        plan)
+    with tracing.span("als.solve", **tags[1]):
+        return _solve(A if YtY is None else YtY[None] + A, b, reg)
+
+
 def _half_step_explicit(other, side_idx, side_other, side_rating, counts,
                         n_self, lambda_, chunk, reg_scaling, plan=None,
                         tags=_UNTAGGED):
-    """One explicit half-step; ``tags`` are the attrs of its two spans,
-    ``als.gram`` and ``als.solve`` (:func:`_span_tags`)."""
-    # Presence weight: a genuine 0.0 rating is still an observation, so
-    # presence is self_idx < n_self (padding rows use n_self).
-    present = (side_idx < n_self).to(torch.float32)
-    with tracing.span("als.gram", **tags[0]):
-        A, b = gram_rhs(other, side_idx, side_other, present, side_rating,
-                        n_self, chunk, plan)
-    with tracing.span("als.solve", **tags[1]):
-        return _solve(A, b, _reg_vec(counts, n_self, lambda_, reg_scaling))
+    """One explicit half-step (:func:`_half_step` with presence weights)."""
+    return _half_step(other, side_idx, side_other, n_self, chunk,
+                      _gram_weights(side_idx, side_rating, n_self),
+                      _reg_vec(counts, n_self, lambda_, reg_scaling), plan,
+                      tags)
 
 
 def _half_step_implicit(other, side_idx, side_other, side_rating, counts,
@@ -326,15 +389,10 @@ def _half_step_implicit(other, side_idx, side_other, side_rating, counts,
     """Hu-Koren-Volinsky: ``A_u = Y'Y + Y'(C_u - I)Y``, ``b_u = Y'C_u p_u``,
     confidence from |r| and preference p = 1 iff r > 0 (MLlib's
     trainImplicit for signed ratings). Spans as in the explicit step."""
-    YtY = other.T @ other
-    conf = alpha * torch.abs(side_rating)
-    pref = (side_rating > 0).to(torch.float32)
-    with tracing.span("als.gram", **tags[0]):
-        A_corr, b = gram_rhs(other, side_idx, side_other, conf,
-                             (1.0 + conf) * pref, n_self, chunk, plan)
-    with tracing.span("als.solve", **tags[1]):
-        return _solve(YtY[None] + A_corr, b,
-                      _reg_vec(counts, n_self, lambda_, reg_scaling))
+    return _half_step(other, side_idx, side_other, n_self, chunk,
+                      _gram_weights(side_idx, side_rating, n_self, alpha),
+                      _reg_vec(counts, n_self, lambda_, reg_scaling), plan,
+                      tags, implicit=True)
 
 
 # ---------------------------------------------------------------------------
@@ -424,12 +482,29 @@ def _device_side(side: COOSide, device: torch.device) -> COOSide:
                    n_self=side.n_self, n_other=side.n_other)
 
 
-def _span_tags(side: str, n_self: int, plan: List[GramChunk],
+def _plan_for(self_idx: torch.Tensor, n_self: int, chunk: int
+              ) -> "gram_fused.GramPieces | List[GramChunk]":
+    """The plan :func:`gram_rhs` takes over one layout on its device,
+    built once per layout: kernel G's pieces on the card (one host sync),
+    the plain Gram's chunks elsewhere (one per chunk)."""
+    if self_idx.device.type == "cuda":
+        return gram_fused.plan(self_idx, n_self)
+    return gram_plan(self_idx, chunk)
+
+
+def _span_tags(side: str, n_self: int,
+               plan: "gram_fused.GramPieces | List[GramChunk]",
                nnz: int) -> Tuple[dict, dict]:
     """The attrs of a half-step's ``als.gram`` span (the chunks, the
-    entries the Gram loops over, padding included, and of those the
-    padding, ``self_idx == n_self``) and of its ``als.solve`` span (the
-    rows solved), from host integers of the layout and its plan."""
+    entries the Gram loops over and of those the padding, ``self_idx ==
+    n_self``) and of its ``als.solve`` span (the rows solved), from host
+    integers of the layout and its plan. Kernel G's chunks are its
+    pieces, and it loops over the real entries alone; the plain Gram
+    loops over whole chunks, padding included."""
+    if isinstance(plan, gram_fused.GramPieces):
+        return ({"side": side, "chunks": plan.pieces,
+                 "entries": plan.entries, "padding": 0},
+                {"side": side, "rows": n_self})
     entries = sum(ch.stop - ch.start for ch in plan)
     return ({"side": side, "chunks": len(plan), "entries": entries,
              "padding": entries - nnz},
@@ -437,7 +512,7 @@ def _span_tags(side: str, n_self: int, plan: List[GramChunk],
 
 
 def _prepared(data: ALSData, chunk: int, device: torch.device):
-    """The layout's sides on ``device``, their chunk plans and their span
+    """The layout's sides on ``device``, their Gram plans and their span
     tags, cached on ``data`` (a retrain over the same layout skips
     all three)."""
     key = ("sides", str(device), chunk)
@@ -447,7 +522,7 @@ def _prepared(data: ALSData, chunk: int, device: torch.device):
         got = []
         for name, s in (("users", data.by_user), ("items", data.by_item)):
             s = _device_side(s, device)
-            plan = gram_plan(s.self_idx, chunk)
+            plan = _plan_for(s.self_idx, s.n_self, chunk)
             got.append((s, plan, _span_tags(name, s.n_self, plan,
                                             data.nnz)))
         data._cache[key] = got
@@ -466,15 +541,17 @@ def _train(data: ALSData, rank, iterations, lambda_, alpha, seed, chunk,
                                device=dev)
     u0, v0 = _factors_on(u0, dev), _factors_on(v0, dev)
 
-    def half(other, side, plan, tags):
-        if implicit:
-            return _half_step_implicit(
-                other, side.self_idx, side.other_idx, side.rating,
-                side.counts, side.n_self, lambda_, alpha, chunk,
-                reg_scaling, plan, tags)
-        return _half_step_explicit(
-            other, side.self_idx, side.other_idx, side.rating, side.counts,
-            side.n_self, lambda_, chunk, reg_scaling, plan, tags)
+    def fixed(side):
+        """What a half-step needs of its side and no iteration changes."""
+        return (_gram_weights(side.self_idx, side.rating, side.n_self,
+                              alpha if implicit else None),
+                _reg_vec(side.counts, side.n_self, lambda_, reg_scaling))
+
+    fu, fi = fixed(bu), fixed(bi)
+
+    def half(other, side, plan, tags, weights_reg):
+        return _half_step(other, side.self_idx, side.other_idx, side.n_self,
+                          chunk, *weights_reg, plan, tags, implicit)
 
     def run(U, V, n_iters):
         # a kernel build or load in the trainer shows up as
@@ -483,8 +560,8 @@ def _train(data: ALSData, rank, iterations, lambda_, alpha, seed, chunk,
                 "als_train_implicit" if implicit else "als_train_explicit",
                 phase="train"):
             for _ in range(n_iters):
-                U = half(V, bu, pu, tu)
-                V = half(U, bi, pi, ti)
+                U = half(V, bu, pu, tu, fu)
+                V = half(U, bi, pi, ti, fi)
         return U, V
 
     return _run_segmented(run, u0, v0, iterations, checkpoint_every,

@@ -41,8 +41,8 @@ import torch
 
 from predictionio_tpu_torch.common import devicewatch
 from predictionio_tpu_torch.ops.als import (
-    ALSData, COOSide, _half_step_explicit, _half_step_implicit,
-    _kernel_flag, _run_segmented, _seed_factors, bucket_units, gram_plan,
+    ALSData, COOSide, _gram_weights, _half_step, _kernel_flag, _plan_for,
+    _reg_vec, _run_segmented, _seed_factors, bucket_units,
 )
 from predictionio_tpu_torch.parallel.mesh import Mesh, all_gather_blocks
 
@@ -337,7 +337,10 @@ def _train_sharded(
         for d in slots:
             s, o, r, c = _slot_arrays(side, d, dev)
             ch = max(min(chunk, int(s.shape[0])), 1)
-            out[d] = (s, o, r, c, ch, gram_plan(s, ch))
+            fixed = (_gram_weights(s, r, side.rows_dev,
+                                   alpha if implicit else None),
+                     _reg_vec(c, side.rows_dev, lambda_, reg_scaling))
+            out[d] = (s, o, ch, _plan_for(s, side.rows_dev, ch), fixed)
         return out
 
     u_state, i_state = slot_state(su), slot_state(si)
@@ -346,15 +349,9 @@ def _train_sharded(
 
     def half(other, side: ShardedSide, state):
         blocks = {}
-        for d, (s, o, r, c, ch, plan) in state.items():
-            if implicit:
-                blocks[d] = _half_step_implicit(
-                    other, s, o, r, c, side.rows_dev, lambda_, alpha, ch,
-                    reg_scaling, plan)
-            else:
-                blocks[d] = _half_step_explicit(
-                    other, s, o, r, c, side.rows_dev, lambda_, ch,
-                    reg_scaling, plan)
+        for d, (s, o, ch, plan, (w, reg)) in state.items():
+            blocks[d] = _half_step(other, s, o, side.rows_dev, ch, w, reg,
+                                   plan, implicit=implicit)
         return all_gather_blocks(mesh, blocks)
 
     if u0 is None or v0 is None:

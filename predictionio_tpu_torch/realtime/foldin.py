@@ -73,7 +73,7 @@ import torch
 
 from predictionio_tpu_torch import device as device_mod
 from predictionio_tpu_torch.common import devicewatch, journal, telemetry
-from predictionio_tpu_torch.ops import als
+from predictionio_tpu_torch.ops import als, gram_fused
 from predictionio_tpu_torch.ops.solve import solve_factors
 
 logger = logging.getLogger("predictionio_tpu_torch.foldin")
@@ -270,14 +270,28 @@ def foldin_solve(
     ``item_rows`` arrive pre-gathered (the worker gathers from its host
     fp32 copy), so the shapes depend only on the bucket and the history
     cap, never on the model. ``self_idx`` must be nondecreasing, padding
-    slots at ``n_self``. Returns (n_self, r) on the inputs' device."""
+    slots at ``n_self``; a row holds at most :func:`max_events_per_user`
+    entries, the tick's history cap. Returns (n_self, r) on the inputs'
+    device."""
     nnz = item_rows.shape[0]
-    other_idx = torch.arange(nnz, device=item_rows.device)
+    dev = item_rows.device
+    other_idx = torch.arange(nnz, device=dev)
     present = (self_idx < n_self).to(torch.float32)
     A, b = als.gram_rhs(item_rows, self_idx, other_idx, present, rating,
-                        n_self, chunk)
+                        n_self, chunk, tick_gram_plan(self_idx, n_self))
     reg = als._reg_vec(counts, n_self, lambda_, reg_scaling)
     return solve_factors(A.contiguous(), b.contiguous(), reg)
+
+
+def tick_gram_plan(self_idx: torch.Tensor, n_self: int
+                   ) -> Optional[gram_fused.GramPieces]:
+    """Kernel G's plan for a tick's batch on the card (None elsewhere, for
+    the plain Gram): built on the device with no host sync, one piece a
+    row, since a row holds at most :func:`max_events_per_user` entries."""
+    if self_idx.device.type != "cuda":
+        return None
+    return gram_fused.plan(self_idx, n_self, exact=False,
+                           max_row=max_events_per_user())
 
 
 def scatter_user_rows(U: torch.Tensor, ixs: torch.Tensor,

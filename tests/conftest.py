@@ -39,6 +39,10 @@ def pytest_configure(config):
         "chaos: fault-injection / crash-recovery suite (tests marked ONLY "
         "chaos are the fast smoke subset and run in tier-1; the heavy "
         "legs carry chaos+slow and run with `-m chaos`)")
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA card; skips without one (the card's machine "
+        "runs such a file alone, with --noconftest: it imports no JAX)")
 
 
 @pytest.fixture()
